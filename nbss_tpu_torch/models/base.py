@@ -8,7 +8,9 @@ with ``param_dtype=float32, dtype=bf16``. Normalizations take their
 statistics in float32, with var = E[x^2] - E[x]^2 and eps 1e-5.
 
 Initialization follows torch's Linear/Conv defaults (uniform with bound
-1/sqrt(fan_in)) and draws from an explicit ``torch.Generator``.
+1/sqrt(fan_in)) and draws from an explicit ``torch.Generator``. Each block's
+``reset_parameters(generator)`` draws its own parameters (not its
+children's), so ``init_parameters`` can draw a whole model anew.
 """
 
 from __future__ import annotations
@@ -21,8 +23,19 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
+@torch.no_grad()
+def _uniform_(p: nn.Parameter, bound: float, generator: Optional[torch.Generator]) -> None:
+    """Draw p uniformly in [-bound, bound] on the CPU from ``generator``."""
+    p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+
+def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Draw every parameter of ``module`` anew from ``generator``: each
+    submodule's ``reset_parameters``, in the order of ``module.modules()``
+    (a shared submodule once)."""
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
 
 
 class Linear(nn.Module):
@@ -31,9 +44,14 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_features)
-        self.weight = _uniform((out_features, in_features), bound, generator)
-        self.bias = _uniform((out_features,), bound, generator)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
@@ -46,11 +64,15 @@ class Conv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  groups: int = 1, generator: Optional[torch.Generator] = None):
         super().__init__()
-        fan_in = in_channels // groups * kernel_size
-        bound = 1.0 / math.sqrt(fan_in)
         self.groups, self.kernel_size = groups, kernel_size
-        self.weight = _uniform((out_channels, in_channels // groups, kernel_size), bound, generator)
-        self.bias = _uniform((out_channels,), bound, generator)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.kernel_size)  # fan_in
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
         w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
@@ -68,7 +90,12 @@ class PReLU(nn.Module):
 
     def __init__(self, num_parameters: int, init: float = 0.25):
         super().__init__()
+        self.init = init
         self.weight = nn.Parameter(torch.full((num_parameters,), init))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(self.init)
 
     def forward(self, x):
         return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
@@ -91,6 +118,11 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
 
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
     def forward(self, x):
         y = _norm_stats(x, (-1,), self.eps)
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
@@ -107,6 +139,11 @@ class GroupNorm(nn.Module):
         self.num_groups, self.eps = num_groups, eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
 
     def forward(self, x):
         *lead, S, H = x.shape
@@ -133,10 +170,15 @@ class LinearGroup(nn.Module):
     def __init__(self, in_features: int, out_features: int, num_groups: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_groups, out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(num_groups, out_features))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        G, F_out, F_in = self.weight.shape
         # the JAX package's fan_in for a [G, F_out, F_in] kernel is G * F_out
-        self.weight = _uniform((num_groups, out_features, in_features),
-                               1.0 / math.sqrt(num_groups * out_features), generator)
-        self.bias = _uniform((num_groups, out_features), 1.0 / math.sqrt(in_features), generator)
+        _uniform_(self.weight, 1.0 / math.sqrt(G * F_out), generator)
+        _uniform_(self.bias, 1.0 / math.sqrt(F_in), generator)
 
     def forward(self, x):
         y = torch.einsum("...gh,gkh->...gk", x, self.weight.to(x.dtype))
@@ -154,10 +196,16 @@ class MultiheadAttention(nn.Module):
         if embed_dim % num_heads:
             raise ValueError(f"{embed_dim} channels do not split into {num_heads} heads")
         self.num_heads = num_heads
-        bound = 1.0 / math.sqrt(embed_dim)
-        self.in_proj_weight = _uniform((3 * embed_dim, embed_dim), bound, generator)
-        self.in_proj_bias = _uniform((3 * embed_dim,), bound, generator)
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
+        self.reset_parameters(generator)
         self.out_proj = Linear(embed_dim, embed_dim, generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The packed in-projection; ``out_proj`` is a child with its own."""
+        bound = 1.0 / math.sqrt(self.in_proj_weight.shape[1])
+        _uniform_(self.in_proj_weight, bound, generator)
+        _uniform_(self.in_proj_bias, bound, generator)
 
     def forward(self, x):
         *lead, T, H = x.shape

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` file has a plain C interface and includes only CUDA
 headers, so the whole set compiles into one shared library in seconds, with
-no PyTorch headers and no ``ninja``. The library goes to ``build/kernels/``
-at the repository root, named by a hash of the sources and the flags, so a
-stale build is never loaded. The build happens at first use.
+no PyTorch headers and no ``ninja``: one ``nvcc -c`` per source, all started
+together, then one link. The library goes to ``build/kernels/`` at the
+repository root, named by a hash of the sources and the flags, so a stale
+build is never loaded. The build happens at first use.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 NVCC_TIMEOUT_S = 300
 
 _lib = None
@@ -31,7 +32,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, "-shared")).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -53,16 +54,34 @@ def build() -> float:
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, srcs, pid = _nvcc(), sources(), os.getpid()
+    objs = [BUILD_DIR / f"{out.stem}.{src.stem}.{pid}.o" for src in srcs]
+    tmp = out.with_suffix(f".{pid}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    try:
+        logs = [p.communicate(timeout=max(1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0)))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for src, p, (stdout, stderr) in zip(srcs, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({p.returncode}):\n{stdout}\n{stderr}")
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
-    print(f"[build] nvcc built {out.name} from {len(sources())} source(s) in "
-          f"{seconds:.1f} s\n{proc.stderr.strip()}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[build] nvcc built {out.name} from {len(srcs)} source(s) in parallel in "
+          f"{seconds:.1f} s\n" + "\n".join(err.strip() for _, err in logs), flush=True)
     return seconds
 
 
@@ -76,5 +95,10 @@ def library() -> ctypes.CDLL:
         lib.nbss_attention_block_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                                  ctypes.c_float, i, p]
         lib.nbss_attention_block_fwd.restype = i
+        lib.nbss_attention_block_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                                 ctypes.c_float, i, p]
+        lib.nbss_attention_block_bwd.restype = i
+        lib.nbss_attention_block_bwd_workspace_floats.argtypes = [i]
+        lib.nbss_attention_block_bwd_workspace_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib

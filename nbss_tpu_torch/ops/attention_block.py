@@ -1,7 +1,7 @@
 """Narrow-band attention block: ``y = x + out_proj(MHSA(LayerNorm(x)))``.
 
-Counterpart of ``nbss_tpu/ops/attention_block.py`` (forward only). The
-projections are folded into per-head operands exactly as there:
+Counterpart of ``nbss_tpu/ops/attention_block.py``, forward and backward.
+The projections are folded into per-head operands exactly as there:
 
     A_h   = Wq_h Wk_h^T / sqrt(dh)   (+ row H: Wk_h bq_h / sqrt(dh))
     Wvo_h = Wv_h Wo_h                (+ [H, H] = 1, the ones lane)
@@ -10,16 +10,26 @@ projections are folded into per-head operands exactly as there:
 so that ``y = x + sum_h softmax(xa A_h xa^T) (xa Wvo_h)[:, :H] + c`` with
 ``xa = [LN(x), 1, 0]``.
 
-``attention_block`` runs the hand-written CUDA kernel
-``csrc/attention_block.cu`` for a CUDA tensor and the plain PyTorch version
-``reference`` for a CPU tensor. The kernel replaces the Pallas TPU kernel
-``_fused_block`` (``_kernel``) of the JAX package. On an H100 it is bound by
+``attention_block`` is a ``torch.autograd.Function``. For a CUDA tensor its
+forward runs the hand-written CUDA kernel ``csrc/attention_block.cu`` and its
+backward ``csrc/attention_block_bwd.cu``; for a CPU tensor they run the plain
+PyTorch versions ``reference`` and ``reference_bwd``. The kernels replace the
+Pallas TPU kernels ``_fused_block`` (``_kernel``) and ``_fused_block_bwd``
+(``_bwd_kernel``) of the JAX package, and the backward returns what the JAX
+package's ``custom_vjp`` returns: dx in x's dtype, and dln, dA, dWvo, dc in
+float32. The fold is differentiable, so these reach the LayerNorm and
+attention parameters; the constant slots of A and Wvo (``A[:, H, H+1]``,
+``Wvo[:, H, H]`` and the pad lane) lead to no parameter, so their cotangents
+are dropped, as the JAX fold's ``.at[].set`` drops them. On an H100 it is bound by
 arithmetic, not by memory: at the flagship shape (M = B*F = 2064 sequences of
 T = 251 frames, H = 96, 4 heads) a call moves about 199 MB in bf16 but the
 folded function is about 283 GFLOP. The kernel keeps every intermediate (LN
 rows, scores, probabilities) in shared memory and sums the heads in
 registers, so it reads x once and writes y once; its arithmetic runs as fp32
-FMA in this first version (see the source for the layout).
+FMA in this first version (see the source for the layout). The backward
+recomputes the forward from (x, ln, A, Wvo) and keeps its cross-sequence
+sums in per-block float32 partials that a second kernel adds in a fixed
+order, so its result is deterministic.
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ NEG_INF = -1e30
 KERNEL_H = 96  # channels the kernel is compiled for
 KERNEL_TMAX = 256  # longest sequence the kernel holds in shared memory
 
-launches = 0  # kernel launches made by attention_block since import
+launches = 0  # forward kernel launches made by attention_block since import
+bwd_launches = 0  # backward kernel launches made by attention_block since import
 
 
 def fold_weights(ln_weight, ln_bias, in_proj_weight, in_proj_bias,
@@ -89,34 +100,84 @@ def reference(x, ln, A, Wvo, c, eps: float, nh: int):
     return (o[..., :H] + c[0] + xf).to(dt)
 
 
-def attention_block(x, ln, A, Wvo, c, eps: float, nh: int):
-    """x [M, T, H] (float32 or bfloat16) -> y of the same shape and dtype.
+def reference_bwd(x, ln, A, Wvo, g, eps: float, nh: int):
+    """Plain PyTorch adjoint of the folded block, step by step as the JAX
+    package's ``_bwd_kernel``: the forward is recomputed, and t, vo,
+    g' = g / rowsum(e), e (where it meets g'), dvo, dS and dt are rounded to
+    x's dtype; every product accumulates in float32. x, g: [M, T, H].
+    Returns (dx in x's dtype, dln [2, H], dA, dWvo [nh, H+2, H+2], dc [1, H]
+    in float32)."""
+    dt, f32 = x.dtype, torch.float32
 
-    A CPU tensor takes ``reference``. A CUDA tensor launches the kernel, or
-    raises if the kernel does not take these inputs."""
+    def rnd(t):
+        return t.to(dt).to(f32)
+
+    H = x.shape[-1]
+    xf = x.to(f32)
+    xc = xf - xf.mean(-1, keepdim=True)
+    rsig = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rsig
+    xln = xhat * ln[0] + ln[1]
+    ones = torch.ones_like(xln[..., :1])
+    xa = rnd(torch.cat([xln, ones, 0 * ones], -1))
+    gf = g.to(f32)
+    dxa = torch.zeros_like(xa)
+    dA, dWvo = torch.zeros_like(A, dtype=f32), torch.zeros_like(Wvo, dtype=f32)
+    for h in range(nh):
+        a_h, w_h = rnd(A[h]), rnd(Wvo[h])
+        t = rnd(xa @ a_h)
+        s = t @ xa.transpose(1, 2)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        rinv = 1.0 / e.sum(-1, keepdim=True)
+        vo = rnd(xa @ w_h)
+        gp = rnd(gf * rinv)
+        dvo = torch.nn.functional.pad(rnd(rnd(e).transpose(1, 2) @ gp), (0, 2))
+        dp = gp @ vo[..., :H].transpose(1, 2)
+        delta = (dp * e).sum(-1, keepdim=True) * rinv
+        ds = rnd(e * (dp - delta))
+        dth = rnd(ds @ xa)
+        dxa = dxa + ds.transpose(1, 2) @ t + dth @ a_h.t() + dvo @ w_h.t()
+        dA[h] = torch.einsum("mqi,mqk->ik", xa, dth)
+        dWvo[h] = torch.einsum("mqi,mqk->ik", xa, dvo)
+    dxln = dxa[..., :H]
+    dln = torch.stack([(dxln * xhat).sum((0, 1)), dxln.sum((0, 1))])
+    dc = gf.sum((0, 1))[None]
+    dxhat = dxln * ln[0]
+    dx_ln = rsig * (dxhat - dxhat.mean(-1, keepdim=True)
+                    - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (gf + dx_ln).to(dt), dln, dA, dWvo, dc
+
+
+def _check(name, x, ln, A, Wvo, nh, extra=()):
+    """Raise ValueError unless the CUDA kernels take these inputs."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be [M, T, H], got {tuple(x.shape)}")
+    M, T, H = x.shape
+    if H != KERNEL_H or not 1 <= T <= KERNEL_TMAX:
+        raise ValueError(f"{name}: the kernel takes H = {KERNEL_H} and "
+                         f"1 <= T <= {KERNEL_TMAX}, got H = {H}, T = {T}")
+    expect = {"ln": (ln, (2, H)), "A": (A, (nh, H + 2, H + 2)),
+              "Wvo": (Wvo, (nh, H + 2, H + 2)), **dict(extra)}
+    for key, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name}: {key} must be float32 {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+
+
+def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
     global launches
     if x.device.type == "cpu":
         return reference(x, ln, A, Wvo, c, eps, nh)
-    if x.device.type != "cuda":
-        raise ValueError(f"attention_block: no kernel for device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"attention_block: x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 3:
-        raise ValueError(f"attention_block: x must be [M, T, H], got {tuple(x.shape)}")
+    _check("attention_block", x, ln, A, Wvo, nh, {"c": (c, (1, x.shape[-1]))})
     M, T, H = x.shape
-    if H != KERNEL_H or not 1 <= T <= KERNEL_TMAX:
-        raise ValueError(f"attention_block: the kernel takes H = {KERNEL_H} and "
-                         f"1 <= T <= {KERNEL_TMAX}, got H = {H}, T = {T}")
-    expect = {"ln": (ln, (2, H)), "A": (A, (nh, H + 2, H + 2)),
-              "Wvo": (Wvo, (nh, H + 2, H + 2)), "c": (c, (1, H))}
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"attention_block: {name} must be float32 {shape} on {x.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"attention_block: {name} must be contiguous")
-    if not x.is_contiguous():
-        raise ValueError("attention_block: x must be contiguous")
     y = torch.empty_like(x)
     if M == 0:
         return y
@@ -130,3 +191,68 @@ def attention_block(x, ln, A, Wvo, c, eps: float, nh: int):
         raise RuntimeError(f"attention_block kernel launch failed with CUDA error {err}")
     launches += 1
     return y
+
+
+def backward(x, ln, A, Wvo, g, eps: float, nh: int):
+    """The block's adjoint: ``reference_bwd`` for a CPU tensor, the CUDA
+    kernel for a CUDA tensor (or ValueError if it does not take the inputs).
+    Returns (dx, dln, dA, dWvo, dc) as ``reference_bwd`` does."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return reference_bwd(x, ln, A, Wvo, g, eps, nh)
+    _check("attention_block backward", x, ln, A, Wvo, nh)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"attention_block backward: g must be {x.dtype} {tuple(x.shape)}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    g = g.contiguous()
+    M, T, H = x.shape
+    Ha = H + 2
+    out = torch.empty(2 * nh * Ha * Ha + 3 * H, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    if M == 0:
+        out.zero_()
+    else:
+        from nbss_tpu_torch.ops import _build
+
+        lib = _build.library()
+        nblocks = min(M, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        ws = torch.empty(nblocks * lib.nbss_attention_block_bwd_workspace_floats(nh),
+                         dtype=torch.float32, device=x.device)
+        err = lib.nbss_attention_block_bwd(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), out.data_ptr(), ws.data_ptr(), nblocks, M, T, H, nh,
+            ctypes.c_float(eps), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"attention_block backward kernel launch failed with "
+                               f"CUDA error {err}")
+        bwd_launches += 1
+    n = nh * Ha * Ha
+    return (dx, out[2 * n:2 * n + 2 * H].view(2, H), out[:n].view(nh, Ha, Ha),
+            out[n:2 * n].view(nh, Ha, Ha), out[2 * n + 2 * H:].view(1, H))
+
+
+class _AttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln, A, Wvo, c, eps, nh):
+        ctx.save_for_backward(x, ln, A, Wvo)
+        ctx.eps, ctx.nh = eps, nh
+        return _forward(x, ln, A, Wvo, c, eps, nh)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln, A, Wvo = ctx.saved_tensors
+        dx, dln, dA, dWvo, dc = backward(x, ln, A, Wvo, g, ctx.eps, ctx.nh)
+        return dx, dln, dA, dWvo, dc, None, None
+
+
+def attention_block(x, ln, A, Wvo, c, eps: float, nh: int):
+    """x [M, T, H] (float32 or bfloat16) -> y of the same shape and dtype,
+    differentiable in x, ln, A, Wvo and c.
+
+    A CPU tensor takes ``reference`` (and ``reference_bwd`` for its
+    gradient). A CUDA tensor launches the kernels, or raises if they do not
+    take these inputs."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention_block: no kernel for device {x.device}")
+    return _AttentionBlock.apply(x, ln, A, Wvo, c, eps, nh)

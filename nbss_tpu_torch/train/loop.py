@@ -1,0 +1,196 @@
+"""Fit / validate loop on one CUDA card.
+
+Counterpart of ``nbss_tpu/train/loop.py`` for one device: a train step is
+forward + uPIT loss + backward + the clipped optimizer step; the learning
+rate is scheduled per epoch on the host (ExponentialLR or ReduceLROnPlateau
+on the validation metric); every epoch is checkpointed; early stopping
+watches the validation metric; and each epoch ends with a summary line.
+Parameters are drawn from a ``torch.Generator`` seeded with ``seed``.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+
+from nbss_tpu_torch.models.base import init_parameters
+from nbss_tpu_torch.train.ckpt import CheckpointManager
+from nbss_tpu_torch.train.module import TrainModule
+from nbss_tpu_torch.train.optim import LRSchedule, Optimizer
+
+
+class Trainer:
+    def __init__(
+        self,
+        module: TrainModule,
+        optimizer: Tuple[str, Dict[str, Any]] = ("Adam", {"lr": 1e-3}),
+        lr_scheduler: Optional[Tuple[str, Dict[str, Any]]] = ("ExponentialLR", {"gamma": 0.99}),
+        gradient_clip_val: Optional[float] = 5.0,
+        seed: int = 2,
+        ckpt_dir: Optional[str] = None,
+        logger: Optional[Callable[[str, float, int], None]] = None,
+        val_metric_mode: str = "max",
+        early_stopping: Optional[Dict[str, Any]] = None,
+        detect_unused_parameters: bool = False,
+        device="cuda",
+    ):
+        """early_stopping: e.g. {'monitor': 'val/metric', 'patience': 10,
+        'mode': 'max', 'min_delta': 0.1}; disabled when None."""
+        self.module = module
+        self.optimizer_spec = optimizer
+        self.gradient_clip_val = gradient_clip_val
+        self.lr_schedule = LRSchedule(lr_scheduler[0] if lr_scheduler else None,
+                                      optimizer[1].get("lr", 1e-3),
+                                      lr_scheduler[1] if lr_scheduler else {})
+        self.seed = seed
+        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self.logger = logger or (lambda k, v, step: None)
+        self.val_metric_mode = val_metric_mode
+        self.early_stopping = early_stopping
+        self.detect_unused_parameters = detect_unused_parameters
+        self.device = torch.device(device)
+        self.epoch = 0
+        self.opt: Optional[Optimizer] = None
+        self._es_best: Optional[float] = None
+        self._es_bad = 0
+
+    @property
+    def arch(self) -> torch.nn.Module:
+        return self.module.arch
+
+    def init(self) -> torch.nn.Module:
+        """Draw the arch's parameters from a generator seeded with ``seed``,
+        move it to the device and build the optimizer."""
+        init_parameters(self.arch, torch.Generator().manual_seed(self.seed))
+        self.arch.to(self.device)
+        self._build_optimizer()
+        return self.arch
+
+    def _build_optimizer(self) -> None:
+        name, kwargs = self.optimizer_spec
+        self.opt = Optimizer(self.arch.parameters(), name, kwargs, self.gradient_clip_val)
+        self.opt.lr = self.lr_schedule.lr
+
+    def restore(self, epoch: Optional[int] = None, reset: Optional[Sequence[str]] = None,
+                ensemble: Optional[Any] = None) -> None:
+        """Load a checkpoint (or the ensemble average of several) into the
+        arch; with a checkpoint, also the optimizer state unless ``reset``
+        names it, and continue from the epoch after it."""
+        if self.ckpt is None:
+            raise ValueError("restore needs a ckpt_dir")
+        if self.opt is None:
+            self.arch.to(self.device)
+            self._build_optimizer()
+        if ensemble is not None:
+            self.arch.load_state_dict(self.ckpt.ensemble(ensemble)["params"])
+            return
+        restored = self.ckpt.restore(epoch, reset=reset)
+        self.arch.load_state_dict(restored["params"])
+        if "opt_state" in restored:
+            self.opt.load_state_dict(restored["opt_state"])
+        self.epoch = restored["epoch"] + 1
+
+    def to_device(self, batch):
+        """(x, ys, ...) as numpy arrays or tensors -> (x, ys) on the device."""
+        return tuple(torch.as_tensor(b, device=self.device) for b in batch[:2])
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One optimizer step on (x, ys); returns the loss (on the device)."""
+        self.arch.train()
+        self.opt.zero_grad()
+        loss = self.module.training_step(self.to_device(batch))
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    def fit(self, train_data: Iterable, val_data: Optional[Iterable] = None,
+            max_epochs: int = 1, steps_per_epoch: Optional[int] = None,
+            log_every: int = 50) -> Dict[str, float]:
+        """Run the fit loop. ``train_data``/``val_data`` are callables or
+        re-iterables yielding (x [B,C,T], ys [B,Spk,C,T], paras)."""
+        if self.opt is None:
+            self.init()
+        history: Dict[str, float] = {}
+        checked_unused = self.epoch > 0 or not self.detect_unused_parameters
+        for epoch in range(self.epoch, max_epochs):
+            t0 = time.time()
+            losses = []
+            it = train_data() if callable(train_data) else iter(train_data)
+            for step, batch in enumerate(it):
+                if steps_per_epoch is not None and step >= steps_per_epoch:
+                    break
+                losses.append(self.train_step(batch))
+                if not checked_unused:
+                    self._warn_unused_parameters()
+                    checked_unused = True
+                if (step + 1) % log_every == 0:
+                    self.logger(f"train/{self.module.loss.name}", float(losses[-1]), epoch)
+            train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            history["train_loss"] = train_loss
+            self.logger(f"train/{self.module.loss.name}", train_loss, epoch)
+
+            val_metric = None
+            if val_data is not None:
+                val_logs = self.validate(val_data)
+                for k, v in val_logs.items():
+                    self.logger(k, v, epoch)
+                history.update(val_logs)
+                val_metric = val_logs.get("val/metric")
+
+            if self.ckpt is not None:
+                self.ckpt.save(epoch, self.arch.state_dict(), self.opt.state_dict(),
+                               metric=val_metric)
+
+            monitored = None
+            if val_metric is not None:
+                monitored = -val_metric if self.val_metric_mode == "max" else val_metric
+            new_lr = self.lr_schedule.step(epoch, monitored)
+            self.opt.lr = new_lr
+            self.logger("lr", new_lr, epoch)
+            self.epoch = epoch + 1
+            history["epoch_time"] = time.time() - t0
+            vm = f" val/metric={val_metric:.4f}" if val_metric is not None else ""
+            print(f"epoch {epoch}: train/{self.module.loss.name}={train_loss:.4f}"
+                  f"{vm} lr={new_lr:.2e} ({history['epoch_time']:.1f}s)", flush=True)
+
+            if self.early_stopping and val_metric is not None and self._should_stop(val_metric):
+                break
+        return history
+
+    def _warn_unused_parameters(self) -> None:
+        """After the first step: warn for each parameter whose gradient is
+        zero everywhere (a debugging aid)."""
+        for name, p in self.arch.named_parameters():
+            if p.grad is None or float(p.grad.abs().max()) == 0.0:
+                warnings.warn(f"unused parameter (check code or freeze it): {name}")
+
+    def _should_stop(self, monitored: float) -> bool:
+        es = self.early_stopping
+        mode = es.get("mode", "max")
+        min_delta = es.get("min_delta", 0.0)
+        improved = (self._es_best is None
+                    or (mode == "max" and monitored > self._es_best + min_delta)
+                    or (mode == "min" and monitored < self._es_best - min_delta))
+        if improved:
+            self._es_best, self._es_bad = monitored, 0
+            return False
+        self._es_bad += 1
+        return self._es_bad >= es.get("patience", 10)
+
+    def validate(self, val_data: Iterable) -> Dict[str, float]:
+        """Batch-size-weighted means of ``validation_step``'s logs."""
+        self.arch.eval()
+        it = val_data() if callable(val_data) else iter(val_data)
+        sums: Dict[str, float] = {}
+        n = 0
+        for batch in it:
+            x, ys = self.to_device(batch)
+            logs = self.module.validation_step((x, ys))
+            bs = int(x.shape[0])
+            for k, v in logs.items():
+                sums[k] = sums.get(k, 0.0) + float(v) * bs
+            n += bs
+        return {k: v / max(n, 1) for k, v in sums.items()}

@@ -1,11 +1,12 @@
-"""TrainModule: the task around an architecture, serving side.
+"""TrainModule: the task around an architecture.
 
-Counterpart of ``nbss_tpu/train/module.py`` (``forward``, ``_postprocess``,
-``test_step``, ``predict_step``): waveform -> STFT -> normalize -> stack
-real/imag per channel -> arch -> complex STFT coefficients -> inverse
-normalize -> iSTFT, then scale recovery and PIT reordering. STFT, norm and
-loss run in float32 whatever the arch's compute dtype. Training comes with a
-later slice of the port.
+Counterpart of ``nbss_tpu/train/module.py``: waveform -> STFT -> normalize ->
+stack real/imag per channel -> arch -> complex STFT coefficients -> inverse
+normalize -> iSTFT, then the uPIT loss (``training_step``,
+``validation_step``) or scale recovery and PIT reordering (``test_step``,
+``predict_step``). STFT, norm and loss run in float32 whatever the arch's
+compute dtype. ``training_step`` records gradients; the serving entry points
+``forward``, ``test_step`` and ``predict_step`` run without them.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ class TrainModule:
     stft: STFT = field(default_factory=lambda: STFT(n_fft=256, n_hop=128))
     norm: Norm = field(default_factory=lambda: Norm(mode="utterance"))
     loss: Loss = field(default_factory=lambda: Loss(name="neg_si_sdr", pit=True))
+    val_metric: str = "loss"  # 'loss' | 'si_sdr' | 'sdr'
+    mchunk: Optional[Tuple[float, float]] = None  # (len_s, hop_s) chunked validation SI-SDR
 
     @property
     def ref_index(self) -> int:
@@ -41,7 +44,12 @@ class TrainModule:
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, istft: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """x: [B, C, T] waveforms -> (yr_hat [B, Spk, T], loss_paras)."""
+        """x: [B, C, T] waveforms -> (yr_hat [B, Spk, T], loss_paras), without
+        gradients."""
+        return self._forward(x, istft)
+
+    def _forward(self, x: torch.Tensor, istft: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """``forward``, recording gradients when they are enabled."""
         X, stft_paras = self.stft.stft(x[:, list(self.channels)])  # [B, C, F, T] complex
         B, C, F, T = X.shape
         X, (Xr, XrMM) = self.norm.norm(X, ref_channel=self.ref_index)
@@ -61,6 +69,42 @@ class TrainModule:
         if istft:
             return self.stft.istft(Yr_hat, stft_paras), loss_paras
         return torch.view_as_real(Yr_hat), loss_paras
+
+    def training_step(self, batch) -> torch.Tensor:
+        """(x [B,C,T], ys [B,Spk,C,T]) -> scalar loss, with gradients."""
+        x, ys = batch[0], batch[1]
+        yr = ys[:, :, self.ref_channel, :].float()
+        yr_hat, loss_paras = self._forward(x)
+        loss, _, _ = self.loss(yr_hat=yr_hat.float(), yr=yr, reduce_batch=True, **loss_paras)
+        return loss
+
+    @torch.no_grad()
+    def validation_step(self, batch) -> Dict[str, torch.Tensor]:
+        """Loss and the SDR / SI-SDR logging metrics."""
+        x, ys = batch[0], batch[1]
+        yr = ys[:, :, self.ref_channel, :].float()
+        yr_hat, loss_paras = self._forward(x)
+        loss, _, yr_hat = self.loss(yr_hat=yr_hat.float(), yr=yr, reorder=True, **loss_paras)
+        sdr_val = M.sdr(yr_hat, yr).mean()
+        si_sdr_val = M.si_sdr(yr_hat, yr).mean()
+        metric = {"loss": -loss, "si_sdr": si_sdr_val, "sdr": sdr_val}[self.val_metric]
+        logs = {f"val/{self.loss.name}": loss, "val/metric": metric, "val/sdr": sdr_val,
+                "val/neg_si_sdr": -si_sdr_val}
+        if self.mchunk is not None:
+            # chunk-wise SI-SDR over (len, hop)-second windows; the sample rate
+            # is inferred from the STFT size, as the JAX package does
+            fs = 8000 if self.stft.n_fft <= 256 else 16000
+            chunklen = int(self.mchunk[0] * fs)
+            B, Spk, T = yr.shape
+            n_chk = T // chunklen
+            if n_chk > 1:
+                yrc = yr[..., :n_chk * chunklen].reshape(B, Spk, n_chk, chunklen)
+                yhc = yr_hat[..., :n_chk * chunklen].reshape(B, Spk, n_chk, chunklen)
+                v = M.si_sdr(yhc, yrc).reshape(B * Spk, n_chk).mean(0)
+                for i in range(n_chk):
+                    key = f"val/si_sdr_{i * self.mchunk[0] + 1:g}s-{(i + 1) * self.mchunk[0]:g}s"
+                    logs[key] = v[i]
+        return logs
 
     def _recover_scale(self, yr_hat, x):
         x_ref = x[:, self.ref_channel, :].float()

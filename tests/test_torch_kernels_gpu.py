@@ -6,10 +6,15 @@ machine with one (the repository's conftest imports JAX, so skip it there):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Bounds: float32 with TF32 off at atol 2e-4, rtol 1e-4 (the JAX package's own
-kernel bounds); bf16 no farther from the float32 plain result than twice the
-plain bf16 version is, since the kernel rounds at no more points than the
-plain version and only sums in another order.
+Forward bounds: float32 with TF32 off at atol 2e-4, rtol 1e-4 (the JAX
+package's own kernel bounds); bf16 no farther from the float32 plain result
+than twice the plain bf16 version is, since the kernel rounds at no more
+points than the plain version and only sums in another order. Backward
+bounds: float32 at atol 5e-3 x max|plain| and rtol 5e-3 for each cotangent
+(the JAX package's gradient bound, scaled to each output); bf16 as the
+forward, or within the float32 bound where the plain bf16 version is exact.
+A 2-layer SpatialNet's gradients through the kernels are held against the
+plain module composition's.
 """
 
 import numpy as np
@@ -70,3 +75,85 @@ def test_attention_block_kernel_refuses_what_it_does_not_take(card):
         ab.attention_block(x[:, :8].half(), *ops, eps, 4)
     with pytest.raises(ValueError, match="contiguous"):
         ab.attention_block(x[:, :8].transpose(0, 1), *ops, eps, 4)
+
+
+BWD_NAMES = ("dx", "dln", "dA", "dWvo", "dc")
+
+
+def _bwd_errors(got, want):
+    return [(a.float() - b).abs().max().item() for a, b in zip(got, want)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_bwd_kernel_matches_plain(card, M, T, nh, dtype):
+    """fp32: each cotangent within atol 5e-3 x max|plain| and rtol 5e-3 (the
+    JAX package's gradient bound, scaled to each output since the weight
+    cotangents are sums over all M*T rows). bf16: no farther from the fp32
+    plain result than twice the plain bf16 version is, or than the fp32
+    bound where the plain bf16 version is exact (dc sums the same values)."""
+    x, ops, eps = _operands(M * 1000 + T + 7, M, T, nh)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(T)).cuda()
+    x, g = x.to(dtype), g.to(dtype)
+    ln, A, Wvo, _ = ops
+    before = ab.bwd_launches
+    got = ab.backward(x, ln, A, Wvo, g, eps, nh)
+    torch.cuda.synchronize()
+    assert ab.bwd_launches == before + 1
+    assert got[0].dtype == dtype and got[0].shape == x.shape
+    assert [tuple(t.shape) for t in got[1:]] == [(2, 96), (nh, 98, 98), (nh, 98, 98), (1, 96)]
+    want = ab.reference_bwd(x.float(), ln, A, Wvo, g.float(), eps, nh)
+    errs = _bwd_errors(got, want)
+    bounds = [5e-3 * w.abs().max().item() for w in want]
+    if dtype == torch.float32:
+        for name, a, w, b in zip(BWD_NAMES, got, want, bounds):
+            torch.testing.assert_close(a, w, atol=b, rtol=5e-3, msg=name)
+    else:
+        plain = _bwd_errors(ab.reference_bwd(x, ln, A, Wvo, g, eps, nh), want)
+        for name, e, p, b in zip(BWD_NAMES, errs, plain, bounds):
+            assert np.isfinite(e) and e <= max(2 * p, b), (name, e, p, b)
+
+
+@pytest.mark.gpu
+def test_attention_block_bwd_kernel_refuses_what_it_does_not_take(card):
+    x, (ln, A, Wvo, _), eps = _operands(0, 2, 257, 4)
+    with pytest.raises(ValueError, match="T <= 256"):
+        ab.backward(x, ln, A, Wvo, x, eps, 4)
+    x64 = x[:, :8, :64].contiguous()
+    with pytest.raises(ValueError, match="H = 96"):
+        ab.backward(x64, ln[:, :64].contiguous(), A, Wvo, x64, eps, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatialnet_gradients_through_kernels_match_plain_path(card, dtype):
+    """A 2-layer SpatialNet at H=96 (F=9, 20 frames): a loss through the
+    default kernel path has a non-zero gradient for the input and every
+    parameter, the backward kernel runs once per layer, and in fp32 each
+    gradient is within 5e-3 x max|plain| of the plain module composition's."""
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=96, dim_ffn=192,
+              num_heads=4, dim_squeeze=8, num_freqs=9)
+    gen = torch.Generator().manual_seed(0)
+    fused = SpatialNet(**kw, dtype=dtype, generator=gen, device="cuda")
+    plain = SpatialNet(**kw, fused_block=False, device="cuda")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 9, 20, 12, generator=gen).cuda()
+    w = torch.randn(2, 9, 20, 4, generator=gen).cuda()
+    grads = []
+    for net in (fused, plain):
+        xg = x.clone().requires_grad_()
+        before = ab.bwd_launches
+        (net(xg) * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = ab.bwd_launches - before
+        grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
+        assert launched == (2 if net is fused else 0)
+    for name, gk in grads[0].items():
+        assert gk is not None and gk.abs().max() > 0, name
+        if dtype == torch.float32:
+            gp = grads[1][name]
+            torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
+                                       msg=name)
