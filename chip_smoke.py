@@ -6,7 +6,9 @@
 Drives ``nbss_tpu_torch`` only (no JAX, nothing of ``nbss_tpu``) through its
 serving path and its training path at the full width of SpatialNet-small
 (8 layers, H=96, 4 heads, F=129; 6 channels x 4 s at 8 kHz, bf16, seeded
-random weights): serving B=16 requests, then training at B=8, in nine
+random weights): serving B=16 requests, then training at B=8; then the same
+for OnlineSpatialNet ``mamba(16,4)`` (the committed streaming run: 8 layers,
+H=96, online utterance norm, neg-SNR with PIT), which also streams. Fifteen
 phases:
 
 1. device: the card's name and power limit;
@@ -36,7 +38,27 @@ phases:
    module composition from one state dict, every parameter's gradient within
    5e-3 x max|plain|;
 9. times: the backward kernel, its plain version, the backward of the
-   PyTorch library composition, the fp32 forward kernel; the train step.
+   PyTorch library composition, the fp32 forward kernel; the train step;
+10. selective-scan forward kernel vs ``ssm.reference`` at the serving shape
+    (M = 16*129, T = 251, D = 192, N = 16): fp32 at atol 2e-4, rtol 1e-4;
+    bf16 no farther from the fp32 plain result than twice the plain bf16
+    version; and at ragged shapes (T = 1, T off the 8-frame chunk, D off
+    the 64-channel block), forward and backward in fp32;
+11. scan backward kernel vs ``ssm.reference_bwd`` at the training shape
+    (M = 8*129): each cotangent within atol 5e-3 x max|plain|, rtol 5e-3 in
+    fp32, and within the bf16 rule of phase 6; a second launch bit-identical;
+12. OnlineSpatialNet serving: ``forward`` and ``predict_step`` at B=16 in
+    bf16, 16 scan launches per forward and no backward launch; fp32 kernel
+    path vs the plain scan, SI-SDR >= 50 dB;
+13. streaming: ``forward_streaming`` (one frame at a time) vs ``forward`` at
+    B=4: fp32 SI-SDR >= 50 dB, the bf16 figure printed;
+14. training: ``Trainer`` fits 8 SyntheticDataset items for 20 steps at B=8
+    (AdamW 1e-3, weight decay 1e-3, clip 5, bf16, remat): finite losses, the
+    last 5 below the first 5, 32 forward (16 + 16 recomputed) and 16
+    backward scan launches a step; fp32 gradients of every parameter, kernel
+    path vs plain, within 5e-3 x max|plain|;
+15. times: both scan kernels, their plain versions and bounds; serving,
+    streaming and training rates.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -56,12 +78,16 @@ BUDGET_S = 600.0  # every phase together: half of the 1200 s a run may take
 # H100 SXM published peaks (dense): HBM rate and bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 B, CHANNELS, SECONDS, FS = 16, 6, 4.0, 8000
 B_TRAIN, TRAIN_STEPS = 8, 20
 FLAGSHIP = dict(dim_input=12, dim_output=4, num_layers=8, dim_hidden=96, dim_ffn=192,
                 num_heads=4, kernel_size=(5, 3), conv_groups=(8, 8), dim_squeeze=8,
                 num_freqs=129, full_share=0)
+# the committed streaming run, logs/OnlineSpatialNet/version_0/config.yaml
+ONLINE = dict(FLAGSHIP, attention="mamba(16,4)")
+B_STREAM = 4
 
 
 def log(msg: str) -> None:
@@ -114,7 +140,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/9 device")
+    log("phase 1/15 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -122,7 +148,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/9 build (plain nvcc, sm_90a)")
+    log("phase 2/15 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -132,7 +158,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/9 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/15 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -159,7 +185,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/9 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/15 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -196,7 +222,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/9 times (CUDA events, after warm-up)")
+    log("phase 5/15 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -237,6 +263,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     row2, train_launches = training_phases(dev)
+    rows67 = online_phases(dev)
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
@@ -245,16 +272,16 @@ def main() -> int:
         "launches": launches, "launches_training": train_launches, "max_abs_err": err32,
         "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms, "ms_fp32": ms_fp32,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}, row2]}), flush=True)
+        "library_ms": library_ms}, row2, *rows67]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def bound(io_bytes: int, flops: int):
+def bound(io_bytes: int, flops: int, flop_per_s: float = BF16_FLOP_PER_S):
     """(ms, 'bytes' or 'operations'): the larger of the two least times."""
-    t_bytes, t_flops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    t_bytes, t_flops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
     return max(t_bytes, t_flops), "bytes" if t_bytes > t_flops else "operations"
 
 
@@ -278,7 +305,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/9 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/15 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -317,7 +344,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/9 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/15 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -355,7 +382,7 @@ def training_phases(dev):
     check_budget("training")
 
     # 8. gradient parity, fp32
-    log("phase 8/9 gradients: kernel path vs plain composition, fp32, one batch")
+    log("phase 8/15 gradients: kernel path vs plain composition, fp32, one batch")
     grads = []
     for fused in (True, False):
         net = SpatialNet(**FLAGSHIP, fused_block=fused, device=dev)
@@ -379,7 +406,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/9 times (CUDA events, after warm-up)")
+    log("phase 9/15 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     plain_ms = cuda_ms(lambda: ab.reference_bwd(xb, ln, A, Wvo, gb, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -422,6 +449,302 @@ def training_phases(dev):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "train_step_ms": step_s * 1e3,
             "train_audio_s_per_s": B_TRAIN * SECONDS / step_s}, fit_fwd
+
+def scan_inputs(gen, M: int, T: int, D: int, N: int, dtype, dev):
+    """Seeded scan operands as the model gives them: dt log-uniform in the
+    initial [0.001, 0.1], A = -(1..N) (A_log's initial value), and x, B, C
+    in the compute dtype."""
+    import math
+
+    import torch
+
+    x = torch.randn(M, T, D, generator=gen)
+    dt = torch.empty(M, T, D).uniform_(math.log(1e-3), math.log(1e-1), generator=gen).exp()
+    A = -torch.arange(1.0, N + 1).expand(D, N).contiguous()
+    Bm, Cm = torch.randn(M, T, N, generator=gen), torch.randn(M, T, N, generator=gen)
+    Dp = 1 + 0.1 * torch.randn(D, generator=gen)
+    gy = torch.randn(M, T, D, generator=gen)
+    ins = [x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), Dp]
+    return [t.to(dev) for t in ins], gy.to(dtype).to(dev)
+
+
+def online_phases(dev):
+    """Phases 10-15: OnlineSpatialNet mamba(16,4) through the selective-scan
+    kernels. Returns the two scan kernels' rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch.data.synthetic import SyntheticDataset
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.ops import ssm
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.loop import Trainer
+    from nbss_tpu_torch.train.module import TrainModule
+
+    T = int(SECONDS * FS) // 128 + 1
+    Dm, N, n_layers = 2 * ONLINE["dim_hidden"], 16, ONLINE["num_layers"]
+    M_serve, M_train = B * ONLINE["num_freqs"], B_TRAIN * ONLINE["num_freqs"]
+    names = ("gx", "gdt", "gA", "gB", "gC", "gD")
+    gen = torch.Generator().manual_seed(3)
+
+    def fwd_check(ins, label):
+        y = ssm.selective_scan(*ins)
+        torch.cuda.synchronize()
+        want = ssm.reference(*ins)
+        err = (y - want).abs().max().item()
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4, msg=label)
+        return err
+
+    def bwd_check(ins, gy, label):
+        _, hb = ssm.forward(*ins, boundaries=True)
+        got = ssm.backward(*ins, hb, gy)
+        torch.cuda.synchronize()
+        want = ssm.reference_bwd(*ins, gy)
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        for name, a, w in zip(names, got, want):
+            torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=f"{label} {name}")
+        return got, hb, errs
+
+    # 10. forward kernel vs plain
+    log(f"phase 10/15 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
+    fwd_err32 = fwd_check(ins32, "fp32")
+    log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
+    insb = [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins32)]
+    del ins32
+    want = ssm.reference(*[t.float() for t in insb])
+    fwd_errbf = (ssm.selective_scan(*insb).float() - want).abs().max().item()
+    plainbf = (ssm.reference(*insb).float() - want).abs().max().item()
+    del want
+    log(f"bf16: max |kernel - fp32 plain| = {fwd_errbf:.4f}, plain bf16 version's = "
+        f"{plainbf:.4f} (bound: 2x the plain version's)")
+    if not fwd_errbf <= 2 * plainbf:
+        raise AssertionError(f"bf16 scan error {fwd_errbf} exceeds 2 x {plainbf}")
+    for shape in ((1, 1, Dm, N), (7, 13, 100, N), (3, 9, 33, 4)):
+        ins, gy = scan_inputs(gen, *shape, torch.float32, dev)
+        e = fwd_check(ins, f"ragged {shape}")
+        _, _, be = bwd_check(ins, gy, f"ragged {shape}")
+        log(f"ragged (M, T, D, N) = {shape}: forward {e:.2e}, backward worst {max(be):.2e}: ok")
+    check_budget("scan vs plain")
+
+    # 11. backward kernel vs plain
+    log(f"phase 11/15 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
+    got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
+    _, hb = ssm.forward(*ins32, boundaries=True)
+    again = ssm.backward(*ins32, hb, gy32)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("fp32: max |kernel - plain| " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(names, bwd_errs32))
+        + f" (atol 5e-3 x max|plain|); two launches bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("two launches of the scan backward kernel on the same inputs differ")
+    del got, again, hb
+    insbt = [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins32)]
+    gybt = gy32.to(torch.bfloat16)
+    del ins32, gy32
+    _, hbbt = ssm.forward(*insbt, boundaries=True)
+    want = ssm.reference_bwd(*[t.float() for t in insbt], gybt.float())
+    bwd_errsbf = [(a.float() - w).abs().max().item()
+                  for a, w in zip(ssm.backward(*insbt, hbbt, gybt), want)]
+    plainbf = [(a.float() - w).abs().max().item()
+               for a, w in zip(ssm.reference_bwd(*insbt, gybt), want)]
+    bounds = [5e-3 * w.abs().max().item() for w in want]
+    del want
+    log("bf16: max |kernel - fp32 plain| vs the plain bf16 version's: " + ", ".join(
+        f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(names, bwd_errsbf, plainbf)))
+    for name, e, p, b in zip(names, bwd_errsbf, plainbf, bounds):
+        if not e <= max(2 * p, b):
+            raise AssertionError(f"bf16 scan backward {name}: error {e} exceeds max(2 x {p}, {b})")
+    check_budget("scan backward vs plain")
+
+    # 12. serving
+    log(f"phase 12/15 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+        f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
+    net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="utterance", online=True),
+                         loss=Loss(name="neg_snr", pit=True))
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
+    ssm.launches = ssm.bwd_launches = 0
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave, target)
+    torch.cuda.synchronize()
+    serve_fwd, serve_bwd = ssm.launches, ssm.bwd_launches
+    for name, out in (("forward", yr_hat), ("predict_step", pred)):
+        if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    if serve_fwd != 2 * 2 * n_layers or serve_bwd != 0:
+        raise AssertionError(f"selective_scan launched {serve_fwd} forward and {serve_bwd} "
+                             f"backward kernels in two forwards, expected {4 * n_layers} and 0")
+    log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; selective_scan "
+        f"launched {serve_fwd} times ({2 * n_layers} per forward), its backward {serve_bwd}")
+    net32 = OnlineSpatialNet(**ONLINE, device=dev).eval()
+    net32.load_state_dict(net.state_dict())
+    plain32 = OnlineSpatialNet(**ONLINE, fused_scan=False, device=dev).eval()
+    plain32.load_state_dict(net.state_dict())
+    module32 = TrainModule(**{**module.__dict__, "arch": net32})
+    y_kernel, _ = module32.forward(wave)
+    y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(wave)
+    serve_sdr = si_sdr(y_kernel, y_plain).min().item()
+    del plain32, y_kernel, y_plain
+    log(f"fp32 kernel path vs plain composition: min SI-SDR {serve_sdr:.1f} dB (bound >= 50)")
+    if not serve_sdr >= 50.0:
+        raise AssertionError(f"kernel path vs plain path SI-SDR {serve_sdr:.1f} dB < 50 dB")
+    check_budget("online serving")
+
+    # 13. streaming
+    log(f"phase 13/15 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    wave_s = wave[:B_STREAM].contiguous()
+    stream = {}
+    for label, m in (("fp32", module32), ("bf16", module)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_str, _ = m.forward_streaming(wave_s)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        y_off, _ = m.forward(wave_s)
+        if not torch.isfinite(y_str).all():
+            raise AssertionError(f"{label} streaming output is not finite")
+        stream[label] = (si_sdr(y_str, y_off).min().item(), B_STREAM * SECONDS / seconds)
+        log(f"{label}: streaming vs offline min SI-SDR {stream[label][0]:.1f} dB; "
+            f"{T} frames in {seconds:.2f} s = {stream[label][1]:.2f} audio-s/s")
+    if not stream["fp32"][0] >= 50.0:
+        raise AssertionError(f"fp32 streaming vs offline SI-SDR {stream['fp32'][0]:.1f} dB < 50")
+    del net32, module32
+    check_budget("streaming")
+
+    # 14. training
+    log(f"phase 14/15 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+        f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
+    data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
+                            audio_time_len=SECONDS)
+    items = [data[(i, 1000 + i)] for i in range(B_TRAIN)]
+    batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]))
+    tmodule = TrainModule(**{**module.__dict__, "arch": OnlineSpatialNet(
+        **ONLINE, dtype=torch.bfloat16, remat=True, device=dev)})
+    losses = []
+    trainer = Trainer(tmodule, optimizer=("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}),
+                      gradient_clip_val=5.0, seed=2, device=dev,
+                      logger=lambda k, v, _: losses.append(v) if k.startswith("train/") else None)
+    trainer.init()
+    torch.cuda.reset_peak_memory_stats()
+    ssm.launches = ssm.bwd_launches = 0
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_fwd, fit_bwd = ssm.launches, ssm.bwd_launches
+    ssm.launches = ssm.bwd_launches = 0
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_fwd, step_bwd = ssm.launches, ssm.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
+    log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward in {TRAIN_STEPS} steps; one step "
+        f"{step_fwd} + {step_bwd} (forward {2 * n_layers} + {2 * n_layers} recomputed by remat, "
+        f"backward {2 * n_layers}); peak memory {peak:.1f} GiB")
+    want = (4 * n_layers, 2 * n_layers)
+    if (step_fwd, step_bwd) != want or (fit_fwd, fit_bwd) != tuple(TRAIN_STEPS * w for w in want):
+        raise AssertionError(f"expected {want[0]} forward and {want[1]} backward launches a step")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+    grads = []
+    for fused in (True, False):
+        net = OnlineSpatialNet(**ONLINE, remat=True, fused_scan=fused, device=dev)
+        net.load_state_dict(tmodule.arch.state_dict())
+        m32 = TrainModule(**{**tmodule.__dict__, "arch": net})
+        m32.training_step(trainer.to_device(batch)).backward()
+        grads.append({n: p.grad for n, p in net.named_parameters()})
+        del net, m32
+    worst = ("", 0.0)
+    for name, gk in grads[0].items():
+        gp = grads[1][name]
+        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+        if gk.abs().max() == 0 or rel > 5e-3:
+            raise AssertionError(f"gradient of {name}: max |kernel - plain| = {rel:.2e} "
+                                 f"x max|plain| (bound 5e-3)")
+    log(f"fp32 gradients of {len(grads[0])} parameters, kernel path vs plain: worst "
+        f"max |kernel - plain| / max|plain| = {worst[1]:.2e} ({worst[0]}; bound 5e-3)")
+    del grads
+    torch.cuda.empty_cache()
+    check_budget("online training")
+
+    # 15. times
+    log("phase 15/15 times (CUDA events, after warm-up)")
+    fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
+    fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
+    fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: ssm.backward(*insbt, hbbt, gybt), iters=20)
+    bwd_plain_ms = cuda_ms(lambda: ssm.reference_bwd(*insbt, gybt), iters=1, warmup=1)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    elems = M_serve * T * Dm * N
+    fwd_bytes = nbytes(insb) + nbytes(insb[:1])  # inputs read once, y written once
+    fwd_ops = 7 * elems + 3 * M_serve * T * Dm  # counted in csrc/selective_scan.cu
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops, FP32_FLOP_PER_S)
+    elems_t = M_train * T * Dm * N
+    bwd_bytes = 2 * nbytes(insbt) + nbytes([gybt])  # inputs and gy read, one gradient each
+    bwd_ops = 22 * elems_t + 6 * M_train * T * Dm  # counted in csrc/selective_scan_bwd.cu
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops, FP32_FLOP_PER_S)
+    log(f"selective_scan bf16 M={M_serve}: kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, "
+        f"library none, bound {fwd_bound:.4f} ms ({fwd_by}: {fwd_bytes / 1e6:.0f} MB, "
+        f"{fwd_ops / 1e9:.1f} GFLOP fp32); with saved states at M={M_train}: {fwd_train_ms:.3f} ms")
+    log(f"selective_scan backward bf16 M={M_train}: kernel {bwd_ms:.3f} ms, plain "
+        f"{bwd_plain_ms:.3f} ms, library none, bound {bwd_bound:.4f} ms ({bwd_by}: "
+        f"{bwd_bytes / 1e6:.0f} MB, {bwd_ops / 1e9:.1f} GFLOP fp32)")
+    del insb, insbt, hbbt, gybt
+
+    for _ in range(2):
+        module.predict_step(wave)
+    torch.cuda.synchronize()
+    reps, t1 = 5, time.perf_counter()
+    for _ in range(reps):
+        module.predict_step(wave)
+    torch.cuda.synchronize()
+    serve_s = (time.perf_counter() - t1) / reps
+    log(f"serving: predict_step on {B} x {SECONDS:g} s in {serve_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve_s:.1f} audio-s/s")
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / reps
+    log(f"training: train_step on {B_TRAIN} x {SECONDS:g} s in {step_s * 1e3:.1f} ms = "
+        f"{B_TRAIN * SECONDS / step_s:.1f} audio-s/s trained")
+    check_budget("online times")
+    rates = {"serve_audio_s_per_s": B * SECONDS / serve_s,
+             "stream_audio_s_per_s_fp32": stream["fp32"][1],
+             "stream_audio_s_per_s_bf16": stream["bf16"][1],
+             "stream_sdr_db_fp32": stream["fp32"][0], "stream_sdr_db_bf16": stream["bf16"][0],
+             "serve_sdr_db_fp32": serve_sdr, "train_audio_s_per_s": B_TRAIN * SECONDS / step_s,
+             "train_step_ms": step_s * 1e3, "train_peak_gib": peak}
+    return [{"name": "selective_scan", "route": "cuda",
+             "source": "nbss_tpu_torch/csrc/selective_scan.cu",
+             "replaces": "nbss_tpu/ops/ssm.py:163", "launches": serve_fwd,
+             "launches_training": fit_fwd, "max_abs_err": fwd_err32, "max_err_bf16": fwd_errbf,
+             "ms": fwd_ms, "ms_with_saved_states_m1032": fwd_train_ms, "plain_ms": fwd_plain_ms,
+             "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None, **rates},
+            {"name": "selective_scan_bwd", "route": "cuda",
+             "source": "nbss_tpu_torch/csrc/selective_scan_bwd.cu",
+             "replaces": "nbss_tpu/ops/ssm.py:326", "launches": fit_bwd,
+             "max_abs_err": max(bwd_errs32), "max_err_fp32": dict(zip(names, bwd_errs32)),
+             "max_err_bf16": dict(zip(names, bwd_errsbf)), "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+             "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None}]
 
 
 if __name__ == "__main__":

@@ -58,13 +58,17 @@ class Linear(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """'same'-padded 1-D conv along the second-to-last axis of [..., W, C];
-    weight [out, in/groups, k]. A 1x1 conv without groups is a Linear."""
+    """1-D conv along the second-to-last axis of [..., W, C]; weight
+    [out, in/groups, k]. ``padding`` is 'same' or 'causal' (k - 1 frames on
+    the left only). A 1x1 conv without groups is a Linear."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 groups: int = 1, generator: Optional[torch.Generator] = None):
+                 groups: int = 1, padding: str = "same",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.groups, self.kernel_size = groups, kernel_size
+        if padding not in ("same", "causal"):
+            raise ValueError(f"padding must be 'same' or 'causal', got {padding!r}")
+        self.groups, self.kernel_size, self.padding = groups, kernel_size, padding
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
         self.reset_parameters(generator)
@@ -80,7 +84,8 @@ class Conv1d(nn.Module):
             return F.linear(x, w[:, :, 0], b)
         *lead, W, C = x.shape
         k = self.kernel_size
-        xc = F.pad(x.reshape(-1, W, C).transpose(1, 2), ((k - 1) // 2, k - 1 - (k - 1) // 2))
+        left = k - 1 if self.padding == "causal" else (k - 1) // 2
+        xc = F.pad(x.reshape(-1, W, C).transpose(1, 2), (left, k - 1 - left))
         y = F.conv1d(xc, w, b, groups=self.groups)
         return y.transpose(1, 2).reshape(*lead, W, -1)
 

@@ -100,5 +100,13 @@ def library() -> ctypes.CDLL:
         lib.nbss_attention_block_bwd.restype = i
         lib.nbss_attention_block_bwd_workspace_floats.argtypes = [i]
         lib.nbss_attention_block_bwd_workspace_floats.restype = ctypes.c_longlong
+        lib.nbss_selective_scan_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.nbss_selective_scan_fwd.restype = i
+        lib.nbss_selective_scan_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
+        lib.nbss_selective_scan_bwd.restype = i
+        lib.nbss_selective_scan_bwd_workspace_floats.argtypes = [i] * 4
+        lib.nbss_selective_scan_bwd_workspace_floats.restype = ctypes.c_longlong
+        lib.nbss_selective_scan_chunk.argtypes = []
+        lib.nbss_selective_scan_chunk.restype = i
         _lib = lib
     return _lib

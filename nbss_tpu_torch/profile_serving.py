@@ -1,44 +1,69 @@
 """Where the serving step's time goes on the card.
 
-    python3 -m nbss_tpu_torch.profile_serving
+    python3 -m nbss_tpu_torch.profile_serving [--arch spatialnet|online_spatialnet]
 
-Serves SpatialNet-small (8 layers, H=96, seeded random weights, bf16) at
-B=16 x 6 channels x 4 s through ``TrainModule.predict_step`` under
-``torch.profiler`` for three steps, after two warm-up steps, and prints the
-device time of the 25 costliest kernels, the attention-block kernel's share
-and the device's busy share of the profiled wall time. Needs a CUDA card.
+Serves SpatialNet-small, or OnlineSpatialNet mamba(16,4) (8 layers, H=96,
+seeded random weights, bf16), at B=16 x 6 channels x 4 s through
+``TrainModule.predict_step`` under ``torch.profiler`` for three steps, after
+two warm-up steps, and prints the device time of the 25 costliest kernels,
+the port's kernels' shares and the device's busy share of the profiled wall
+time. It checks that each step launched the arch's kernel once per block
+(8 attention blocks, or 16 scans) and no backward kernel. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
 STEPS, ROWS = 3, 25
+B, C, S, LAYERS = 16, 6, 32000, 8
+WIDTHS = dict(dim_input=2 * C, dim_output=4, num_layers=LAYERS, dim_hidden=96, dim_ffn=192,
+              num_heads=4, dim_squeeze=8, num_freqs=129)
+
+
+def build(arch: str, dtype, generator, remat: bool = False):
+    """(TrainModule, kernel module, its launches per forward, kernel names
+    to sum) for SpatialNet-small or the committed OnlineSpatialNet run."""
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+    from nbss_tpu_torch.ops import attention_block, ssm
+    from nbss_tpu_torch.train.module import TrainModule
+
+    if arch == "spatialnet":
+        net = SpatialNet(**WIDTHS, dtype=dtype, generator=generator, device="cuda")
+        return (TrainModule(arch=net, norm=Norm(mode="frequency")), attention_block, LAYERS,
+                ("attention_block_kernel", "attention_block_bwd"))
+    net = OnlineSpatialNet(**WIDTHS, attention="mamba(16,4)", dtype=dtype, remat=remat,
+                           generator=generator, device="cuda")
+    module = TrainModule(arch=net, norm=Norm(mode="utterance", online=True),
+                         loss=Loss(name="neg_snr", pit=True))
+    return module, ssm, 2 * LAYERS, ("selective_scan_kernel", "selective_scan_bwd")
 
 
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nbss_tpu_torch.io.norm import Norm
-    from nbss_tpu_torch.models.spatialnet import SpatialNet
-    from nbss_tpu_torch.train.module import TrainModule
-
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", choices=("spatialnet", "online_spatialnet"),
+                        default="spatialnet")
+    arch = parser.parse_args().arch
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
 
-    B, C, S = 16, 6, 32000
     gen = torch.Generator().manual_seed(0)
-    net = SpatialNet(dim_input=2 * C, dim_output=4, num_layers=8, dim_hidden=96, dim_ffn=192,
-                     num_heads=4, dim_squeeze=8, num_freqs=129, dtype=torch.bfloat16,
-                     generator=gen, device="cuda").eval()
-    module = TrainModule(arch=net, norm=Norm(mode="frequency"))
+    module, kernels, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, gen)
+    module.arch.eval()
     wave = (0.1 * torch.randn(B, C, S, generator=gen)).cuda()
     for _ in range(2):
         module.predict_step(wave)
     torch.cuda.synchronize()
+    fwd0, bwd0 = kernels.launches, kernels.bwd_launches
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -46,6 +71,11 @@ def main() -> int:
             module.predict_step(wave)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    fwd, bwd = kernels.launches - fwd0, kernels.bwd_launches - bwd0
+    if fwd != STEPS * per_fwd or bwd != 0:
+        print(f"profile_serving: {fwd} forward and {bwd} backward kernel launches in {STEPS} "
+              f"steps, expected {per_fwd} and 0 a step", file=sys.stderr)
+        return 1
 
     # kernels and copies on the card only: operator rows repeat their kernels' time
     events = [e for e in prof.key_averages()
@@ -55,8 +85,8 @@ def main() -> int:
     if device_us == 0:
         print("profile_serving: the profiler recorded no device time", file=sys.stderr)
         return 1
-    print(f"{torch.cuda.get_device_name(0)}; {STEPS} steps of predict_step, "
-          f"B={B} x {C} ch x {S / 8000:g} s, bf16")
+    print(f"{torch.cuda.get_device_name(0)}; {arch}: {STEPS} steps of predict_step, "
+          f"B={B} x {C} ch x {S / 8000:g} s, bf16; {per_fwd} kernel launches a step")
     print(f"wall {wall_us / STEPS / 1e3:.2f} ms/step; device busy "
           f"{device_us / STEPS / 1e3:.2f} ms/step = {100 * device_us / wall_us:.1f}% of wall")
     print(f"{'device ms/step':>15} {'share':>7} {'calls/step':>10}  kernel")
@@ -64,9 +94,9 @@ def main() -> int:
         print(f"{e.self_device_time_total / STEPS / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / device_us:6.1f}% "
               f"{e.count / STEPS:10.1f}  {e.key[:110]}")
-    ab_us = sum(e.self_device_time_total for e in events if "attention_block_kernel" in e.key)
-    print(f"attention_block kernel: {ab_us / STEPS / 1e3:.2f} ms/step = "
-          f"{100 * ab_us / device_us:.1f}% of device time")
+    us = sum(e.self_device_time_total for e in events if fwd_key in e.key)
+    print(f"{fwd_key}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
+          f"of device time")
     return 0
 
 

@@ -1,24 +1,28 @@
 """Where a training step's time goes on the card.
 
-    python3 -m nbss_tpu_torch.profile_training
+    python3 -m nbss_tpu_torch.profile_training [--arch spatialnet|online_spatialnet]
 
-Trains SpatialNet-small (8 layers, H=96, seeded random weights, bf16 compute,
-float32 parameters) on one fixed batch of B=8 ``SyntheticDataset`` items of
-6 channels x 4 s through ``Trainer.train_step`` (forward, neg-SI-SDR with
-PIT, backward, Adam with clip 5) under ``torch.profiler`` for three steps,
-after two warm-up steps. Prints the step's wall time, the device time of the
-25 costliest kernels, the two attention-block kernels' shares and the
-device's busy share of the profiled wall time. It checks that each step
-really ran the backward kernel, once per layer. Needs a CUDA card.
+Trains SpatialNet-small (neg-SI-SDR with PIT, Adam), or OnlineSpatialNet
+mamba(16,4) as the committed run does (neg-SNR with PIT, AdamW with weight
+decay 1e-3, remat), at 8 layers, H=96, seeded random weights, bf16 compute
+and float32 parameters, on one fixed batch of B=8 ``SyntheticDataset``
+items of 6 channels x 4 s through ``Trainer.train_step`` (forward, loss,
+backward, the optimizer step with clip 5) under ``torch.profiler`` for three
+steps, after two warm-up steps. Prints the step's wall time, the device time
+of the 25 costliest kernels, the port's kernels' shares and the device's
+busy share of the profiled wall time. It checks each step's launches: 8
+attention-block forward and 8 backward; or 32 scan forward (16, and 16 more
+recomputed by remat) and 16 backward. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
 STEPS, ROWS = 3, 25
-B, C, SECONDS, LAYERS = 8, 6, 4.0, 8
+B, C, SECONDS = 8, 6, 4.0
 
 
 def main() -> int:
@@ -27,12 +31,13 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from nbss_tpu_torch.data.synthetic import SyntheticDataset
-    from nbss_tpu_torch.io.norm import Norm
-    from nbss_tpu_torch.models.spatialnet import SpatialNet
-    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.profile_serving import build
     from nbss_tpu_torch.train.loop import Trainer
-    from nbss_tpu_torch.train.module import TrainModule
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", choices=("spatialnet", "online_spatialnet"),
+                        default="spatialnet")
+    arch = parser.parse_args().arch
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA card", file=sys.stderr)
         return 2
@@ -40,26 +45,28 @@ def main() -> int:
     data = SyntheticDataset(num_items=B, num_channels=C, audio_time_len=SECONDS)
     items = [data[(i, 1000 + i)] for i in range(B)]
     batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]))
-    net = SpatialNet(dim_input=2 * C, dim_output=4, num_layers=LAYERS, dim_hidden=96,
-                     dim_ffn=192, num_heads=4, dim_squeeze=8, num_freqs=129,
-                     dtype=torch.bfloat16, device="cuda")
-    trainer = Trainer(TrainModule(arch=net, norm=Norm(mode="frequency")), seed=2)
+    online = arch == "online_spatialnet"
+    module, kernels, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, None,
+                                                         remat=online)
+    optimizer = ("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}) if online else ("Adam", {"lr": 1e-3})
+    trainer = Trainer(module, optimizer=optimizer, seed=2)
     trainer.init()
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()
 
-    fwd0, bwd0 = ab.launches, ab.bwd_launches
+    fwd0, bwd0 = kernels.launches, kernels.bwd_launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    fwd, bwd = ab.launches - fwd0, ab.bwd_launches - bwd0
-    if fwd != STEPS * LAYERS or bwd != STEPS * LAYERS:
+    fwd, bwd = kernels.launches - fwd0, kernels.bwd_launches - bwd0
+    want_fwd = per_fwd * (2 if online else 1)  # remat recomputes each layer's forward
+    if fwd != STEPS * want_fwd or bwd != STEPS * per_fwd:
         print(f"profile_training: {fwd} forward and {bwd} backward kernel launches in {STEPS} "
-              f"steps, expected {LAYERS} of each a step", file=sys.stderr)
+              f"steps, expected {want_fwd} and {per_fwd} a step", file=sys.stderr)
         return 1
 
     # kernels and copies on the card only: operator rows repeat their kernels' time
@@ -70,8 +77,8 @@ def main() -> int:
     if device_us == 0:
         print("profile_training: the profiler recorded no device time", file=sys.stderr)
         return 1
-    print(f"{torch.cuda.get_device_name(0)}; {STEPS} train steps, B={B} x {C} ch x "
-          f"{SECONDS:g} s, bf16; attention-block launches a step: {fwd // STEPS} forward, "
+    print(f"{torch.cuda.get_device_name(0)}; {arch}: {STEPS} train steps, B={B} x {C} ch x "
+          f"{SECONDS:g} s, bf16; kernel launches a step: {fwd // STEPS} forward, "
           f"{bwd // STEPS} backward")
     print(f"wall {wall_us / STEPS / 1e3:.2f} ms/step = {B * SECONDS * STEPS / wall_us * 1e6:.1f} "
           f"audio-s/s with the profiler on; device busy {device_us / STEPS / 1e3:.2f} ms/step "
@@ -81,8 +88,7 @@ def main() -> int:
         print(f"{e.self_device_time_total / STEPS / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / device_us:6.1f}% "
               f"{e.count / STEPS:10.1f}  {e.key[:110]}")
-    for label, key in (("attention_block forward kernel", "attention_block_kernel"),
-                       ("attention_block backward kernels", "attention_block_bwd")):
+    for label, key in (("forward kernel", fwd_key), ("backward kernels", bwd_key)):
         us = sum(e.self_device_time_total for e in events if key in e.key)
         print(f"{label}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
               f"of device time")

@@ -6,7 +6,8 @@ normalize -> iSTFT, then the uPIT loss (``training_step``,
 ``validation_step``) or scale recovery and PIT reordering (``test_step``,
 ``predict_step``). STFT, norm and loss run in float32 whatever the arch's
 compute dtype. ``training_step`` records gradients; the serving entry points
-``forward``, ``test_step`` and ``predict_step`` run without them.
+``forward``, ``forward_streaming``, ``test_step`` and ``predict_step`` run
+without them.
 """
 
 from __future__ import annotations
@@ -55,6 +56,26 @@ class TrainModule:
         X, (Xr, XrMM) = self.norm.norm(X, ref_channel=self.ref_index)
         Xin = torch.view_as_real(X.permute(0, 2, 3, 1)).reshape(B, F, T, 2 * C)
         out = self.arch(Xin)
+        return self._postprocess(out, B, F, T, Xr, XrMM, stft_paras, istft)
+
+    @torch.no_grad()
+    def forward_streaming(self, x: torch.Tensor,
+                          istft: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """``forward`` through the arch's streaming API: the same STFT and
+        normalization front end, then one STFT frame at a time through
+        ``arch.init_streaming_state`` / ``arch.streaming_step``, the
+        deployment path of the online models. It equals ``forward`` only with
+        a causal (online) norm, since an offline norm sees future frames."""
+        X, stft_paras = self.stft.stft(x[:, list(self.channels)])
+        B, C, F, T = X.shape
+        X, (Xr, XrMM) = self.norm.norm(X, ref_channel=self.ref_index)
+        Xin = torch.view_as_real(X.permute(0, 2, 3, 1)).reshape(B, F, T, 2 * C)
+        state = self.arch.init_streaming_state(B)
+        outs = []
+        for t in range(T):
+            y_t, state = self.arch.streaming_step(Xin[:, :, t], state)
+            outs.append(y_t)
+        out = torch.stack(outs, dim=2)  # [B, F, T, out]
         return self._postprocess(out, B, F, T, Xr, XrMM, stft_paras, istft)
 
     def _postprocess(self, out, B, F, T, Xr, XrMM, stft_paras, istft):

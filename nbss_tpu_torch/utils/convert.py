@@ -1,7 +1,8 @@
-"""Convert the JAX package's SpatialNet parameter tree into the port's
-``state_dict``.
+"""Convert the JAX package's SpatialNet and OnlineSpatialNet parameter trees
+into the port's ``state_dict``.
 
-The exact inverse of ``nbss_tpu.utils.torch_compat.spatialnet_params_from_torch``:
+For SpatialNet the exact inverse of
+``nbss_tpu.utils.torch_compat.spatialnet_params_from_torch``:
 flax Dense kernels [in, out] become Linear weights [out, in], flax Conv
 kernels [k, in/groups, out] become Conv1d weights [out, in/groups, k], 1x1
 convs get their trailing kernel axis back, and LayerNorm ``scale`` becomes
@@ -34,51 +35,96 @@ def _dense_to_1x1(kernel) -> torch.Tensor:  # [in, out] -> [out, in, 1]
     return _dense(kernel)[:, :, None]
 
 
+def _cross_band(sd: Dict[str, torch.Tensor], t: str, lp: Mapping, full: Mapping) -> None:
+    """The cross-band block of one layer, the same in SpatialNet and
+    OnlineSpatialNet: fconv1, the shared full-band LinearGroup, squeeze,
+    unsqueeze, fconv2."""
+    sd[f"{t}.full.weight"], sd[f"{t}.full.bias"] = _t(full["weight"]), _t(full["bias"])
+    for fc in ("fconv1", "fconv2"):
+        sd.update(_norm(lp[f"{fc}_norm"], f"{t}.{fc}.0"))
+        sd.update(_conv_layer(lp[f"{fc}_conv"], f"{t}.{fc}.1"))
+        sd[f"{t}.{fc}.2.weight"] = _t(lp[f"{fc}_act"]["alpha"])
+    sd.update(_norm(lp["norm_full"], f"{t}.norm_full"))
+    sd.update(_pointwise(lp["squeeze"], f"{t}.squeeze.0"))
+    sd.update(_pointwise(lp["unsqueeze"], f"{t}.unsqueeze.0"))
+
+
+def _norm(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def _conv_layer(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _conv(p["Conv_0"]["kernel"]),
+            f"{prefix}.bias": _t(p["Conv_0"]["bias"])}
+
+
+def _pointwise(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _dense_to_1x1(p["Dense_0"]["kernel"]),
+            f"{prefix}.bias": _t(p["Dense_0"]["bias"])}
+
+
+def _ends(p: Mapping) -> Dict[str, torch.Tensor]:
+    return {"encoder.weight": _conv(p["encoder"]["Conv_0"]["kernel"]),
+            "encoder.bias": _t(p["encoder"]["Conv_0"]["bias"]),
+            "decoder.weight": _dense(p["decoder"]["Dense_0"]["kernel"]),
+            "decoder.bias": _t(p["decoder"]["Dense_0"]["bias"])}
+
+
 def spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
                                     full_share: int = 0) -> Dict[str, torch.Tensor]:
     """JAX SpatialNet params -> ``nbss_tpu_torch.models.SpatialNet`` state_dict."""
     p = params.get("params", params)
-    sd: Dict[str, torch.Tensor] = {
-        "encoder.weight": _conv(p["encoder"]["Conv_0"]["kernel"]),
-        "encoder.bias": _t(p["encoder"]["Conv_0"]["bias"]),
-        "decoder.weight": _dense(p["decoder"]["Dense_0"]["kernel"]),
-        "decoder.bias": _t(p["decoder"]["Dense_0"]["bias"]),
-    }
+    sd = _ends(p)
     n_fulls = min(full_share, num_layers - 1) + 1
     for l in range(num_layers):
         t, lp = f"layers.{l}", p[f"layer_{l}"]
-        full = p[f"full_{min(l, n_fulls - 1)}"]
-        sd[f"{t}.full.weight"], sd[f"{t}.full.bias"] = _t(full["weight"]), _t(full["bias"])
-
-        def norm(name, prefix):
-            sd[f"{prefix}.weight"] = _t(lp[name]["scale"])
-            sd[f"{prefix}.bias"] = _t(lp[name]["bias"])
-
-        def conv(name, prefix):
-            sd[f"{prefix}.weight"] = _conv(lp[name]["Conv_0"]["kernel"])
-            sd[f"{prefix}.bias"] = _t(lp[name]["Conv_0"]["bias"])
-
-        def pointwise(name, prefix):
-            sd[f"{prefix}.weight"] = _dense_to_1x1(lp[name]["Dense_0"]["kernel"])
-            sd[f"{prefix}.bias"] = _t(lp[name]["Dense_0"]["bias"])
-
-        for fc in ("fconv1", "fconv2"):
-            norm(f"{fc}_norm", f"{t}.{fc}.0")
-            conv(f"{fc}_conv", f"{t}.{fc}.1")
-            sd[f"{t}.{fc}.2.weight"] = _t(lp[f"{fc}_act"]["alpha"])
-        norm("norm_full", f"{t}.norm_full")
-        pointwise("squeeze", f"{t}.squeeze.0")
-        pointwise("unsqueeze", f"{t}.unsqueeze.0")
-        norm("norm_mhsa", f"{t}.norm_mhsa")
+        _cross_band(sd, t, lp, p[f"full_{min(l, n_fulls - 1)}"])
+        sd.update(_norm(lp["norm_mhsa"], f"{t}.norm_mhsa"))
         mhsa = lp["mhsa"]
         sd[f"{t}.mhsa.in_proj_weight"] = _dense(mhsa["in_proj"]["Dense_0"]["kernel"])
         sd[f"{t}.mhsa.in_proj_bias"] = _t(mhsa["in_proj"]["Dense_0"]["bias"])
         sd[f"{t}.mhsa.out_proj.weight"] = _dense(mhsa["out_proj"]["Dense_0"]["kernel"])
         sd[f"{t}.mhsa.out_proj.bias"] = _t(mhsa["out_proj"]["Dense_0"]["bias"])
-        norm("tconvffn_norm", f"{t}.tconvffn.0")
-        pointwise("tconvffn_up", f"{t}.tconvffn.1")
+        sd.update(_norm(lp["tconvffn_norm"], f"{t}.tconvffn.0"))
+        sd.update(_pointwise(lp["tconvffn_up"], f"{t}.tconvffn.1"))
         for name, idx in (("tconvffn_conv1", 3), ("tconvffn_conv2", 5), ("tconvffn_conv3", 8)):
-            conv(name, f"{t}.tconvffn.{idx}")
-        norm("tconvffn_midnorm", f"{t}.tconvffn.6")
-        pointwise("tconvffn_down", f"{t}.tconvffn.10")
+            sd.update(_conv_layer(lp[name], f"{t}.tconvffn.{idx}"))
+        sd.update(_norm(lp["tconvffn_midnorm"], f"{t}.tconvffn.6"))
+        sd.update(_pointwise(lp["tconvffn_down"], f"{t}.tconvffn.10"))
+    return sd
+
+
+def mamba_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX MambaBlock params -> ``nbss_tpu_torch.models.mamba.MambaBlock``
+    state_dict under ``prefix`` (mamba-ssm names): flax Dense kernels
+    [in, out] become weights [out, in], the depthwise conv kernel [k, 1, D]
+    becomes [D, 1, k]."""
+    p = params.get("params", params)
+    return {f"{prefix}in_proj.weight": _dense(p["in_proj"]["kernel"]),
+            f"{prefix}conv1d.weight": _conv(p["conv1d_weight"]),
+            f"{prefix}conv1d.bias": _t(p["conv1d_bias"]),
+            f"{prefix}x_proj.weight": _dense(p["x_proj"]["kernel"]),
+            f"{prefix}dt_proj.weight": _dense(p["dt_proj"]["kernel"]),
+            f"{prefix}dt_proj.bias": _t(p["dt_proj"]["bias"]),
+            f"{prefix}A_log": _t(p["A_log"]),
+            f"{prefix}D": _t(p["D"]),
+            f"{prefix}out_proj.weight": _dense(p["out_proj"]["kernel"])}
+
+
+def online_spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
+                                           full_share: int = 0) -> Dict[str, torch.Tensor]:
+    """JAX OnlineSpatialNet params of the ``mamba(d_state,d_conv)`` branch
+    (the second Mamba block in place of the T-ConvFFN) ->
+    ``nbss_tpu_torch.models.online_spatialnet.OnlineSpatialNet`` state_dict.
+    The JAX ``tconvffn_mamba`` becomes the port's ``tconvffn``."""
+    p = params.get("params", params)
+    sd = _ends(p)
+    n_fulls = min(full_share, num_layers - 1) + 1
+    for l in range(num_layers):
+        t, lp = f"layers.{l}", p[f"layer_{l}"]
+        _cross_band(sd, t, lp, p[f"full_{min(l, n_fulls - 1)}"])
+        sd.update(_norm(lp["norm_mhsa"], f"{t}.norm_mhsa"))
+        sd.update(mamba_state_dict_from_flax(lp["mhsa"], f"{t}.mhsa."))
+        sd.update(_norm(lp["norm_tconvffn"], f"{t}.norm_tconvffn"))
+        sd.update(mamba_state_dict_from_flax(lp["tconvffn_mamba"], f"{t}.tconvffn."))
     return sd

@@ -15,6 +15,14 @@ bounds: float32 at atol 5e-3 x max|plain| and rtol 5e-3 for each cotangent
 forward, or within the float32 bound where the plain bf16 version is exact.
 A 2-layer SpatialNet's gradients through the kernels are held against the
 plain module composition's.
+
+The selective-scan kernels are held against ``ssm.reference`` and
+``ssm.reference_bwd`` at the same bounds, at edge shapes: one frame, lengths
+below, at and above the saved-state chunk of 8 frames, the serving length
+251 and a long stream of 1000 frames; one sequence, a ragged count and the
+training count 1032; channel counts below, at and above a block's 64; state
+sizes 4 and 16. A 2-layer OnlineSpatialNet's gradients through the scan
+kernels are held against its plain path's.
 """
 
 import numpy as np
@@ -151,6 +159,127 @@ def test_spatialnet_gradients_through_kernels_match_plain_path(card, dtype):
         launched = ab.bwd_launches - before
         grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
         assert launched == (2 if net is fused else 0)
+    for name, gk in grads[0].items():
+        assert gk is not None and gk.abs().max() > 0, name
+        if dtype == torch.float32:
+            gp = grads[1][name]
+            torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
+                                       msg=name)
+
+
+# (M, T, D, N): T = 1, 7, 8, 9 around the 8-frame chunk, 251, 1000; M = 1, 31, 1032;
+# D = 192 (3 blocks), 64, 100 and 33 (ragged), 40 (one partial block); N = 4, 16
+SCAN_SHAPES = [(1, 1, 192, 16), (31, 7, 192, 4), (31, 8, 64, 16), (1, 9, 100, 16),
+               (1032, 251, 192, 16), (31, 1000, 192, 4), (1032, 9, 40, 4), (5, 251, 33, 16)]
+
+
+def _scan_inputs(seed, M, T, D, N, dtype):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, T, D, generator=g)
+    dt = 0.001 + 0.099 * torch.rand(M, T, D, generator=g)
+    A = -(0.5 + 1.5 * torch.rand(D, N, generator=g))
+    Bm, Cm = torch.randn(M, T, N, generator=g), torch.randn(M, T, N, generator=g)
+    Dp, gy = torch.randn(D, generator=g), torch.randn(M, T, D, generator=g)
+    return ([x.to(dtype).cuda(), dt.cuda(), A.cuda(), Bm.to(dtype).cuda(), Cm.to(dtype).cuda(),
+             Dp.cuda()], gy.to(dtype).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,D,N", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain(card, M, T, D, N, dtype):
+    from nbss_tpu_torch.ops import ssm
+
+    ins, _ = _scan_inputs(M + T + D + N, M, T, D, N, dtype)
+    before = ssm.launches
+    y, hb = ssm.forward(*ins, boundaries=True)
+    torch.cuda.synchronize()
+    assert ssm.launches == before + 1 and y.dtype == dtype and y.shape == ins[0].shape
+    assert hb.shape == (-(-T // ssm.CHUNK), M, N, D)
+    want = ssm.reference(*[t.float() for t in ins])
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+    else:
+        err = (y.float() - want).abs().max().item()
+        plain = (ssm.reference(*ins).float() - want).abs().max().item()
+        assert err <= max(2 * plain, 2e-4 + 1e-4 * want.abs().max().item()), (err, plain)
+    y2, _ = ssm.forward(*ins)
+    assert torch.equal(y, y2)  # writing the saved states changes nothing else
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,D,N", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_backward_kernel_matches_plain(card, M, T, D, N, dtype):
+    from nbss_tpu_torch.ops import ssm
+
+    ins, gy = _scan_inputs(M * T + D + N, M, T, D, N, dtype)
+    _, hb = ssm.forward(*ins, boundaries=True)
+    before = ssm.bwd_launches
+    got = ssm.backward(*ins, hb, gy)
+    torch.cuda.synchronize()
+    assert ssm.bwd_launches == before + 1
+    for g, t in zip(got, ins):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    want = ssm.reference_bwd(*[t.float() for t in ins], gy.float())
+    names = "gx gdt gA gB gC gD".split()
+    if dtype == torch.float32:
+        for name, g, w in zip(names, got, want):
+            torch.testing.assert_close(g, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=name)
+    else:
+        plain = ssm.reference_bwd(*ins, gy)
+        for name, g, p, w in zip(names, got, plain, want):
+            err = (g.float() - w).abs().max().item()
+            perr = (p.float() - w).abs().max().item()
+            assert err <= max(2 * perr, 5e-3 * w.abs().max().item()), (name, err, perr)
+    again = ssm.backward(*ins, hb, gy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.gpu
+def test_selective_scan_kernels_refuse_what_they_do_not_take(card):
+    from nbss_tpu_torch.ops import ssm
+
+    ins, gy = _scan_inputs(0, 2, 9, 32, 17, torch.float32)
+    with pytest.raises(ValueError, match="N <= 16"):
+        ssm.selective_scan(*ins)
+    ins, gy = _scan_inputs(0, 2, 9, 32, 4, torch.float32)
+    with pytest.raises(ValueError, match="dt must be"):
+        ssm.selective_scan(ins[0], ins[1].half(), *ins[2:])
+    with pytest.raises(ValueError, match="hb must be"):
+        ssm.backward(*ins, torch.zeros(1, device="cuda"), gy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("remat", [False, True])
+def test_online_spatialnet_gradients_through_scan_kernels_match_plain_path(card, dtype, remat):
+    """A 2-layer OnlineSpatialNet mamba(16,4) at H=96 (F=9, 30 frames): a loss
+    through the kernels gives every parameter and the input a non-zero
+    gradient, the backward kernel runs twice per layer (the forward twice
+    more with remat), and in fp32 each gradient is within 5e-3 x max|plain|
+    of the plain path's."""
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.ops import ssm
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=96, dim_squeeze=8,
+              num_freqs=9, attention="mamba(16,4)", remat=remat)
+    gen = torch.Generator().manual_seed(0)
+    fused = OnlineSpatialNet(**kw, dtype=dtype, generator=gen, device="cuda")
+    plain = OnlineSpatialNet(**kw, fused_scan=False, device="cuda")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 9, 30, 12, generator=gen).cuda()
+    w = torch.randn(2, 9, 30, 4, generator=gen).cuda()
+    grads = []
+    for net in (fused, plain):
+        xg = x.clone().requires_grad_()
+        f0, b0 = ssm.launches, ssm.bwd_launches
+        (net(xg) * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (ssm.launches - f0, ssm.bwd_launches - b0)
+        grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
+        assert launched == (((8 if remat else 4), 4) if net is fused else (0, 0))
     for name, gk in grads[0].items():
         assert gk is not None and gk.abs().max() > 0, name
         if dtype == torch.float32:
