@@ -8,8 +8,9 @@ serving path and its training path at the full width of SpatialNet-small
 (8 layers, H=96, 4 heads, F=129; 6 channels x 4 s at 8 kHz, bf16, seeded
 random weights): serving B=16 requests, then training at B=8; then the same
 for OnlineSpatialNet ``mamba(16,4)`` (the committed streaming run: 8 layers,
-H=96, online utterance norm, neg-SNR with PIT), which also streams. Fifteen
-phases:
+H=96, online utterance norm, neg-SNR with PIT), which also streams, and for
+OnlineSpatialNet ``mhsa(251)`` (the same widths with masked attention, 4
+heads, and the causal T-ConvFFN). Twenty-one phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -58,7 +59,28 @@ phases:
     backward scan launches a step; fp32 gradients of every parameter, kernel
     path vs plain, within 5e-3 x max|plain|;
 15. times: both scan kernels, their plain versions and bounds; serving,
-    streaming and training rates.
+    streaming and training rates;
+16. narrow-band attention forward kernel vs ``attention.reference`` at the
+    serving shape (M = 16*129, T = 251, nh = 4, dh = 24): fp32 at atol 2e-4,
+    rtol 1e-4 with no mask, the causal [T, T] mask and the ALiBi [nh, T, T]
+    mask; bf16 (causal mask) no farther from the fp32 plain result than twice
+    the plain bf16 version; ragged shapes (T = 1, T = 13, M = 1, dv != dh),
+    forward and backward in fp32;
+17. attention backward kernel vs ``attention.reference_bwd`` at the training
+    shape (M = 8*129): each of dq, dk, dv within 5e-3 x max|plain| in fp32 and
+    within the bf16 rule of phase 6; a second launch bit-identical;
+18. OnlineSpatialNet mhsa(251) serving at B=16 in bf16: 8 attention launches
+    per forward and no backward launch; fp32 kernel path vs the plain
+    attention, SI-SDR >= 50 dB;
+19. streaming (a KV ring buffer of 250 frames) vs ``forward`` at B=4: fp32
+    SI-SDR >= 50 dB, the bf16 figure printed;
+20. training: 20 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
+    remat): falling loss, 16 forward (8 + 8 recomputed) and 8 backward
+    attention launches a step; fp32 gradients, kernel path vs plain, within
+    5e-3 x max|plain|; peak device memory;
+21. times: both attention kernels, their plain versions, one
+    ``scaled_dot_product_attention`` call (and its backward) with the same
+    float mask, and bounds; serving, streaming and training rates.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -87,6 +109,8 @@ FLAGSHIP = dict(dim_input=12, dim_output=4, num_layers=8, dim_hidden=96, dim_ffn
                 num_freqs=129, full_share=0)
 # the committed streaming run, logs/OnlineSpatialNet/version_0/config.yaml
 ONLINE = dict(FLAGSHIP, attention="mamba(16,4)")
+# its masked-attention alternative, the class's default (configs/onlineSpatialNet.yaml:31)
+MHSA = dict(FLAGSHIP, attention="mhsa(251)")
 B_STREAM = 4
 
 
@@ -140,7 +164,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/15 device")
+    log("phase 1/21 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -148,7 +172,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/15 build (plain nvcc, sm_90a)")
+    log("phase 2/21 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -158,7 +182,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/15 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/21 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -185,7 +209,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/15 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/21 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -222,7 +246,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/15 times (CUDA events, after warm-up)")
+    log("phase 5/21 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -264,6 +288,7 @@ def main() -> int:
 
     row2, train_launches = training_phases(dev)
     rows67 = online_phases(dev)
+    rows45 = mhsa_phases(dev)
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
@@ -272,7 +297,7 @@ def main() -> int:
         "launches": launches, "launches_training": train_launches, "max_abs_err": err32,
         "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms, "ms_fp32": ms_fp32,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}, row2, *rows67]}), flush=True)
+        "library_ms": library_ms}, row2, *rows67, *rows45]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -305,7 +330,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/15 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/21 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -344,7 +369,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/15 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/21 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -382,7 +407,7 @@ def training_phases(dev):
     check_budget("training")
 
     # 8. gradient parity, fp32
-    log("phase 8/15 gradients: kernel path vs plain composition, fp32, one batch")
+    log("phase 8/21 gradients: kernel path vs plain composition, fp32, one batch")
     grads = []
     for fused in (True, False):
         net = SpatialNet(**FLAGSHIP, fused_block=fused, device=dev)
@@ -406,7 +431,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/15 times (CUDA events, after warm-up)")
+    log("phase 9/21 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     plain_ms = cuda_ms(lambda: ab.reference_bwd(xb, ln, A, Wvo, gb, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -510,7 +535,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/15 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/21 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -532,7 +557,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/15 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/21 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -563,7 +588,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/15 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/21 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -600,7 +625,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/15 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/21 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -621,7 +646,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/15 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/21 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -680,7 +705,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/15 times (CUDA events, after warm-up)")
+    log("phase 15/21 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -745,6 +770,334 @@ def online_phases(dev):
              "max_abs_err": max(bwd_errs32), "max_err_fp32": dict(zip(names, bwd_errs32)),
              "max_err_bf16": dict(zip(names, bwd_errsbf)), "ms": bwd_ms, "plain_ms": bwd_plain_ms,
              "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None}]
+
+
+def attention_inputs(gen, M: int, T: int, nh: int, dh: int, dv: int, dtype, dev):
+    """Seeded q, k [M, T, nh*dh], v and a cotangent g [M, T, nh*dv]."""
+    import torch
+
+    q, k = (torch.randn(M, T, nh * dh, generator=gen) for _ in range(2))
+    v, g = (torch.randn(M, T, nh * dv, generator=gen) for _ in range(2))
+    return [t.to(dtype).to(dev) for t in (q, k, v)], g.to(dtype).to(dev)
+
+
+def mhsa_phases(dev):
+    """Phases 16-21: OnlineSpatialNet mhsa(251) through the narrow-band
+    attention kernels. Returns their two rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from nbss_tpu_torch.data.synthetic import SyntheticDataset
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.online_spatialnet import (
+        OnlineSpatialNet,
+        alibi_mask,
+        local_causal_mask,
+    )
+    from nbss_tpu_torch.ops import attention as att
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.loop import Trainer
+    from nbss_tpu_torch.train.module import TrainModule
+
+    T = int(SECONDS * FS) // 128 + 1
+    nh, n_layers = MHSA["num_heads"], MHSA["num_layers"]
+    dh = MHSA["dim_hidden"] // nh
+    scope = int(MHSA["attention"][5:-1])
+    M_serve, M_train = B * MHSA["num_freqs"], B_TRAIN * MHSA["num_freqs"]
+    names = ("dq", "dk", "dv")
+    gen = torch.Generator().manual_seed(4)
+
+    def mask_of(kind, T, nh):
+        m = {"none": None, "causal": local_causal_mask(T, scope),
+             "alibi": alibi_mask(T, scope, nh)}[kind]
+        return None if m is None else torch.from_numpy(m).clamp(min=-1e30).to(dev)
+
+    def fwd_check(ins, mask, nh, label):
+        o, _ = att.forward(*ins, mask, nh)
+        torch.cuda.synchronize()
+        want = att.reference(*ins, mask, nh)
+        err = (o - want).abs().max().item()
+        torch.testing.assert_close(o, want, atol=2e-4, rtol=1e-4, msg=label)
+        return err
+
+    def bwd_check(ins, mask, g, nh, label):
+        _, st = att.forward(*ins, mask, nh, stats=True)
+        got = att.backward(*ins, mask, g, nh, st)
+        torch.cuda.synchronize()
+        want = att.reference_bwd(*ins, mask, g, nh)
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        for name, a, w in zip(names, got, want):
+            torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=f"{label} {name}")
+        return got, st, errs
+
+    # 16. forward kernel vs plain
+    log(f"phase 16/21 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
+    fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
+                  for kind in ("none", "causal", "alibi")}
+    log("fp32: max |kernel - plain| " + ", ".join(f"{k} mask {e:.3e}"
+                                                  for k, e in fwd_errs32.items())
+        + " (atol 2e-4, rtol 1e-4): ok")
+    causal = mask_of("causal", T, nh)
+    insb = [t.to(torch.bfloat16) for t in ins32]
+    del ins32
+    want = att.reference(*[t.float() for t in insb], causal, nh)
+    fwd_errbf = (att.forward(*insb, causal, nh)[0].float() - want).abs().max().item()
+    plainbf = (att.reference(*insb, causal, nh).float() - want).abs().max().item()
+    del want
+    log(f"bf16, causal mask: max |kernel - fp32 plain| = {fwd_errbf:.4f}, plain bf16 version's "
+        f"= {plainbf:.4f} (bound: 2x the plain version's)")
+    if not fwd_errbf <= 2 * plainbf:
+        raise AssertionError(f"bf16 attention error {fwd_errbf} exceeds 2 x {plainbf}")
+    for shape, kind in (((5, 1, 4, 24, 24), "causal"), ((7, 13, 4, 24, 24), "alibi"),
+                        ((1, T, 4, 24, 24), "causal"), ((3, 40, 4, 16, 32), "alibi")):
+        ins, g = attention_inputs(gen, *shape, torch.float32, dev)
+        m = mask_of(kind, shape[1], shape[2])
+        e = fwd_check(ins, m, shape[2], f"ragged {shape}")
+        _, _, be = bwd_check(ins, m, g, shape[2], f"ragged {shape}")
+        log(f"ragged (M, T, nh, dh, dv) = {shape}, {kind} mask: forward {e:.2e}, backward "
+            f"worst {max(be):.2e}: ok")
+    check_budget("attention vs plain")
+
+    # 17. backward kernel vs plain
+    log(f"phase 17/21 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
+    got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
+    again = att.backward(*ins32, causal, g32, nh, st32)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("fp32: max |kernel - plain| " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(names, bwd_errs32))
+        + f" (atol 5e-3 x max|plain|); two launches bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("two launches of the attention backward on the same inputs differ")
+    del got, again, st32
+    insbt, gbt = [t.to(torch.bfloat16) for t in ins32], g32.to(torch.bfloat16)
+    del ins32, g32
+    _, stbt = att.forward(*insbt, causal, nh, stats=True)
+    want = att.reference_bwd(*[t.float() for t in insbt], causal, gbt.float(), nh)
+    bwd_errsbf = [(a.float() - w).abs().max().item()
+                  for a, w in zip(att.backward(*insbt, causal, gbt, nh, stbt), want)]
+    plainbf = [(a.float() - w).abs().max().item()
+               for a, w in zip(att.reference_bwd(*insbt, causal, gbt, nh), want)]
+    bounds = [5e-3 * w.abs().max().item() for w in want]
+    del want
+    log("bf16: max |kernel - fp32 plain| vs the plain bf16 version's: " + ", ".join(
+        f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(names, bwd_errsbf, plainbf)))
+    for name, e, p, b in zip(names, bwd_errsbf, plainbf, bounds):
+        if not e <= max(2 * p, b):
+            raise AssertionError(f"bf16 attention backward {name}: error {e} exceeds "
+                                 f"max(2 x {p}, {b})")
+    check_budget("attention backward vs plain")
+
+    # 18. serving
+    log(f"phase 18/21 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+        f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
+    net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="utterance", online=True),
+                         loss=Loss(name="neg_snr", pit=True))
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
+    att.launches = att.bwd_launches = 0
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave, target)
+    torch.cuda.synchronize()
+    serve_fwd, serve_bwd = att.launches, att.bwd_launches
+    for name, out in (("forward", yr_hat), ("predict_step", pred)):
+        if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    if serve_fwd != 2 * n_layers or serve_bwd != 0:
+        raise AssertionError(f"narrowband_attention launched {serve_fwd} forward and {serve_bwd} "
+                             f"backward kernels in two forwards, expected {2 * n_layers} and 0")
+    log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; narrowband_attention "
+        f"launched {serve_fwd} times ({n_layers} per forward), its backward {serve_bwd}")
+    net32 = OnlineSpatialNet(**MHSA, device=dev).eval()
+    net32.load_state_dict(net.state_dict())
+    plain32 = OnlineSpatialNet(**MHSA, fused_attention=False, device=dev).eval()
+    plain32.load_state_dict(net.state_dict())
+    module32 = TrainModule(**{**module.__dict__, "arch": net32})
+    y_kernel, _ = module32.forward(wave)
+    y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(wave)
+    serve_sdr = si_sdr(y_kernel, y_plain).min().item()
+    del plain32, y_kernel, y_plain
+    log(f"fp32 kernel path vs plain attention: min SI-SDR {serve_sdr:.1f} dB (bound >= 50)")
+    if not serve_sdr >= 50.0:
+        raise AssertionError(f"kernel path vs plain path SI-SDR {serve_sdr:.1f} dB < 50 dB")
+    check_budget("mhsa serving")
+
+    # 19. streaming
+    log(f"phase 19/21 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+        f"a KV ring buffer of {scope - 1} frames")
+    wave_s = wave[:B_STREAM].contiguous()
+    stream = {}
+    for label, m in (("fp32", module32), ("bf16", module)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_str, _ = m.forward_streaming(wave_s)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        y_off, _ = m.forward(wave_s)
+        if not torch.isfinite(y_str).all():
+            raise AssertionError(f"{label} streaming output is not finite")
+        stream[label] = (si_sdr(y_str, y_off).min().item(), B_STREAM * SECONDS / seconds)
+        log(f"{label}: streaming vs offline min SI-SDR {stream[label][0]:.1f} dB; "
+            f"{T} frames in {seconds:.2f} s = {stream[label][1]:.2f} audio-s/s")
+    if not stream["fp32"][0] >= 50.0:
+        raise AssertionError(f"fp32 streaming vs offline SI-SDR {stream['fp32'][0]:.1f} dB < 50")
+    del net32, module32
+    check_budget("mhsa streaming")
+
+    # 20. training
+    log(f"phase 20/21 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+        f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
+    data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
+                            audio_time_len=SECONDS)
+    items = [data[(i, 1000 + i)] for i in range(B_TRAIN)]
+    batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]))
+    tmodule = TrainModule(**{**module.__dict__, "arch": OnlineSpatialNet(
+        **MHSA, dtype=torch.bfloat16, remat=True, device=dev)})
+    losses = []
+    trainer = Trainer(tmodule, optimizer=("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}),
+                      gradient_clip_val=5.0, seed=2, device=dev,
+                      logger=lambda k, v, _: losses.append(v) if k.startswith("train/") else None)
+    trainer.init()
+    torch.cuda.reset_peak_memory_stats()
+    att.launches = att.bwd_launches = 0
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_fwd, fit_bwd = att.launches, att.bwd_launches
+    att.launches = att.bwd_launches = 0
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_fwd, step_bwd = att.launches, att.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
+    log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward in {TRAIN_STEPS} steps; one step "
+        f"{step_fwd} + {step_bwd} (forward {n_layers} + {n_layers} recomputed by remat, "
+        f"backward {n_layers}); peak memory {peak:.1f} GiB")
+    want = (2 * n_layers, n_layers)
+    if (step_fwd, step_bwd) != want or (fit_fwd, fit_bwd) != tuple(TRAIN_STEPS * w for w in want):
+        raise AssertionError(f"expected {want[0]} forward and {want[1]} backward launches a step")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+    grads = []
+    for fused in (True, False):
+        net = OnlineSpatialNet(**MHSA, remat=True, fused_attention=fused, device=dev)
+        net.load_state_dict(tmodule.arch.state_dict())
+        m32 = TrainModule(**{**tmodule.__dict__, "arch": net})
+        m32.training_step(trainer.to_device(batch)).backward()
+        grads.append({n: p.grad for n, p in net.named_parameters()})
+        del net, m32
+    worst = ("", 0.0)
+    for name, gk in grads[0].items():
+        gp = grads[1][name]
+        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+        if gk.abs().max() == 0 or rel > 5e-3:
+            raise AssertionError(f"gradient of {name}: max |kernel - plain| = {rel:.2e} "
+                                 f"x max|plain| (bound 5e-3)")
+    log(f"fp32 gradients of {len(grads[0])} parameters, kernel path vs plain: worst "
+        f"max |kernel - plain| / max|plain| = {worst[1]:.2e} ({worst[0]}; bound 5e-3)")
+    del grads
+    torch.cuda.empty_cache()
+    check_budget("mhsa training")
+
+    # 21. times
+    log("phase 21/21 times (CUDA events, after warm-up), causal mask")
+    fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
+    fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
+    ins32 = [t.float() for t in insb]
+    fwd_ms_fp32 = cuda_ms(lambda: att.forward(*ins32, causal, nh), iters=5)
+    del ins32
+    fwd_plain_ms = cuda_ms(lambda: att.reference(*insb, causal, nh), iters=3, warmup=1)
+    bwd_ms = cuda_ms(lambda: att.backward(*insbt, causal, gbt, nh, stbt), iters=10)
+    bwd_plain_ms = cuda_ms(lambda: att.reference_bwd(*insbt, causal, gbt, nh), iters=3, warmup=1)
+
+    def heads(t):  # [M, T, nh*d] -> [M, nh, T, d], a view
+        M_, T_, W = t.shape
+        return t.view(M_, T_, nh, W // nh).transpose(1, 2)
+
+    mask_b = causal.to(torch.bfloat16)  # SDPA takes a float mask in the inputs' dtype
+    fwd_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *(heads(t) for t in insb), attn_mask=mask_b), iters=10)
+    leaves = [t.detach().clone().requires_grad_() for t in insbt]
+    o = F.scaled_dot_product_attention(*(heads(t) for t in leaves), attn_mask=mask_b)
+    g4 = heads(gbt)  # graph built once; the port never calls this
+    bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, g4, retain_graph=True),
+                             iters=10)
+    del o, leaves
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    fwd_bytes = nbytes(insb) + nbytes(insb[2:]) + nbytes([causal])  # q, k, v, mask in; o out
+    fwd_ops = 2 * M_serve * nh * T * T * (dh + dh)  # q k^T and e v
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops)
+    bwd_bytes = 2 * nbytes(insbt) + nbytes([gbt, causal])  # q, k, v, g, mask in; dq, dk, dv out
+    bwd_ops = 2 * M_train * nh * T * T * (3 * dh + 2 * dh)  # q k^T, e^T g', g' v^T, dS k, dS^T q
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
+    log(f"narrowband_attention bf16 M={M_serve}: kernel {fwd_ms:.3f} ms (fp32 "
+        f"{fwd_ms_fp32:.3f} ms), plain {fwd_plain_ms:.3f} ms, library (SDPA, float mask) "
+        f"{fwd_library_ms:.3f} ms, bound {fwd_bound:.4f} ms ({fwd_by}: "
+        f"{fwd_bytes / 1e6:.0f} MB, {fwd_ops / 1e9:.1f} GFLOP); writing the row statistics "
+        f"at M={M_train}: {fwd_train_ms:.3f} ms")
+    log(f"narrowband_attention backward bf16 M={M_train}: kernel {bwd_ms:.3f} ms, plain "
+        f"{bwd_plain_ms:.3f} ms, library (SDPA backward) {bwd_library_ms:.3f} ms, bound "
+        f"{bwd_bound:.4f} ms ({bwd_by}: {bwd_bytes / 1e6:.0f} MB, {bwd_ops / 1e9:.1f} GFLOP)")
+    del insb, insbt, gbt, stbt
+
+    for _ in range(2):
+        module.predict_step(wave)
+    torch.cuda.synchronize()
+    reps, t1 = 5, time.perf_counter()
+    for _ in range(reps):
+        module.predict_step(wave)
+    torch.cuda.synchronize()
+    serve_s = (time.perf_counter() - t1) / reps
+    log(f"serving: predict_step on {B} x {SECONDS:g} s in {serve_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve_s:.1f} audio-s/s")
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / reps
+    log(f"training: train_step on {B_TRAIN} x {SECONDS:g} s in {step_s * 1e3:.1f} ms = "
+        f"{B_TRAIN * SECONDS / step_s:.1f} audio-s/s trained")
+    check_budget("mhsa times")
+    rates = {"serve_audio_s_per_s": B * SECONDS / serve_s,
+             "stream_audio_s_per_s_fp32": stream["fp32"][1],
+             "stream_audio_s_per_s_bf16": stream["bf16"][1],
+             "stream_sdr_db_fp32": stream["fp32"][0], "stream_sdr_db_bf16": stream["bf16"][0],
+             "serve_sdr_db_fp32": serve_sdr, "train_audio_s_per_s": B_TRAIN * SECONDS / step_s,
+             "train_step_ms": step_s * 1e3, "train_peak_gib": peak}
+    return [{"name": "narrowband_attention", "route": "cuda",
+             "source": "nbss_tpu_torch/csrc/narrowband_attention.cu",
+             "replaces": "nbss_tpu/ops/attention.py:89", "launches": serve_fwd,
+             "launches_training": fit_fwd, "max_abs_err": max(fwd_errs32.values()),
+             "max_err_fp32": fwd_errs32, "max_err_bf16": fwd_errbf, "ms": fwd_ms,
+             "ms_fp32": fwd_ms_fp32, "ms_with_row_stats_m1032": fwd_train_ms,
+             "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+             "library_ms": fwd_library_ms, **rates},
+            {"name": "narrowband_attention_bwd", "route": "cuda",
+             "source": "nbss_tpu_torch/csrc/narrowband_attention_bwd.cu",
+             "replaces": "nbss_tpu/ops/attention.py:197", "launches": fit_bwd,
+             "launches_training": fit_bwd, "max_abs_err": max(bwd_errs32),
+             "max_err_fp32": dict(zip(names, bwd_errs32)),
+             "max_err_bf16": dict(zip(names, bwd_errsbf)), "ms": bwd_ms,
+             "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+             "library_ms": bwd_library_ms}]
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nbss_tpu_torch.ops.attention import narrowband_attention
+
 
 @torch.no_grad()
 def _uniform_(p: nn.Parameter, bound: float, generator: Optional[torch.Generator]) -> None:
@@ -193,14 +195,24 @@ class LinearGroup(nn.Module):
 class MultiheadAttention(nn.Module):
     """Self-attention over the sequence axis of [..., T, H], parameterized as
     torch.nn.MultiheadAttention (packed ``in_proj_weight`` [3H, H],
-    ``out_proj``); scale 1/sqrt(dh), float32 scores and softmax."""
+    ``out_proj``); scale 1/sqrt(dh), float32 scores and softmax.
 
-    def __init__(self, embed_dim: int, num_heads: int,
+    ``attn_mask`` is additive ([T, T], [nh, T, T] or with leading axes, -inf
+    for masked) or boolean (True = masked). ``fused=True`` runs
+    ``ops.attention.narrowband_attention`` (the CUDA kernels on a CUDA tensor,
+    ``reference`` on the CPU; ``kernel=False`` the plain versions on the card
+    too), as the JAX package runs its Pallas kernel on an accelerator: a
+    boolean mask becomes -1e30 / 0 and a float mask is clamped at -1e30 first,
+    and the weights are rounded before they are normalized. A mask with more
+    than 3 dimensions, or ``fused=False``, takes the einsum composition, which
+    normalizes and then rounds as the JAX package's XLA path does."""
+
+    def __init__(self, embed_dim: int, num_heads: int, fused: bool = True, kernel: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"{embed_dim} channels do not split into {num_heads} heads")
-        self.num_heads = num_heads
+        self.num_heads, self.fused, self.kernel = num_heads, fused, kernel
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.reset_parameters(generator)
@@ -212,13 +224,28 @@ class MultiheadAttention(nn.Module):
         _uniform_(self.in_proj_weight, bound, generator)
         _uniform_(self.in_proj_bias, bound, generator)
 
-    def forward(self, x):
+    def forward(self, x, attn_mask: Optional[torch.Tensor] = None):
         *lead, T, H = x.shape
         nh = self.num_heads
         dh = H // nh
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
+        if self.fused and (attn_mask is None or attn_mask.dim() <= 3):
+            mask = attn_mask
+            if mask is not None:
+                if mask.dtype == torch.bool:
+                    mask = torch.where(mask, -1e30, 0.0)
+                mask = mask.float().clamp(min=-1e30)
+            q, k, v = qkv.reshape(-1, T, 3 * H).chunk(3, dim=-1)  # row-strided views
+            out = narrowband_attention(q, k, v, mask, nh, kernel=self.kernel)
+            return self.out_proj(out.reshape(*lead, T, H))
         q, k, v = (t.reshape(*lead, T, nh, dh).float() for t in qkv.chunk(3, dim=-1))
         logits = torch.einsum("...qhd,...khd->...hqk", q, k) / math.sqrt(dh)
+        if attn_mask is not None:
+            m = attn_mask[..., None, :, :] if attn_mask.dim() == len(lead) + 2 else attn_mask
+            if m.dtype == torch.bool:
+                logits = logits.masked_fill(m, -1e30)
+            else:
+                logits = logits + m.float()
         probs = torch.softmax(logits, dim=-1).to(x.dtype).float()
         out = torch.einsum("...hqk,...khd->...qhd", probs, v).to(x.dtype)
         return self.out_proj(out.reshape(*lead, T, H))

@@ -15,8 +15,9 @@ Parameter names follow the original torch SpatialNet
 With the default LayerNorm pre-norm the narrow-band ``x + MHSA(LN(x))`` runs
 through ``ops.attention_block`` (the CUDA kernel on a CUDA tensor), as the JAX
 package runs its Pallas kernel on an accelerator. ``fused_block=False`` runs
-the plain module composition instead. The T-ConvFFN is a plain composition,
-as it is by default in the JAX package.
+the plain module composition instead (the einsum ``MultiheadAttention``).
+The T-ConvFFN is a plain composition, as it is by default in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ class SpatialNetLayer(nn.Module):
         self.fconv2 = nn.Sequential(new_norm(norms[4], H, f_groups),
                                     Conv1d(H, H, f_k, groups=f_groups, generator=g), PReLU(H))
         self.norm_mhsa = new_norm(norms[0], H, t_groups)
-        self.mhsa = MultiheadAttention(H, num_heads, generator=g)
+        self.mhsa = MultiheadAttention(H, num_heads, fused=False, generator=g)
         self.tconvffn = nn.Sequential(
             new_norm(norms[1], H, t_groups),
             Conv1d(H, FF, 1, generator=g), nn.SiLU(),

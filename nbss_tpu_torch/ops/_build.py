@@ -1,10 +1,10 @@
 """Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
 
 Every ``csrc/*.cu`` file has a plain C interface and includes only CUDA
-headers, so the whole set compiles into one shared library in seconds, with
+headers (and the ``csrc/*.cuh`` headers beside it), so the whole set compiles into one shared library in seconds, with
 no PyTorch headers and no ``ninja``: one ``nvcc -c`` per source, all started
 together, then one link. The library goes to ``build/kernels/`` at the
-repository root, named by a hash of the sources and the flags, so a stale
+repository root, named by a hash of the sources, headers and flags, so a stale
 build is never loaded. The build happens at first use.
 """
 
@@ -33,7 +33,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, "-shared")).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libnbss_kernels_{h.hexdigest()[:16]}.so"
@@ -108,5 +108,12 @@ def library() -> ctypes.CDLL:
         lib.nbss_selective_scan_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.nbss_selective_scan_chunk.argtypes = []
         lib.nbss_selective_scan_chunk.restype = i
+        ll, f = ctypes.c_longlong, ctypes.c_float
+        lib.nbss_narrowband_attention_fwd.argtypes = [p] * 6 + [ll] * 3 + [i] * 6 + [f, i, p]
+        lib.nbss_narrowband_attention_fwd.restype = i
+        lib.nbss_narrowband_attention_bwd.argtypes = [p] * 10 + [ll] * 3 + [i] * 6 + [f, i, p]
+        lib.nbss_narrowband_attention_bwd.restype = i
+        lib.nbss_narrowband_attention_max_width.argtypes = []
+        lib.nbss_narrowband_attention_max_width.restype = i
         _lib = lib
     return _lib

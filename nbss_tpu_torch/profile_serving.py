@@ -1,19 +1,22 @@
 """Where the serving step's time goes on the card.
 
     python3 -m nbss_tpu_torch.profile_serving [--arch spatialnet|online_spatialnet]
+                                              [--attention 'mamba(16,4)'|'mhsa(251)'|...]
 
-Serves SpatialNet-small, or OnlineSpatialNet mamba(16,4) (8 layers, H=96,
-seeded random weights, bf16), at B=16 x 6 channels x 4 s through
-``TrainModule.predict_step`` under ``torch.profiler`` for three steps, after
-two warm-up steps, and prints the device time of the 25 costliest kernels,
-the port's kernels' shares and the device's busy share of the profiled wall
-time. It checks that each step launched the arch's kernel once per block
-(8 attention blocks, or 16 scans) and no backward kernel. Needs a CUDA card.
+Serves SpatialNet-small, or OnlineSpatialNet with the time module
+``--attention`` (default mamba(16,4), the committed run; mhsa(251) is the
+masked-attention alternative) at 8 layers, H=96, seeded random weights, bf16,
+at B=16 x 6 channels x 4 s through ``TrainModule.predict_step`` under
+``torch.profiler`` for three steps, after two warm-up steps, and prints the
+device time of the 25 costliest kernels, the port's kernels' shares and the
+device's busy share of the profiled wall time. It checks that each step
+launched the arch's kernel once per block (8 attention blocks, 16 scans for
+mamba(16,4), 8 narrow-band attentions for mhsa(N)) and no backward kernel.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 import time
 
@@ -23,13 +26,15 @@ WIDTHS = dict(dim_input=2 * C, dim_output=4, num_layers=LAYERS, dim_hidden=96, d
               num_heads=4, dim_squeeze=8, num_freqs=129)
 
 
-def build(arch: str, dtype, generator, remat: bool = False):
+def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)"):
     """(TrainModule, kernel module, its launches per forward, kernel names
-    to sum) for SpatialNet-small or the committed OnlineSpatialNet run."""
+    to sum) for SpatialNet-small or OnlineSpatialNet with ``attention``, as
+    the committed run trains it."""
     from nbss_tpu_torch.io.loss import Loss
     from nbss_tpu_torch.io.norm import Norm
-    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet, parse_attention
     from nbss_tpu_torch.models.spatialnet import SpatialNet
+    from nbss_tpu_torch.ops import attention as narrowband
     from nbss_tpu_torch.ops import attention_block, ssm
     from nbss_tpu_torch.train.module import TrainModule
 
@@ -37,27 +42,44 @@ def build(arch: str, dtype, generator, remat: bool = False):
         net = SpatialNet(**WIDTHS, dtype=dtype, generator=generator, device="cuda")
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), attention_block, LAYERS,
                 ("attention_block_kernel", "attention_block_bwd"))
-    net = OnlineSpatialNet(**WIDTHS, attention="mamba(16,4)", dtype=dtype, remat=remat,
+    net = OnlineSpatialNet(**WIDTHS, attention=attention, dtype=dtype, remat=remat,
                            generator=generator, device="cuda")
     module = TrainModule(arch=net, norm=Norm(mode="utterance", online=True),
                          loss=Loss(name="neg_snr", pit=True))
-    return module, ssm, 2 * LAYERS, ("selective_scan_kernel", "selective_scan_bwd")
+    kind, cfg = parse_attention(attention)
+    if kind == "mhsa":
+        return (module, narrowband, LAYERS,
+                ("narrowband_attention_kernel", "narrowband_attention_bwd"))
+    blocks = 2 if cfg["replace_ffn"] else 1  # Mamba blocks a layer
+    return module, ssm, blocks * LAYERS, ("selective_scan_kernel", "selective_scan_bwd")
+
+
+def parse_args(description: str):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--arch", choices=("spatialnet", "online_spatialnet"),
+                        default="spatialnet")
+    parser.add_argument("--attention", default="mamba(16,4)",
+                        help="OnlineSpatialNet's time module, e.g. 'mamba(16,4)' or 'mhsa(251)'")
+    return parser.parse_args()
 
 
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--arch", choices=("spatialnet", "online_spatialnet"),
-                        default="spatialnet")
-    arch = parser.parse_args().arch
+    args = parse_args(__doc__.splitlines()[0])
+    arch = args.arch
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
 
     gen = torch.Generator().manual_seed(0)
-    module, kernels, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, gen)
+    module, kernels, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, gen,
+                                                         attention=args.attention)
+    if arch == "online_spatialnet":
+        arch = f"{arch} {args.attention}"
     module.arch.eval()
     wave = (0.1 * torch.randn(B, C, S, generator=gen)).cuda()
     for _ in range(2):

@@ -1,23 +1,24 @@
 """Where a training step's time goes on the card.
 
     python3 -m nbss_tpu_torch.profile_training [--arch spatialnet|online_spatialnet]
+                                               [--attention 'mamba(16,4)'|'mhsa(251)'|...]
 
 Trains SpatialNet-small (neg-SI-SDR with PIT, Adam), or OnlineSpatialNet
-mamba(16,4) as the committed run does (neg-SNR with PIT, AdamW with weight
-decay 1e-3, remat), at 8 layers, H=96, seeded random weights, bf16 compute
+with the time module ``--attention`` (default mamba(16,4)) as the committed
+run does (neg-SNR with PIT, AdamW with weight decay 1e-3, remat), at 8 layers, H=96, seeded random weights, bf16 compute
 and float32 parameters, on one fixed batch of B=8 ``SyntheticDataset``
 items of 6 channels x 4 s through ``Trainer.train_step`` (forward, loss,
 backward, the optimizer step with clip 5) under ``torch.profiler`` for three
 steps, after two warm-up steps. Prints the step's wall time, the device time
 of the 25 costliest kernels, the port's kernels' shares and the device's
 busy share of the profiled wall time. It checks each step's launches: 8
-attention-block forward and 8 backward; or 32 scan forward (16, and 16 more
-recomputed by remat) and 16 backward. Needs a CUDA card.
+attention-block forward and 8 backward; 32 scan forward (16, and 16 more
+recomputed by remat) and 16 backward for mamba(16,4); 16 narrow-band
+attention forward (8 + 8) and 8 backward for mhsa(N). Needs a CUDA card.
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 import time
 
@@ -31,13 +32,11 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from nbss_tpu_torch.data.synthetic import SyntheticDataset
-    from nbss_tpu_torch.profile_serving import build
+    from nbss_tpu_torch.profile_serving import build, parse_args
     from nbss_tpu_torch.train.loop import Trainer
 
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--arch", choices=("spatialnet", "online_spatialnet"),
-                        default="spatialnet")
-    arch = parser.parse_args().arch
+    args = parse_args(__doc__.splitlines()[0])
+    arch = args.arch
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA card", file=sys.stderr)
         return 2
@@ -47,10 +46,12 @@ def main() -> int:
     batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]))
     online = arch == "online_spatialnet"
     module, kernels, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, None,
-                                                         remat=online)
+                                                         remat=online, attention=args.attention)
     optimizer = ("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}) if online else ("Adam", {"lr": 1e-3})
     trainer = Trainer(module, optimizer=optimizer, seed=2)
     trainer.init()
+    if online:
+        arch = f"{arch} {args.attention}"
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()

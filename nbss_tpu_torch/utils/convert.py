@@ -1,6 +1,10 @@
 """Convert the JAX package's SpatialNet and OnlineSpatialNet parameter trees
 into the port's ``state_dict``.
 
+For the mhsa and T-ConvFFN layers of OnlineSpatialNet, whose layout is
+SpatialNet's module for module, the exact inverse of
+``nbss_tpu.utils.torch_compat.online_spatialnet_params_from_torch``.
+
 For SpatialNet the exact inverse of
 ``nbss_tpu.utils.torch_compat.spatialnet_params_from_torch``:
 flax Dense kernels [in, out] become Linear weights [out, in], flax Conv
@@ -70,28 +74,31 @@ def _ends(p: Mapping) -> Dict[str, torch.Tensor]:
             "decoder.bias": _t(p["decoder"]["Dense_0"]["bias"])}
 
 
+def _mhsa(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """MultiheadAttention: the packed in_proj and the out_proj Dense."""
+    return {f"{prefix}.in_proj_weight": _dense(p["in_proj"]["Dense_0"]["kernel"]),
+            f"{prefix}.in_proj_bias": _t(p["in_proj"]["Dense_0"]["bias"]),
+            f"{prefix}.out_proj.weight": _dense(p["out_proj"]["Dense_0"]["kernel"]),
+            f"{prefix}.out_proj.bias": _t(p["out_proj"]["Dense_0"]["bias"])}
+
+
+def _tconvffn(lp: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """The T-ConvFFN as torch NBSS indexes its nn.Sequential: 0 norm, 1 up,
+    3/5/8 the grouped convs, 6 the mid norm, 10 down."""
+    sd = _norm(lp["tconvffn_norm"], f"{prefix}.0")
+    sd.update(_pointwise(lp["tconvffn_up"], f"{prefix}.1"))
+    for name, idx in (("tconvffn_conv1", 3), ("tconvffn_conv2", 5), ("tconvffn_conv3", 8)):
+        sd.update(_conv_layer(lp[name], f"{prefix}.{idx}"))
+    sd.update(_norm(lp["tconvffn_midnorm"], f"{prefix}.6"))
+    sd.update(_pointwise(lp["tconvffn_down"], f"{prefix}.10"))
+    return sd
+
+
 def spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
                                     full_share: int = 0) -> Dict[str, torch.Tensor]:
-    """JAX SpatialNet params -> ``nbss_tpu_torch.models.SpatialNet`` state_dict."""
-    p = params.get("params", params)
-    sd = _ends(p)
-    n_fulls = min(full_share, num_layers - 1) + 1
-    for l in range(num_layers):
-        t, lp = f"layers.{l}", p[f"layer_{l}"]
-        _cross_band(sd, t, lp, p[f"full_{min(l, n_fulls - 1)}"])
-        sd.update(_norm(lp["norm_mhsa"], f"{t}.norm_mhsa"))
-        mhsa = lp["mhsa"]
-        sd[f"{t}.mhsa.in_proj_weight"] = _dense(mhsa["in_proj"]["Dense_0"]["kernel"])
-        sd[f"{t}.mhsa.in_proj_bias"] = _t(mhsa["in_proj"]["Dense_0"]["bias"])
-        sd[f"{t}.mhsa.out_proj.weight"] = _dense(mhsa["out_proj"]["Dense_0"]["kernel"])
-        sd[f"{t}.mhsa.out_proj.bias"] = _t(mhsa["out_proj"]["Dense_0"]["bias"])
-        sd.update(_norm(lp["tconvffn_norm"], f"{t}.tconvffn.0"))
-        sd.update(_pointwise(lp["tconvffn_up"], f"{t}.tconvffn.1"))
-        for name, idx in (("tconvffn_conv1", 3), ("tconvffn_conv2", 5), ("tconvffn_conv3", 8)):
-            sd.update(_conv_layer(lp[name], f"{t}.tconvffn.{idx}"))
-        sd.update(_norm(lp["tconvffn_midnorm"], f"{t}.tconvffn.6"))
-        sd.update(_pointwise(lp["tconvffn_down"], f"{t}.tconvffn.10"))
-    return sd
+    """JAX SpatialNet params -> ``nbss_tpu_torch.models.SpatialNet`` state_dict:
+    the layout of OnlineSpatialNet's mhsa and T-ConvFFN layers."""
+    return online_spatialnet_state_dict_from_flax(params, num_layers, full_share)
 
 
 def mamba_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -113,10 +120,12 @@ def mamba_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, t
 
 def online_spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
                                            full_share: int = 0) -> Dict[str, torch.Tensor]:
-    """JAX OnlineSpatialNet params of the ``mamba(d_state,d_conv)`` branch
-    (the second Mamba block in place of the T-ConvFFN) ->
-    ``nbss_tpu_torch.models.online_spatialnet.OnlineSpatialNet`` state_dict.
-    The JAX ``tconvffn_mamba`` becomes the port's ``tconvffn``."""
+    """JAX OnlineSpatialNet params ->
+    ``nbss_tpu_torch.models.online_spatialnet.OnlineSpatialNet`` state_dict,
+    for each branch the port has: the time module ``mhsa`` is a
+    MultiheadAttention (``mhsa(N)``) or a Mamba block (``mamba(...)``); the FFN
+    the causal T-ConvFFN, named as SpatialNet's, or the second Mamba block
+    (the JAX ``tconvffn_mamba``, the port's ``tconvffn``)."""
     p = params.get("params", params)
     sd = _ends(p)
     n_fulls = min(full_share, num_layers - 1) + 1
@@ -124,7 +133,13 @@ def online_spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
         t, lp = f"layers.{l}", p[f"layer_{l}"]
         _cross_band(sd, t, lp, p[f"full_{min(l, n_fulls - 1)}"])
         sd.update(_norm(lp["norm_mhsa"], f"{t}.norm_mhsa"))
-        sd.update(mamba_state_dict_from_flax(lp["mhsa"], f"{t}.mhsa."))
-        sd.update(_norm(lp["norm_tconvffn"], f"{t}.norm_tconvffn"))
-        sd.update(mamba_state_dict_from_flax(lp["tconvffn_mamba"], f"{t}.tconvffn."))
+        if "A_log" in lp["mhsa"]:
+            sd.update(mamba_state_dict_from_flax(lp["mhsa"], f"{t}.mhsa."))
+        else:
+            sd.update(_mhsa(lp["mhsa"], f"{t}.mhsa"))
+        if "tconvffn_mamba" in lp:
+            sd.update(_norm(lp["norm_tconvffn"], f"{t}.norm_tconvffn"))
+            sd.update(mamba_state_dict_from_flax(lp["tconvffn_mamba"], f"{t}.tconvffn."))
+        else:
+            sd.update(_tconvffn(lp, f"{t}.tconvffn"))
     return sd

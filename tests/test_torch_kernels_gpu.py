@@ -23,6 +23,13 @@ below, at and above the saved-state chunk of 8 frames, the serving length
 training count 1032; channel counts below, at and above a block's 64; state
 sizes 4 and 16. A 2-layer OnlineSpatialNet's gradients through the scan
 kernels are held against its plain path's.
+
+The narrow-band attention kernels are held against ``attention.reference``
+and ``attention.reference_bwd`` at the same bounds, with no mask, a causal
+[T, T] mask and an ALiBi [nh, T, T] mask: one frame, lengths off and on the
+tiles, 251 and 1024 frames, every compiled head width, dv != dh, one
+sequence and the training count 1032; row-strided q, k, v slices; and a
+2-layer OnlineSpatialNet mhsa model's gradients against its plain path's.
 """
 
 import numpy as np
@@ -280,6 +287,160 @@ def test_online_spatialnet_gradients_through_scan_kernels_match_plain_path(card,
         launched = (ssm.launches - f0, ssm.bwd_launches - b0)
         grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
         assert launched == (((8 if remat else 4), 4) if net is fused else (0, 0))
+    for name, gk in grads[0].items():
+        assert gk is not None and gk.abs().max() > 0, name
+        if dtype == torch.float32:
+            gp = grads[1][name]
+            torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
+                                       msg=name)
+
+
+# (M, T, nh, dh, dv): one frame and one sequence, lengths off and on the
+# 32/64-row tiles, the serving length 251 at the model's widths, every
+# compiled head width (16, 24, 32, 64), a v head wider than q/k, the longest
+# stream the kernels are held to (1024 frames), and the training count 1032
+ATTN_SHAPES = [(1, 1, 4, 24, 24), (5, 13, 4, 24, 24), (7, 64, 2, 16, 16), (3, 65, 3, 32, 32),
+               (9, 251, 4, 24, 24), (2, 300, 2, 64, 64), (4, 37, 4, 8, 12), (2, 1024, 1, 24, 24),
+               (1032, 251, 4, 24, 24)]
+ATTN_MASKS = ["none", "causal", "alibi"]
+
+
+def _attn_inputs(seed, M, T, nh, dh, dv, mask, dtype):
+    from nbss_tpu_torch.models.online_spatialnet import alibi_mask, local_causal_mask
+
+    g = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(M, T, nh * dh, generator=g) for _ in range(2))
+    v, go = (torch.randn(M, T, nh * dv, generator=g) for _ in range(2))
+    m = None
+    if mask != "none":
+        scope = max(T // 3, 1)
+        m = torch.from_numpy(alibi_mask(T, scope, nh) if mask == "alibi"
+                             else local_causal_mask(T, scope)).clamp(min=-1e30).cuda()
+    return [t.to(dtype).cuda() for t in (q, k, v)], m, go.to(dtype).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh,dh,dv", ATTN_SHAPES)
+@pytest.mark.parametrize("mask", ATTN_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_narrowband_attention_kernel_matches_plain(card, M, T, nh, dh, dv, mask, dtype):
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), m, _ = _attn_inputs(M + T + dh, M, T, nh, dh, dv, mask, dtype)
+    before = att.launches
+    o, st = att.forward(q, k, v, m, nh, stats=True)
+    torch.cuda.synchronize()
+    assert att.launches == before + 1 and o.dtype == dtype and o.shape == (M, T, nh * dv)
+    assert st.shape == (2, M, nh, T)
+    want = att.reference(q.float(), k.float(), v.float(), m, nh)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, want, atol=2e-4, rtol=1e-4)
+    else:
+        err = (o.float() - want).abs().max().item()
+        plain = (att.reference(q, k, v, m, nh).float() - want).abs().max().item()
+        assert np.isfinite(err) and err <= 2 * plain, (err, plain)
+    o2, _ = att.forward(q, k, v, m, nh)
+    assert torch.equal(o, o2)  # writing the statistics changes nothing else
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh,dh,dv", ATTN_SHAPES)
+@pytest.mark.parametrize("mask", ATTN_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_narrowband_attention_backward_kernel_matches_plain(card, M, T, nh, dh, dv, mask, dtype):
+    """fp32: each cotangent within atol 5e-3 x max|plain| and rtol 5e-3; bf16:
+    no farther from the fp32 plain result than twice the plain bf16 version,
+    or than the fp32 bound; two launches bit-identical."""
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), m, g = _attn_inputs(M * T + dv, M, T, nh, dh, dv, mask, dtype)
+    _, st = att.forward(q, k, v, m, nh, stats=True)
+    before = att.bwd_launches
+    got = att.backward(q, k, v, m, g, nh, st)
+    torch.cuda.synchronize()
+    assert att.bwd_launches == before + 1
+    for a, t in zip(got, (q, k, v)):
+        assert a.dtype == dtype and a.shape == t.shape
+    want = att.reference_bwd(q.float(), k.float(), v.float(), m, g.float(), nh)
+    names = ("dq", "dk", "dv")
+    if dtype == torch.float32:
+        for name, a, w in zip(names, got, want):
+            torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=name)
+    else:
+        plain = att.reference_bwd(q, k, v, m, g, nh)
+        for name, a, p, w in zip(names, got, plain, want):
+            err = (a.float() - w).abs().max().item()
+            perr = (p.float() - w).abs().max().item()
+            assert err <= max(2 * perr, 5e-3 * w.abs().max().item()), (name, err, perr)
+    again = att.backward(q, k, v, m, g, nh, st)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.gpu
+def test_narrowband_attention_takes_row_strided_slices(card):
+    """q, k, v as slices of one packed [M, T, 3H] projection, as
+    MultiheadAttention hands them over, give what contiguous copies give."""
+    from nbss_tpu_torch.ops import attention as att
+
+    qkv = torch.randn(6, 40, 3 * 96, generator=torch.Generator().manual_seed(0)).cuda()
+    views = qkv.chunk(3, dim=-1)
+    o, st = att.forward(*views, None, 4, stats=True)
+    o2, st2 = att.forward(*(t.contiguous() for t in views), None, 4, stats=True)
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+    g = torch.randn_like(o)
+    for a, b in zip(att.backward(*views, None, g, 4, st),
+                    att.backward(*(t.contiguous() for t in views), None, g, 4, st)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_narrowband_attention_kernels_refuse_what_they_do_not_take(card):
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), m, g = _attn_inputs(0, 2, 9, 2, 24, 24, "causal", torch.float32)
+    wide = torch.zeros(2, 9, 2 * 216, device="cuda")  # NBC's augmented q/k head width
+    with pytest.raises(ValueError, match="head widths"):
+        att.narrowband_attention(wide, wide, v, None, 2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        att.narrowband_attention(q.half(), k.half(), v.half(), None, 2)
+    with pytest.raises(ValueError, match="mask must be"):
+        att.narrowband_attention(q, k, v, m[:8, :8], 2)
+    with pytest.raises(ValueError, match="stats must be"):
+        att.backward(q, k, v, m, g, 2, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("remat,rope", [(False, False), (True, "ALiBi")])
+def test_online_spatialnet_gradients_through_attention_kernels_match_plain_path(
+        card, dtype, remat, rope):
+    """A 2-layer OnlineSpatialNet mhsa(16) at H=96, 4 heads (F=9, 40 frames):
+    a loss through the kernels gives every parameter and the input a non-zero
+    gradient, the backward kernel runs once per layer (the forward twice with
+    remat), and in fp32 each gradient is within 5e-3 x max|plain| of the plain
+    path's."""
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.ops import attention as att
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=96, dim_ffn=192,
+              num_heads=4, dim_squeeze=8, num_freqs=9, attention="mhsa(16)", rope=rope,
+              remat=remat)
+    gen = torch.Generator().manual_seed(0)
+    fused = OnlineSpatialNet(**kw, dtype=dtype, generator=gen, device="cuda")
+    plain = OnlineSpatialNet(**kw, fused_attention=False, device="cuda")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 9, 40, 12, generator=gen).cuda()
+    w = torch.randn(2, 9, 40, 4, generator=gen).cuda()
+    grads = []
+    for net in (fused, plain):
+        xg = x.clone().requires_grad_()
+        f0, b0 = att.launches, att.bwd_launches
+        (net(xg) * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (att.launches - f0, att.bwd_launches - b0)
+        grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
+        assert launched == (((4 if remat else 2), 2) if net is fused else (0, 0))
     for name, gk in grads[0].items():
         assert gk is not None and gk.abs().max() > 0, name
         if dtype == torch.float32:

@@ -211,11 +211,11 @@ def test_trainer_fits_with_adamw_and_remat():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(attention="mhsa(251)"), "rows 4-5"),
-    (dict(attention="mhsa(inf)"), "rows 4-5"),
     (dict(attention="ret(2,share_qk)"), "retention"),
-    (dict(attention="mamba(16,4)not_replace_ffn"), "not_replace_ffn"),
+    (dict(attention="ret(1,not_share_qk)"), "retention"),
     (dict(attention="mamba(16,4)", remat=True, remat_policy="dots"), "remat_policy"),
+    (dict(attention="mhsa(251)", remat=True, remat_policy="dots"), "remat_policy"),
+    (dict(attention="mhsa(251)", norms=("gLN", "LN", "GN", "LN", "LN", "LN")), "NBC2"),
 ])
 def test_refused_settings_raise(kw, match):
     cfg = {**CFG, **kw}

@@ -93,3 +93,42 @@ def test_bf16_network_stays_close_to_fp32(rng):
     y32, y16 = net(x).detach(), net_bf16(x).detach()
     assert y16.dtype == torch.float32
     assert (y16 - y32).abs().max() <= 0.1 * y32.abs().max()
+
+
+def _mha_before_masks(mha, x):
+    """MultiheadAttention.forward as the port had it before attention masks
+    and the fused path: the einsum composition, float32 scores and softmax."""
+    import math
+
+    import torch.nn.functional as F
+
+    *lead, T, H = x.shape
+    nh = mha.num_heads
+    dh = H // nh
+    qkv = F.linear(x, mha.in_proj_weight.to(x.dtype), mha.in_proj_bias.to(x.dtype))
+    q, k, v = (t.reshape(*lead, T, nh, dh).float() for t in qkv.chunk(3, dim=-1))
+    logits = torch.einsum("...qhd,...khd->...hqk", q, k) / math.sqrt(dh)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype).float()
+    out = torch.einsum("...hqk,...khd->...qhd", probs, v).to(x.dtype)
+    return mha.out_proj(out.reshape(*lead, T, H))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unfused_paths_are_unchanged_by_attention_masks(rng, dtype, monkeypatch):
+    """Regression guard: MultiheadAttention(fused=False) and SpatialNet with
+    fused_block=False give, bit for bit, what the einsum composition gave
+    before the mask and fused options existed, from the same weights."""
+    from nbss_tpu_torch.models.base import MultiheadAttention
+
+    mha = MultiheadAttention(16, 4, fused=False, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(rng.standard_normal((2, 3, 20, 16)).astype(np.float32)).to(dtype)
+    with torch.no_grad():
+        assert torch.equal(mha(x), _mha_before_masks(mha, x))
+    _, _, net = _pair(False, dim_input=6)
+    net.dtype = dtype
+    x = torch.from_numpy(rng.standard_normal((2, KW["num_freqs"], 20, 6)).astype(np.float32))
+    with torch.no_grad():
+        y = net(x)
+        assert not any(layer.mhsa.fused for layer in net.layers)
+        monkeypatch.setattr(MultiheadAttention, "forward", _mha_before_masks)
+        assert torch.equal(y, net(x))
