@@ -10,7 +10,8 @@ random weights): serving B=16 requests, then training at B=8; then the same
 for OnlineSpatialNet ``mamba(16,4)`` (the committed streaming run: 8 layers,
 H=96, online utterance norm, neg-SNR with PIT), which also streams, and for
 OnlineSpatialNet ``mhsa(251)`` (the same widths with masked attention, 4
-heads, and the causal T-ConvFFN). Twenty-one phases:
+heads, and the causal T-ConvFFN); then NBC serving at the full width of
+``configs/NBC.yaml``. Twenty-five phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -80,7 +81,29 @@ heads, and the causal T-ConvFFN). Twenty-one phases:
     5e-3 x max|plain|; peak device memory;
 21. times: both attention kernels, their plain versions, one
     ``scaled_dot_product_attention`` call (and its backward) with the same
-    float mask, and bounds; serving, streaming and training rates.
+    float mask, and bounds; serving, streaming and training rates;
+22. NBC's relative-position block kernel vs ``attention_block.reference_relpos``
+    at the serving shape (M = 16*257, T = 248, H = 192, nh = 8): fp32 at atol
+    2e-4, rtol 1e-4, a second launch bit-identical; bf16 under the rule of
+    phase 3; ragged shapes (T = 1, T = 13, M = 1) in fp32; the fp32 gradient
+    through the kernel's Function against the plain path's at M = 2*257, x
+    and every operand within 5e-3 x max|plain|;
+23. the narrow-band attention kernels at NBC's widths (nh = 8, q/k heads of
+    dh + d_model = 216, dv = 24, no mask, M = 2*257): forward at atol 2e-4,
+    rtol 1e-4, dq, dk, dv within 5e-3 x max|plain|, bf16 under the rules of
+    phases 3 and 6, relaunches bit-identical;
+24. NBC serving (``configs/NBC.yaml``: 4 layers, H=192, 8 heads; 8 channels
+    x 4 s at 16 kHz, STFT 512/256, frequency norm) through ``forward`` and
+    ``predict_step`` at B=16 in bf16: 4 relative-position launches per
+    forward and no narrow-band attention launch; fp32 kernel path vs the
+    plain module composition at B=4, SI-SDR >= 50 dB; post-LN NBC
+    (``norm_first=False``) at B=2 through the widened narrow-band kernel (4
+    launches a forward) vs its plain path, SI-SDR >= 50 dB;
+25. times: the relative-position kernel (bf16 and fp32), its plain version,
+    a PyTorch library composition of the same function (LN, the projections,
+    ``scaled_dot_product_attention`` over the 216-wide augmented heads, the
+    out projection) and its bound; rows 4-5 at dh = 216 and their
+    ``scaled_dot_product_attention`` counterparts; the NBC serving rate.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -112,6 +135,14 @@ ONLINE = dict(FLAGSHIP, attention="mamba(16,4)")
 # its masked-attention alternative, the class's default (configs/onlineSpatialNet.yaml:31)
 MHSA = dict(FLAGSHIP, attention="mhsa(251)")
 B_STREAM = 4
+# configs/NBC.yaml: 4 layers, H=192, 8 heads, ffn 384, encoder k=4 (valid), 3 grouped k=3
+# convs of 8 groups with GroupNorm; 8 channels, STFT 512/256, 4 s at 16 kHz (the rate the
+# JAX module infers for n_fft 512)
+NBC_CFG = dict(dim_input=16, dim_output=4, n_layers=4, encoder_kernel_size=4, n_heads=8,
+               hidden_size=192, ffn_size=384, inner_conv_kernel_size=3, inner_conv_groups=8,
+               inner_conv_layers=3, dropout=0.1)
+NBC_CHANNELS, NBC_FS, NBC_NFFT = 8, 16000, 512
+NBC_B_CHECK = 4  # batch of the fp32 kernel-vs-plain comparison (the plain attention's [M, nh, T, T])
 
 
 def log(msg: str) -> None:
@@ -164,7 +195,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/21 device")
+    log("phase 1/25 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -172,7 +203,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/21 build (plain nvcc, sm_90a)")
+    log("phase 2/25 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -182,7 +213,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/21 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/25 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -209,7 +240,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/21 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/25 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -246,7 +277,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/21 times (CUDA events, after warm-up)")
+    log("phase 5/25 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -289,6 +320,9 @@ def main() -> int:
     row2, train_launches = training_phases(dev)
     rows67 = online_phases(dev)
     rows45 = mhsa_phases(dev)
+    row8, wide4, wide5 = nbc_phases(dev)
+    rows45[0].update(wide4)
+    rows45[1].update(wide5)
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
@@ -297,7 +331,7 @@ def main() -> int:
         "launches": launches, "launches_training": train_launches, "max_abs_err": err32,
         "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms, "ms_fp32": ms_fp32,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}, row2, *rows67, *rows45]}), flush=True)
+        "library_ms": library_ms}, row2, *rows67, *rows45, row8]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -330,7 +364,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/21 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/25 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -369,7 +403,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/21 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/25 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -407,7 +441,7 @@ def training_phases(dev):
     check_budget("training")
 
     # 8. gradient parity, fp32
-    log("phase 8/21 gradients: kernel path vs plain composition, fp32, one batch")
+    log("phase 8/25 gradients: kernel path vs plain composition, fp32, one batch")
     grads = []
     for fused in (True, False):
         net = SpatialNet(**FLAGSHIP, fused_block=fused, device=dev)
@@ -431,7 +465,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/21 times (CUDA events, after warm-up)")
+    log("phase 9/25 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     plain_ms = cuda_ms(lambda: ab.reference_bwd(xb, ln, A, Wvo, gb, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -535,7 +569,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/21 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/25 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -557,7 +591,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/21 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/25 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -588,7 +622,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/21 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/25 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -625,7 +659,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/21 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/25 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -646,7 +680,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/21 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/25 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -705,7 +739,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/21 times (CUDA events, after warm-up)")
+    log("phase 15/25 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -835,7 +869,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/21 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/25 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
                   for kind in ("none", "causal", "alibi")}
@@ -864,7 +898,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/21 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/25 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
     again = att.backward(*ins32, causal, g32, nh, st32)
@@ -894,7 +928,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/21 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/25 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -931,7 +965,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/21 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/25 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -953,7 +987,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/21 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/25 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1012,7 +1046,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/21 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/25 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1098,6 +1132,308 @@ def mhsa_phases(dev):
              "max_err_bf16": dict(zip(names, bwd_errsbf)), "ms": bwd_ms,
              "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
              "library_ms": bwd_library_ms}]
+
+
+def nbc_phases(dev):
+    """Phases 22-25: NBC through the relative-position block kernel, and the
+    narrow-band attention kernels at NBC's augmented head width. Returns row
+    8's entry of the ``kernels`` line and the keys that rows 4-5 gain."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.nbc import NBC, sincos_position_tables
+    from nbss_tpu_torch.ops import attention as att
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.module import TrainModule
+
+    H, nh, n_layers = NBC_CFG["hidden_size"], NBC_CFG["n_heads"], NBC_CFG["n_layers"]
+    n_freq = NBC_NFFT // 2 + 1
+    samples = int(SECONDS * NBC_FS)
+    T = samples // (NBC_NFFT // 2) + 1 - (NBC_CFG["encoder_kernel_size"] - 1)  # in the blocks
+    M = B * n_freq
+    dh, d2 = H // nh, H // 2
+    gen = torch.Generator().manual_seed(5)
+    net = NBC(**NBC_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+
+    def operands(layer, T_):
+        sa = layer.self_attn
+        with torch.no_grad():
+            *ops, eps = ab.fold_weights_nbc(
+                layer.norm1.weight, layer.norm1.bias, sa.query_proj.weight, sa.query_proj.bias,
+                sa.key_proj.weight, sa.key_proj.bias, sa.value_proj.weight, sa.value_proj.bias,
+                sa.out_proj.weight, sa.out_proj.bias, sa.pos_proj.weight, sa.u_bias, sa.v_bias,
+                nh, layer.norm1.eps)
+        tables = [torch.tensor(t, device=dev) for t in sincos_position_tables(T_, H)]
+        return [*ops, *tables], eps
+
+    def fwd_check(x, ops, eps, label):
+        with torch.no_grad():
+            y = ab.attention_block_relpos(x, *ops, eps, nh)
+            torch.cuda.synchronize()
+            want = ab.reference_relpos(x, *ops, eps, nh)
+        err = (y - want).abs().max().item()
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4, msg=label)
+        return y, err
+
+    # 22. row 8 vs plain
+    log(f"phase 22/25 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    layer = net.sa_layers[0]
+    ops, eps = operands(layer, T)
+    x32 = torch.randn(M, T, H, generator=gen).to(dev)
+    y, relpos_err32 = fwd_check(x32, ops, eps, "fp32")
+    with torch.no_grad():
+        again = ab.attention_block_relpos(x32, *ops, eps, nh)
+    deterministic = torch.equal(y, again)
+    log(f"fp32: max |kernel - plain| = {relpos_err32:.3e} (atol 2e-4, rtol 1e-4): ok; two "
+        f"launches bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("two launches of the relative-position kernel differ")
+    del y, again
+    xb = x32.to(torch.bfloat16)
+    del x32
+    with torch.no_grad():
+        want = ab.reference_relpos(xb.float(), *ops, eps, nh)
+        relpos_errbf = (ab.attention_block_relpos(xb, *ops, eps, nh).float() - want).abs().max().item()
+        plainbf = (ab.reference_relpos(xb, *ops, eps, nh).float() - want).abs().max().item()
+    del want
+    log(f"bf16: max |kernel - fp32 plain| = {relpos_errbf:.4f}, plain bf16 version's = "
+        f"{plainbf:.4f} (bound: 2x the plain version's)")
+    if not relpos_errbf <= 2 * plainbf:
+        raise AssertionError(f"bf16 relative-position error {relpos_errbf} exceeds 2 x {plainbf}")
+    for Mr, Tr in ((5, 1), (7, 13), (1, T)):
+        ops_r, _ = operands(layer, Tr)
+        _, e = fwd_check(torch.randn(Mr, Tr, H, generator=gen).to(dev), ops_r, eps,
+                         f"ragged {(Mr, Tr)}")
+        log(f"ragged (M, T) = {(Mr, Tr)}: {e:.2e}: ok")
+    Mg = 2 * n_freq
+    xg = torch.randn(Mg, T, H, generator=gen).to(dev)
+    gy = torch.randn(Mg, T, H, generator=gen).to(dev)
+    grads = []
+    for fn in (ab.attention_block_relpos, ab.reference_relpos):
+        leaves = [xg.clone().requires_grad_()] + [t.clone().requires_grad_() for t in ops[:6]]
+        grads.append(torch.autograd.grad(fn(*leaves, *ops[6:], eps, nh), leaves, gy))
+    worst = 0.0
+    for name, a, w in zip(("dx", "dln", "dA", "dGs", "dGc", "dWvo", "dc"), *grads):
+        rel = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= 5e-3:
+            raise AssertionError(f"relative-position gradient {name}: {rel:.2e} x max|plain|")
+    log(f"fp32 gradients through the kernel's Function at M={Mg}, x and every operand: worst "
+        f"max |kernel - plain| / max|plain| = {worst:.2e} (bound 5e-3)")
+    del grads, xg, gy
+    torch.cuda.empty_cache()
+    check_budget("relpos vs plain")
+
+    # 23. rows 4-5 at NBC's widths
+    dhp, dv, Ma = dh + H, dh, 2 * n_freq
+    log(f"phase 23/25 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
+    o, st = att.forward(*ins32, None, nh, stats=True)
+    torch.cuda.synchronize()
+    want = att.reference(*ins32, None, nh)
+    wide_fwd_err = (o - want).abs().max().item()
+    torch.testing.assert_close(o, want, atol=2e-4, rtol=1e-4)
+    got = att.backward(*ins32, None, g32, nh, st)
+    want = att.reference_bwd(*ins32, None, g32, nh)
+    wide_bwd_errs = []
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        wide_bwd_errs.append((a - w).abs().max().item())
+        torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3, msg=name)
+    again = att.backward(*ins32, None, g32, nh, st)
+    deterministic = (torch.equal(o, att.forward(*ins32, None, nh)[0])
+                     and all(torch.equal(a, b) for a, b in zip(got, again)))
+    log(f"fp32: forward {wide_fwd_err:.3e} (atol 2e-4, rtol 1e-4); backward dq, dk, dv "
+        + ", ".join(f"{e:.3e}" for e in wide_bwd_errs) + " (atol 5e-3 x max|plain|); "
+        f"relaunches bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("relaunches of the wide attention kernels differ")
+    del o, st, got, again, want
+    insb, gb = [t.to(torch.bfloat16) for t in ins32], g32.to(torch.bfloat16)
+    del ins32, g32
+    want = att.reference(*[t.float() for t in insb], None, nh)
+    wide_errbf = (att.forward(*insb, None, nh)[0].float() - want).abs().max().item()
+    plainbf = (att.reference(*insb, None, nh).float() - want).abs().max().item()
+    log(f"bf16 forward: max |kernel - fp32 plain| = {wide_errbf:.4f}, plain bf16 version's = "
+        f"{plainbf:.4f} (bound: 2x the plain version's)")
+    if not wide_errbf <= 2 * plainbf:
+        raise AssertionError(f"bf16 wide attention error {wide_errbf} exceeds 2 x {plainbf}")
+    _, stb = att.forward(*insb, None, nh, stats=True)
+    want = att.reference_bwd(*[t.float() for t in insb], None, gb.float(), nh)
+    errs = [(a.float() - w).abs().max().item()
+            for a, w in zip(att.backward(*insb, None, gb, nh, stb), want)]
+    plain = [(a.float() - w).abs().max().item()
+             for a, w in zip(att.reference_bwd(*insb, None, gb, nh), want)]
+    log("bf16 backward: max |kernel - fp32 plain| vs the plain bf16 version's: " + ", ".join(
+        f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(("dq", "dk", "dv"), errs, plain)))
+    for name, e, p, w in zip(("dq", "dk", "dv"), errs, plain, want):
+        if not e <= max(2 * p, 5e-3 * w.abs().max().item()):
+            raise AssertionError(f"bf16 wide attention backward {name}: {e} vs plain {p}")
+    del want
+    check_budget("wide attention vs plain")
+
+    # 24. NBC serving
+    log(f"phase 24/25 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+        f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
+    module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
+                         norm=Norm(mode="frequency"), loss=Loss(name="neg_si_sdr", pit=True))
+    wave = (0.1 * torch.randn(B, NBC_CHANNELS, samples, generator=gen)).to(dev)
+    target = (0.1 * torch.randn(B, 2, samples, generator=gen)).to(dev)
+    ab.relpos_launches = att.launches = att.bwd_launches = 0
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave, target)
+    torch.cuda.synchronize()
+    serve_relpos, serve_att = ab.relpos_launches, att.launches + att.bwd_launches
+    for name, out in (("forward", yr_hat), ("predict_step", pred)):
+        if out.shape != (B, 2, samples) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    if serve_relpos != 2 * n_layers or serve_att != 0:
+        raise AssertionError(f"attention_block_relpos launched {serve_relpos} times and the "
+                             f"narrow-band attention {serve_att} in two forwards, expected "
+                             f"{2 * n_layers} and 0")
+    log(f"forward and predict_step: finite [{B}, 2, {samples}]; attention_block_relpos launched "
+        f"{serve_relpos} times ({n_layers} per forward), the narrow-band attention {serve_att}")
+    sdrs = {}
+    for label, kw, bsz in (("pre-LN", {}, NBC_B_CHECK), ("post-LN", {"norm_first": False}, 2)):
+        kernel32 = NBC(**NBC_CFG, **kw, device=dev).eval()
+        kernel32.load_state_dict(net.state_dict())
+        plain32 = NBC(**NBC_CFG, **kw, fused_block=False, attention_kernel=False,
+                      device=dev).eval()
+        plain32.load_state_dict(net.state_dict())
+        ab.relpos_launches = att.launches = 0
+        y_kernel, _ = TrainModule(**{**module.__dict__, "arch": kernel32}).forward(wave[:bsz])
+        launched = (ab.relpos_launches, att.launches)
+        y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(wave[:bsz])
+        sdrs[label] = si_sdr(y_kernel, y_plain).min().item()
+        want = (n_layers, 0) if not kw else (0, n_layers)
+        log(f"fp32 {label} kernel path vs plain composition at B={bsz}: min SI-SDR "
+            f"{sdrs[label]:.1f} dB (bound >= 50); launches (relpos, narrow-band) {launched}")
+        if launched != want:
+            raise AssertionError(f"{label}: launches {launched}, expected {want}")
+        if not sdrs[label] >= 50.0:
+            raise AssertionError(f"{label} kernel path vs plain SI-SDR {sdrs[label]:.1f} dB < 50")
+        del kernel32, plain32, y_kernel, y_plain
+    torch.cuda.empty_cache()
+    check_budget("nbc serving")
+
+    # 25. times
+    log("phase 25/25 times (CUDA events, after warm-up)")
+    xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
+    with torch.no_grad():
+        relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=3,
+                            warmup=1)
+        x32 = xb.float()
+        relpos_ms_fp32 = cuda_ms(lambda: ab.attention_block_relpos(x32, *ops, eps, nh), iters=2,
+                                 warmup=1)
+        del x32
+        relpos_plain_ms = cuda_ms(lambda: ab.reference_relpos(xb, *ops, eps, nh), iters=1,
+                                  warmup=1)
+        sa = layer.self_attn
+        bf = torch.bfloat16
+        ln_w, ln_b = layer.norm1.weight.to(bf), layer.norm1.bias.to(bf)
+        projs = [(p.weight.to(bf), p.bias.to(bf)) for p in (sa.query_proj, sa.key_proj,
+                                                            sa.value_proj, sa.out_proj)]
+        u, vb = sa.u_bias.to(bf), sa.v_bias.to(bf)
+        wpos = sa.pos_proj.weight.to(bf).t().reshape(H, nh, dh)
+        w_sin, w_cos = wpos[0::2], wpos[1::2]
+        sin_t, cos_t = ops[6].to(bf), ops[7].to(bf)
+        fix = torch.tensor((dh + H) ** 0.5 / H ** 0.5, dtype=bf)
+        cs = torch.cat([cos_t, sin_t], -1)[None, None].expand(M, nh, T, H)
+
+        def library():  # one PyTorch composition of the same function; the port never calls it
+            z = F.layer_norm(xb, (H,), ln_w, ln_b)
+            q, k, v = (F.linear(z, w, b).view(M, T, nh, dh) for w, b in projs[:3])
+            qv = q + vb
+            gs = torch.einsum("mqhd,fhd->mqhf", qv, w_sin)
+            gc = torch.einsum("mqhd,fhd->mqhf", qv, w_cos)
+            A = gs * sin_t[:, None] + gc * cos_t[:, None]
+            Bq = gc * sin_t[:, None] - gs * cos_t[:, None]
+            qa = torch.cat([q + u, A, Bq], -1).transpose(1, 2) * fix
+            ka = torch.cat([k.transpose(1, 2), cs], -1)
+            o = F.scaled_dot_product_attention(qa, ka, v.transpose(1, 2))
+            return xb + F.linear(o.transpose(1, 2).reshape(M, T, H), *projs[3])
+
+        relpos_library_ms = cuda_ms(library, iters=5)
+    relpos_bytes = 2 * xb.numel() * xb.element_size() + sum(
+        t.numel() * t.element_size() for t in ops)
+    Ha = H + 2
+    relpos_ops = (2 * M * T * nh * Ha * (2 * Ha + 2 * d2)  # t, gs, gc, vo
+                  + 2 * M * nh * T * T * (2 * H + (H + 1)))  # scores over [xa, cos, sin]; e vo
+    relpos_bound, relpos_by = bound(relpos_bytes, relpos_ops)
+    log(f"attention_block_relpos bf16 M={M}: kernel {relpos_ms:.3f} ms (fp32 "
+        f"{relpos_ms_fp32:.3f} ms), plain {relpos_plain_ms:.3f} ms, library (LN + projections "
+        f"+ SDPA over the {dh + H}-wide heads + out projection) {relpos_library_ms:.3f} ms, bound "
+        f"{relpos_bound:.4f} ms ({relpos_by}: {relpos_bytes / 1e6:.0f} MB, "
+        f"{relpos_ops / 1e12:.2f} TFLOP folded)")
+    del xb
+
+    # rows 4-5 at dh = 216: the forward at the serving count, the backward at Ma
+    qf, kf, vf = (torch.randn(M, T, nh * d, generator=gen).to(dev).to(torch.bfloat16)
+                  for d in (dhp, dhp, dv))
+    wide_ms = cuda_ms(lambda: att.forward(qf, kf, vf, None, nh), iters=3)
+
+    def heads(t):  # [M, T, nh*d] -> [M, nh, T, d], a view
+        M_, T_, W = t.shape
+        return t.view(M_, T_, nh, W // nh).transpose(1, 2)
+
+    wide_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        heads(qf), heads(kf), heads(vf)), iters=5)
+    wide_bytes = sum(t.numel() * t.element_size() for t in (qf, kf, vf, vf))
+    wide_ops = 2 * M * nh * T * T * (dhp + dv)
+    wide_bound, wide_by = bound(wide_bytes, wide_ops)
+    del qf, kf, vf
+    wide_plain_ms = cuda_ms(lambda: att.reference(*insb, None, nh), iters=2, warmup=1)
+    wide_bwd_ms = cuda_ms(lambda: att.backward(*insb, None, gb, nh, stb), iters=3)
+    wide_bwd_plain_ms = cuda_ms(lambda: att.reference_bwd(*insb, None, gb, nh), iters=2,
+                                warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in insb]
+    o = F.scaled_dot_product_attention(*(heads(t) for t in leaves))
+    g4 = heads(gb)  # graph built once; the port never calls this
+    wide_bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, g4, retain_graph=True),
+                                  iters=5)
+    del o, leaves
+    wide_bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in insb) + gb.numel() * 2
+    wide_bwd_ops = 2 * Ma * nh * T * T * (3 * dhp + 2 * dv)
+    wide_bwd_bound, wide_bwd_by = bound(wide_bwd_bytes, wide_bwd_ops)
+    log(f"narrowband_attention bf16 at dh={dhp}, dv={dv}, no mask: forward M={M} kernel "
+        f"{wide_ms:.3f} ms, library (SDPA) {wide_library_ms:.3f} ms, bound {wide_bound:.4f} ms "
+        f"({wide_by}); plain at M={Ma} {wide_plain_ms:.3f} ms; backward M={Ma} kernel "
+        f"{wide_bwd_ms:.3f} ms, plain {wide_bwd_plain_ms:.3f} ms, library (SDPA backward) "
+        f"{wide_bwd_library_ms:.3f} ms, bound {wide_bwd_bound:.4f} ms ({wide_bwd_by})")
+    del insb, gb, stb
+
+    module.predict_step(wave)  # warm-up
+    torch.cuda.synchronize()
+    reps, t1 = 3, time.perf_counter()
+    for _ in range(reps):
+        module.predict_step(wave)
+    torch.cuda.synchronize()
+    serve_s = (time.perf_counter() - t1) / reps
+    log(f"NBC serving: predict_step on {B} x {SECONDS:g} s in {serve_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve_s:.1f} audio-s/s")
+    check_budget("nbc times")
+    row8 = {"name": "attention_block_relpos", "route": "cuda",
+            "source": "nbss_tpu_torch/csrc/attention_block_relpos.cu",
+            "replaces": "nbss_tpu/ops/attention_block.py:517", "launches": serve_relpos,
+            "max_abs_err": relpos_err32, "max_err_bf16": relpos_errbf, "ms": relpos_ms,
+            "ms_fp32": relpos_ms_fp32, "plain_ms": relpos_plain_ms, "bound_ms": relpos_bound,
+            "bound_by": relpos_by, "library_ms": relpos_library_ms,
+            "serve_audio_s_per_s": B * SECONDS / serve_s, "serve_step_ms": serve_s * 1e3,
+            "serve_sdr_db_fp32": sdrs["pre-LN"], "post_ln_sdr_db_fp32": sdrs["post-LN"]}
+    row4 = {"nbc_dh216": {"M": M, "ms": wide_ms, "library_ms": wide_library_ms,
+                          "bound_ms": wide_bound, "bound_by": wide_by, "plain_ms_m": Ma,
+                          "plain_ms": wide_plain_ms, "max_abs_err": wide_fwd_err,
+                          "max_err_bf16": wide_errbf}}
+    row5 = {"nbc_dh216": {"M": Ma, "ms": wide_bwd_ms, "plain_ms": wide_bwd_plain_ms,
+                          "library_ms": wide_bwd_library_ms, "bound_ms": wide_bwd_bound,
+                          "bound_by": wide_bwd_by,
+                          "max_err_fp32": dict(zip(("dq", "dk", "dv"), wide_bwd_errs))}}
+    return row8, row4, row5
 
 
 if __name__ == "__main__":

@@ -29,6 +29,13 @@
 // registers, and K, V and the mask pass through shared memory 32 keys at a
 // time, so no [T, T] score matrix exists. Head widths are padded with zeros
 // to 16, 24, 32 or 64 (compiled variants); any M, T >= 1 is taken.
+//
+// Wider q/k heads, 64 < dh <= 256 (NBC's augmented heads, dh + d_model =
+// 216, with dv = 24), take a second kernel: four threads share a query row,
+// each with a 64-wide chunk of q_i in registers and a quarter of the output
+// row, and a score is the sum of the four chunk dots, added in one fixed
+// order in every kernel (group_sum), so the backward's e and dS still agree
+// with the forward's bit for bit. v heads stay <= 64 wide.
 
 #include <climits>
 #include <cmath>
@@ -124,8 +131,100 @@ __global__ void __launch_bounds__(QT) narrowband_attention_kernel(const FwdArgs 
   }
 }
 
+constexpr int WQ = 32;             // wide kernel: query rows per block
+constexpr int WNT = WQ * LANES;    // its threads, LANES to a row
+constexpr int WKT = 32;            // its keys staged in shared memory at a time
+
+// The same function for q/k head widths DMAX < dh <= DKMAX: the LANES threads
+// of a row each hold a CW-wide chunk of q_i and a DV / LANES-wide slice of
+// the output; a score is the group_sum of their chunk dots.
+template <typename E, int DV>
+__global__ void __launch_bounds__(WNT) narrowband_attention_wide_kernel(const FwdArgs a) {
+  constexpr int DVL = DV / LANES;
+  __shared__ __align__(16) float sk[WKT][WROW];
+  __shared__ __align__(16) float sv[WKT][DV];
+  __shared__ float sm[WQ][WKT + 1];
+  const int ntiles = (a.T + WQ - 1) / WQ;
+  const int tile = blockIdx.x % ntiles;
+  const int h = (blockIdx.x / ntiles) % a.nh;
+  const int m = blockIdx.x / ntiles / a.nh;
+  const int tid = threadIdx.x, lane = tid % LANES, row = tid / LANES;
+  const int i = tile * WQ + row;
+  const bool live = i < a.T;
+  const size_t row0 = size_t(m) * a.T;
+  const E* q = static_cast<const E*>(a.q);
+  const E* k = static_cast<const E*>(a.k);
+  const E* v = static_cast<const E*>(a.v);
+  const float* mask = head_mask(a.mask, a.mask_heads, h, a.T);
+
+  float qr[CW], acc[DVL];
+#pragma unroll
+  for (int d = 0; d < CW; ++d) {
+    const int c = lane * CW + d;
+    qr[d] = (live && c < a.dh) ? Elem<E>::load(q + (row0 + i) * a.ldq + h * a.dh + c) : 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < DVL; ++d) acc[d] = 0.f;
+
+  // pass 1: the row max (every thread computes scores: group_sum shuffles)
+  float mx = -INFINITY;
+  for (int j0 = 0; j0 < a.T; j0 += WKT) {
+    const int kc = min(WKT, a.T - j0);
+    __syncthreads();
+    stage_wide<E, WKT, WNT>(sk, k, a.ldk, row0 + j0, h * a.dh, a.dh, kc, tid);
+    if (mask != nullptr) stage_mask<WQ, WKT, WKT + 1, WNT>(&sm[0][0], mask, a.T, tile * WQ, j0, tid);
+    __syncthreads();
+    for (int j = 0; j < kc; ++j)
+      mx = fmaxf(mx, wide_score(qr, &sk[j][lane * CWS], a.scale,
+                                mask != nullptr ? &sm[row][j] : nullptr));
+  }
+
+  // pass 2: e with the final max, its float32 sum and round(e) v
+  float l = 0.f;
+  for (int j0 = 0; j0 < a.T; j0 += WKT) {
+    const int kc = min(WKT, a.T - j0);
+    __syncthreads();
+    stage_wide<E, WKT, WNT>(sk, k, a.ldk, row0 + j0, h * a.dh, a.dh, kc, tid);
+    stage_rows<E, DV, WKT, WNT>(sv, v, a.ldv, row0 + j0, h * a.dv, a.dv, kc, tid);
+    if (mask != nullptr) stage_mask<WQ, WKT, WKT + 1, WNT>(&sm[0][0], mask, a.T, tile * WQ, j0, tid);
+    __syncthreads();
+    for (int j = 0; j < kc; ++j) {
+      const float e = expf(wide_score(qr, &sk[j][lane * CWS], a.scale,
+                                      mask != nullptr ? &sm[row][j] : nullptr) - mx);
+      l += e;
+      const float eb = Elem<E>::round(e);
+#pragma unroll
+      for (int d = 0; d < DVL; ++d) acc[d] = fmaf(eb, sv[j][lane * DVL + d], acc[d]);
+    }
+  }
+  if (!live) return;
+  const float rinv = 1.f / l;
+  E* o = static_cast<E*>(a.o) + (row0 + i) * size_t(a.nh) * a.dv + h * a.dv;
+#pragma unroll
+  for (int d = 0; d < DVL; ++d)
+    if (lane * DVL + d < a.dv) Elem<E>::store(o + lane * DVL + d, acc[d] * rinv);
+  if (a.stats != nullptr && lane == 0) {
+    const size_t s = (size_t(m) * a.nh + h) * a.T + i;
+    a.stats[s] = mx;
+    a.stats[size_t(a.M) * a.nh * a.T + s] = rinv;
+  }
+}
+
+template <typename E>
+int launch_wide(const FwdArgs& a, cudaStream_t stream) {
+  const long long blocks = (long long)a.M * a.nh * ((a.T + WQ - 1) / WQ);
+  if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
+  switch (padded_v_width(a.dv)) {
+    case 16: narrowband_attention_wide_kernel<E, 16><<<int(blocks), WNT, 0, stream>>>(a); break;
+    case 32: narrowband_attention_wide_kernel<E, 32><<<int(blocks), WNT, 0, stream>>>(a); break;
+    default: narrowband_attention_wide_kernel<E, 64><<<int(blocks), WNT, 0, stream>>>(a); break;
+  }
+  return int(cudaGetLastError());
+}
+
 template <typename E>
 int launch(const FwdArgs& a, cudaStream_t stream) {
+  if (a.dh > DMAX) return launch_wide<E>(a, stream);
   const long long blocks = (long long)a.M * a.nh * ((a.T + QT - 1) / QT);
   if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   switch (padded_width(a.dh, a.dv)) {
@@ -150,7 +249,7 @@ extern "C" int nbss_narrowband_attention_fwd(const void* q, const void* k, const
                                              int M, int T, int nh, int dh, int dv,
                                              int mask_heads, float scale, int is_bf16,
                                              void* stream) {
-  if (M < 1 || T < 1 || nh < 1 || dh < 1 || dv < 1 || dh > DMAX || dv > DMAX ||
+  if (M < 1 || T < 1 || nh < 1 || dh < 1 || dv < 1 || dh > DKMAX || dv > DMAX ||
       (mask != nullptr && mask_heads != 1 && mask_heads != nh))
     return int(cudaErrorInvalidValue);
   const FwdArgs a{q, k, v, static_cast<const float*>(mask), o, static_cast<float*>(stats),
@@ -159,5 +258,8 @@ extern "C" int nbss_narrowband_attention_fwd(const void* q, const void* k, const
   return is_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
 }
 
-// The largest head width (of q/k and of v) the kernels take.
-extern "C" int nbss_narrowband_attention_max_width() { return DMAX; }
+// The largest q/k head width the kernels take.
+extern "C" int nbss_narrowband_attention_max_width() { return DKMAX; }
+
+// The largest v head width the kernels take.
+extern "C" int nbss_narrowband_attention_max_v_width() { return DMAX; }

@@ -37,7 +37,10 @@
 //
 // Both form s and dP' with the same dot() (narrowband_attention.cuh), so
 // their e and dS agree bit for bit. Head widths are padded as in the
-// forward; any M, T >= 1 is taken.
+// forward; any M, T >= 1 is taken. q/k heads wider than 64 (up to 256) take
+// two wide kernels of the same structure with four threads to a row or key,
+// as the forward's wide kernel; they form s and dP' with wide_score() and
+// group_sum(), the forward's own order of sums.
 
 #include <climits>
 #include <cmath>
@@ -218,6 +221,189 @@ __global__ void __launch_bounds__(KB) narrowband_attention_bwd_dkdv(const BwdArg
   }
 }
 
+constexpr int WQ = 32;             // wide dQ kernel: query rows per block
+constexpr int WKB = 32;            // wide dK/dV kernel: keys per block
+constexpr int WNT = 32 * LANES;    // threads of either, LANES to a row
+constexpr int WT = 32;             // keys (dQ) or query rows (dK/dV) staged at a time
+
+// Kernel 1 for q/k head widths DMAX < dh <= DKMAX: the LANES threads of a
+// query row each hold a CW-wide chunk of q_i and dq_i and a DV / LANES-wide
+// slice of g'_i; the scores and g'_i . v_j are group_sums of their partials.
+template <typename E, int DV>
+__global__ void __launch_bounds__(WNT) narrowband_attention_bwd_dq_wide(const BwdArgs a) {
+  constexpr int DVL = DV / LANES;
+  __shared__ __align__(16) float sk[WT][WROW];
+  __shared__ __align__(16) float sv[WT][DV];
+  __shared__ float sm[WQ][WT + 1];
+  const int ntiles = (a.T + WQ - 1) / WQ;
+  const int tile = blockIdx.x % ntiles;
+  const int h = (blockIdx.x / ntiles) % a.nh;
+  const int m = blockIdx.x / ntiles / a.nh;
+  const int tid = threadIdx.x, lane = tid % LANES, row = tid / LANES;
+  const int i = tile * WQ + row;
+  const bool live = i < a.T;
+  const size_t row0 = size_t(m) * a.T;
+  const size_t srow = (size_t(m) * a.nh + h) * a.T;
+  const size_t nstat = size_t(a.M) * a.nh * a.T;
+  const E* q = static_cast<const E*>(a.q);
+  const E* k = static_cast<const E*>(a.k);
+  const E* v = static_cast<const E*>(a.v);
+  const E* g = static_cast<const E*>(a.g);
+  const float* mask = head_mask(a.mask, a.mask_heads, h, a.T);
+
+  const float mx = live ? a.stats[srow + i] : 0.f;
+  const float rinv = live ? a.stats[nstat + srow + i] : 0.f;
+  float qr[CW], dq[CW], gp[DVL];
+#pragma unroll
+  for (int d = 0; d < CW; ++d) {
+    const int c = lane * CW + d;
+    qr[d] = (live && c < a.dh) ? Elem<E>::load(q + (row0 + i) * a.ldq + h * a.dh + c) : 0.f;
+    dq[d] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < DVL; ++d) {
+    const int c = lane * DVL + d;
+    gp[d] = (live && c < a.dvw)
+                ? Elem<E>::round(
+                      Elem<E>::load(g + (row0 + i) * size_t(a.nh) * a.dvw + h * a.dvw + c) * rinv)
+                : 0.f;
+  }
+
+  // pass 1: delta = rowsum(dP' o e) * rinv
+  float acc = 0.f;
+  for (int j0 = 0; j0 < a.T; j0 += WT) {
+    const int kc = min(WT, a.T - j0);
+    __syncthreads();
+    stage_wide<E, WT, WNT>(sk, k, a.ldk, row0 + j0, h * a.dh, a.dh, kc, tid);
+    stage_rows<E, DV, WT, WNT>(sv, v, a.ldv, row0 + j0, h * a.dvw, a.dvw, kc, tid);
+    if (mask != nullptr) stage_mask<WQ, WT, WT + 1, WNT>(&sm[0][0], mask, a.T, tile * WQ, j0, tid);
+    __syncthreads();
+    for (int j = 0; j < kc; ++j) {
+      const float e = expf(wide_score(qr, &sk[j][lane * CWS], a.scale,
+                                      mask != nullptr ? &sm[row][j] : nullptr) - mx);
+      acc += group_sum(dot<DVL>(gp, &sv[j][lane * DVL])) * e;
+    }
+  }
+  const float delta = acc * rinv;
+  if (live && lane == 0) a.delta[srow + i] = delta;
+
+  // pass 2: dS and dQ
+  for (int j0 = 0; j0 < a.T; j0 += WT) {
+    const int kc = min(WT, a.T - j0);
+    __syncthreads();
+    stage_wide<E, WT, WNT>(sk, k, a.ldk, row0 + j0, h * a.dh, a.dh, kc, tid);
+    stage_rows<E, DV, WT, WNT>(sv, v, a.ldv, row0 + j0, h * a.dvw, a.dvw, kc, tid);
+    if (mask != nullptr) stage_mask<WQ, WT, WT + 1, WNT>(&sm[0][0], mask, a.T, tile * WQ, j0, tid);
+    __syncthreads();
+    for (int j = 0; j < kc; ++j) {
+      const float e = expf(wide_score(qr, &sk[j][lane * CWS], a.scale,
+                                      mask != nullptr ? &sm[row][j] : nullptr) - mx);
+      const float ds =
+          Elem<E>::round(e * (group_sum(dot<DVL>(gp, &sv[j][lane * DVL])) - delta) * a.scale);
+#pragma unroll
+      for (int d = 0; d < CW; ++d) dq[d] = fmaf(ds, sk[j][lane * CWS + d], dq[d]);
+    }
+  }
+  if (!live) return;
+  E* out = static_cast<E*>(a.dq) + (row0 + i) * size_t(a.nh) * a.dh + h * a.dh;
+#pragma unroll
+  for (int d = 0; d < CW; ++d)
+    if (lane * CW + d < a.dh) Elem<E>::store(out + lane * CW + d, dq[d]);
+}
+
+// Kernel 2 for DMAX < dh <= DKMAX: the LANES threads of a key each hold a
+// CW-wide chunk of k_j and dk_j and a DV / LANES-wide slice of v_j and dv_j.
+template <typename E, int DV>
+__global__ void __launch_bounds__(WNT) narrowband_attention_bwd_dkdv_wide(const BwdArgs a) {
+  constexpr int DVL = DV / LANES;
+  __shared__ __align__(16) float sq[WT][WROW];
+  __shared__ __align__(16) float sg[WT][DV];  // g' rows
+  __shared__ float smx[WT], sdl[WT];
+  __shared__ float sm[WT][WKB];  // mask tile: the threads of key j read column j
+  const int ntiles = (a.T + WKB - 1) / WKB;
+  const int tile = blockIdx.x % ntiles;
+  const int h = (blockIdx.x / ntiles) % a.nh;
+  const int m = blockIdx.x / ntiles / a.nh;
+  const int tid = threadIdx.x, lane = tid % LANES, col = tid / LANES;
+  const int j = tile * WKB + col;
+  const bool live = j < a.T;
+  const size_t row0 = size_t(m) * a.T;
+  const size_t srow = (size_t(m) * a.nh + h) * a.T;
+  const size_t nstat = size_t(a.M) * a.nh * a.T;
+  const E* q = static_cast<const E*>(a.q);
+  const E* k = static_cast<const E*>(a.k);
+  const E* v = static_cast<const E*>(a.v);
+  const E* g = static_cast<const E*>(a.g);
+  const float* mask = head_mask(a.mask, a.mask_heads, h, a.T);
+  const size_t ldg = size_t(a.nh) * a.dvw;
+
+  float kr[CW], dk[CW], vr[DVL], dv[DVL];
+#pragma unroll
+  for (int d = 0; d < CW; ++d) {
+    const int c = lane * CW + d;
+    kr[d] = (live && c < a.dh) ? Elem<E>::load(k + (row0 + j) * a.ldk + h * a.dh + c) : 0.f;
+    dk[d] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < DVL; ++d) {
+    const int c = lane * DVL + d;
+    vr[d] = (live && c < a.dvw) ? Elem<E>::load(v + (row0 + j) * a.ldv + h * a.dvw + c) : 0.f;
+    dv[d] = 0.f;
+  }
+
+  for (int i0 = 0; i0 < a.T; i0 += WT) {
+    const int qc = min(WT, a.T - i0);
+    __syncthreads();
+    stage_wide<E, WT, WNT>(sq, q, a.ldq, row0 + i0, h * a.dh, a.dh, qc, tid);
+    for (int idx = tid; idx < WT * DV; idx += WNT) {
+      const int r = idx / DV, d = idx % DV;
+      sg[r][d] = (r < qc && d < a.dvw)
+                     ? Elem<E>::round(Elem<E>::load(g + (row0 + i0 + r) * ldg + h * a.dvw + d) *
+                                      a.stats[nstat + srow + i0 + r])
+                     : 0.f;
+    }
+    if (tid < WT) {
+      smx[tid] = tid < qc ? a.stats[srow + i0 + tid] : 0.f;
+      sdl[tid] = tid < qc ? a.delta[srow + i0 + tid] : 0.f;
+    }
+    if (mask != nullptr) stage_mask<WT, WKB, WKB, WNT>(&sm[0][0], mask, a.T, i0, tile * WKB, tid);
+    __syncthreads();
+    for (int i = 0; i < qc; ++i) {
+      const float e = expf(wide_score(kr, &sq[i][lane * CWS], a.scale,
+                                      mask != nullptr ? &sm[i][col] : nullptr) - smx[i]);
+      const float eb = Elem<E>::round(e);
+      const float ds =
+          Elem<E>::round(e * (group_sum(dot<DVL>(vr, &sg[i][lane * DVL])) - sdl[i]) * a.scale);
+#pragma unroll
+      for (int d = 0; d < DVL; ++d) dv[d] = fmaf(eb, sg[i][lane * DVL + d], dv[d]);
+#pragma unroll
+      for (int d = 0; d < CW; ++d) dk[d] = fmaf(ds, sq[i][lane * CWS + d], dk[d]);
+    }
+  }
+  if (!live) return;
+  E* outk = static_cast<E*>(a.dk) + (row0 + j) * size_t(a.nh) * a.dh + h * a.dh;
+  E* outv = static_cast<E*>(a.dv) + (row0 + j) * ldg + h * a.dvw;
+#pragma unroll
+  for (int d = 0; d < CW; ++d)
+    if (lane * CW + d < a.dh) Elem<E>::store(outk + lane * CW + d, dk[d]);
+#pragma unroll
+  for (int d = 0; d < DVL; ++d)
+    if (lane * DVL + d < a.dvw) Elem<E>::store(outv + lane * DVL + d, dv[d]);
+}
+
+template <typename E, int DV>
+int launch_wide(const BwdArgs& a, cudaStream_t stream) {
+  const long long per_head = (long long)a.M * a.nh;
+  const long long blocks_q = per_head * ((a.T + WQ - 1) / WQ);
+  const long long blocks_k = per_head * ((a.T + WKB - 1) / WKB);
+  if (blocks_q > INT_MAX || blocks_k > INT_MAX) return int(cudaErrorInvalidValue);
+  narrowband_attention_bwd_dq_wide<E, DV><<<int(blocks_q), WNT, 0, stream>>>(a);
+  const int err = int(cudaGetLastError());
+  if (err != 0) return err;
+  narrowband_attention_bwd_dkdv_wide<E, DV><<<int(blocks_k), WNT, 0, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
 template <typename E, int D>
 int launch_width(const BwdArgs& a, cudaStream_t stream) {
   const long long per_head = (long long)a.M * a.nh;
@@ -233,6 +419,11 @@ int launch_width(const BwdArgs& a, cudaStream_t stream) {
 
 template <typename E>
 int launch(const BwdArgs& a, cudaStream_t stream) {
+  if (a.dh > DMAX) switch (padded_v_width(a.dvw)) {
+      case 16: return launch_wide<E, 16>(a, stream);
+      case 32: return launch_wide<E, 32>(a, stream);
+      default: return launch_wide<E, 64>(a, stream);
+    }
   switch (padded_width(a.dh, a.dvw)) {
     case 16: return launch_width<E, 16>(a, stream);
     case 24: return launch_width<E, 24>(a, stream);
@@ -256,7 +447,7 @@ extern "C" int nbss_narrowband_attention_bwd(const void* q, const void* k, const
                                              long long ldv, int M, int T, int nh, int dh,
                                              int dvw, int mask_heads, float scale,
                                              int is_bf16, void* stream) {
-  if (M < 1 || T < 1 || nh < 1 || dh < 1 || dvw < 1 || dh > DMAX || dvw > DMAX ||
+  if (M < 1 || T < 1 || nh < 1 || dh < 1 || dvw < 1 || dh > DKMAX || dvw > DMAX ||
       (mask != nullptr && mask_heads != 1 && mask_heads != nh))
     return int(cudaErrorInvalidValue);
   const BwdArgs a{q, k, v, static_cast<const float*>(mask), g,

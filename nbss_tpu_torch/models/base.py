@@ -1,7 +1,7 @@
 """Building blocks of the narrow-band models, channel-last.
 
-Counterpart of the parts of ``nbss_tpu/models/base.py`` that SpatialNet
-uses. Parameters are float32 in the layout of the original torch NBSS
+Counterpart of the parts of ``nbss_tpu/models/base.py`` that SpatialNet,
+OnlineSpatialNet and NBC use. Parameters are float32 in the layout of the original torch NBSS
 modules (Linear [out, in], Conv1d [out, in/groups, k]); each block computes in
 its input's dtype and casts its parameters to it, as the JAX package does
 with ``param_dtype=float32, dtype=bf16``. Normalizations take their
@@ -61,35 +61,65 @@ class Linear(nn.Module):
 
 class Conv1d(nn.Module):
     """1-D conv along the second-to-last axis of [..., W, C]; weight
-    [out, in/groups, k]. ``padding`` is 'same' or 'causal' (k - 1 frames on
-    the left only). A 1x1 conv without groups is a Linear."""
+    [out, in/groups, k]. ``padding`` is 'same', 'causal' (k - 1 frames on
+    the left only) or 'valid' (none: W - k + 1 frames out). A 1x1 conv
+    without groups is a Linear. ``bias=False`` leaves the bias out."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 groups: int = 1, padding: str = "same",
+                 groups: int = 1, padding: str = "same", bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if padding not in ("same", "causal"):
-            raise ValueError(f"padding must be 'same' or 'causal', got {padding!r}")
+        if padding not in ("same", "causal", "valid"):
+            raise ValueError(f"padding must be 'same', 'causal' or 'valid', got {padding!r}")
         self.groups, self.kernel_size, self.padding = groups, kernel_size, padding
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size))
-        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         bound = 1.0 / math.sqrt(self.weight.shape[1] * self.kernel_size)  # fan_in
         _uniform_(self.weight, bound, generator)
-        _uniform_(self.bias, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
-        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         if self.kernel_size == 1 and self.groups == 1:
             return F.linear(x, w[:, :, 0], b)
         *lead, W, C = x.shape
         k = self.kernel_size
-        left = k - 1 if self.padding == "causal" else (k - 1) // 2
-        xc = F.pad(x.reshape(-1, W, C).transpose(1, 2), (left, k - 1 - left))
+        left = {"causal": k - 1, "same": (k - 1) // 2, "valid": 0}[self.padding]
+        right = 0 if self.padding == "valid" else k - 1 - left
+        xc = F.pad(x.reshape(-1, W, C).transpose(1, 2), (left, right))
         y = F.conv1d(xc, w, b, groups=self.groups)
-        return y.transpose(1, 2).reshape(*lead, W, -1)
+        return y.transpose(1, 2).reshape(*lead, y.shape[-1], -1)
+
+
+class ConvTranspose1d(nn.Module):
+    """Transposed 1-D conv along the second-to-last axis of [..., W, C]
+    (torch's ConvTranspose1d, stride 1, no padding): W + k - 1 frames out.
+    Weight [in, out, k] in torch's layout; the JAX package's flax kernel
+    [k, in, out] is this one flipped along k. Initialized as the JAX
+    package's module: weight and bias uniform with bound 1/sqrt(in * k)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[0] * self.weight.shape[2])  # in * k
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        *lead, W, C = x.shape
+        y = F.conv_transpose1d(x.reshape(-1, W, C).transpose(1, 2), self.weight.to(x.dtype),
+                               self.bias.to(x.dtype))
+        return y.transpose(1, 2).reshape(*lead, y.shape[-1], -1)
 
 
 class PReLU(nn.Module):

@@ -115,5 +115,13 @@ def library() -> ctypes.CDLL:
         lib.nbss_narrowband_attention_bwd.restype = i
         lib.nbss_narrowband_attention_max_width.argtypes = []
         lib.nbss_narrowband_attention_max_width.restype = i
+        lib.nbss_narrowband_attention_max_v_width.argtypes = []
+        lib.nbss_narrowband_attention_max_v_width.restype = i
+        lib.nbss_attention_block_relpos_fwd.argtypes = [p] * 15 + [i] * 5 + [f, i, p]
+        lib.nbss_attention_block_relpos_fwd.restype = i
+        lib.nbss_attention_block_relpos_head_cols.argtypes = []
+        lib.nbss_attention_block_relpos_head_cols.restype = i
+        lib.nbss_attention_block_relpos_key_cols.argtypes = []
+        lib.nbss_attention_block_relpos_key_cols.restype = i
         _lib = lib
     return _lib

@@ -25,8 +25,10 @@ apart. The backward follows ``_bwd_kernel``'s formulas and rounding.
 When a gradient is wanted the forward kernel also writes each row's max and
 1 / sum(e) ([2, M, nh, T] float32), from which the backward kernel
 recomputes e; under ``no_grad`` nothing but o is written. The mask gets no
-gradient. The kernels take head widths up to ``KERNEL_DMAX`` and any M,
-T >= 1.
+gradient. The kernels take q/k head widths up to ``KERNEL_DHMAX`` (NBC's
+augmented heads of dh + d_model = 216 among them: above 64 a wide variant
+splits each row over four threads), v head widths up to ``KERNEL_DVMAX``,
+and any M, T >= 1.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ import math
 
 import torch
 
-KERNEL_DMAX = 64  # largest head width (q/k and v) the kernels take; csrc holds the same value
+KERNEL_DHMAX = 256  # largest q/k head width the kernels take; csrc holds the same value
+KERNEL_DVMAX = 64  # largest v head width the kernels take; csrc holds the same value
+NARROW_DMAX = 64  # q/k head widths above this take the wide kernels (32-row tiles)
 
 launches = 0  # forward kernel launches made by narrowband_attention since import
 bwd_launches = 0  # backward kernel launches made by narrowband_attention since import
@@ -116,11 +120,12 @@ def _shape(name, q, k, v, mask, nh):
         raise ValueError(f"{name}: k must be [{M}, {T}, {H}] and v [{M}, {T}, nh * dv], "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
     dh, dv = H // nh, v.shape[2] // nh
-    if T < 1 or not 1 <= dh <= KERNEL_DMAX or not 1 <= dv <= KERNEL_DMAX:
-        raise ValueError(f"{name}: the kernels take T >= 1 and head widths 1..{KERNEL_DMAX}, "
-                         f"got T = {T}, dh = {dh}, dv = {dv}")
-    if M * nh * -(-T // 64) >= 2 ** 31:
-        raise ValueError(f"{name}: M * nh * ceil(T / 64) = {M * nh * -(-T // 64)} blocks "
+    if T < 1 or not 1 <= dh <= KERNEL_DHMAX or not 1 <= dv <= KERNEL_DVMAX:
+        raise ValueError(f"{name}: the kernels take T >= 1 and head widths dh 1..{KERNEL_DHMAX}"
+                         f", dv 1..{KERNEL_DVMAX}, got T = {T}, dh = {dh}, dv = {dv}")
+    tile = 64 if dh <= NARROW_DMAX else 32
+    if M * nh * -(-T // tile) >= 2 ** 31:
+        raise ValueError(f"{name}: M * nh * ceil(T / {tile}) = {M * nh * -(-T // tile)} blocks "
                          "exceed the grid")
     if mask is not None and (mask.device != q.device or tuple(mask.shape[-2:]) != (T, T)
                              or mask.dim() not in (2, 3)
@@ -174,10 +179,11 @@ def forward(q, k, v, mask=None, nh: int = 1, stats: bool = False):
     from nbss_tpu_torch.ops import _build
 
     lib = _build.library()
-    if lib.nbss_narrowband_attention_max_width() != KERNEL_DMAX:
-        raise RuntimeError(f"csrc/narrowband_attention.cu takes head widths up to "
-                           f"{lib.nbss_narrowband_attention_max_width()}, ops/attention.py "
-                           f"expects {KERNEL_DMAX}")
+    widths = (lib.nbss_narrowband_attention_max_width(),
+              lib.nbss_narrowband_attention_max_v_width())
+    if widths != (KERNEL_DHMAX, KERNEL_DVMAX):
+        raise RuntimeError(f"csrc/narrowband_attention.cu takes head widths up to {widths} "
+                           f"(q/k, v), ops/attention.py expects {(KERNEL_DHMAX, KERNEL_DVMAX)}")
     err = lib.nbss_narrowband_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         o.data_ptr(), None if st is None else st.data_ptr(), ldq, ldk, ldv, M, T, nh, dh, dv,

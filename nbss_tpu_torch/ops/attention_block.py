@@ -30,6 +30,16 @@ FMA in this first version (see the source for the layout). The backward
 recomputes the forward from (x, ln, A, Wvo) and keeps its cross-sequence
 sums in per-block float32 partials that a second kernel adds in a fixed
 order, so its result is deterministic.
+
+NBC's block adds Transformer-XL relative positions (``fold_weights_nbc``,
+``reference_relpos``, ``attention_block_relpos``): per head also Gs_h, Gc_h
+[H+2, H/2], so that the position score is (gs sin_i + gc cos_i) . cos_j +
+(gc sin_i - gs cos_i) . sin_j with gs = xa Gs_h, gc = xa Gc_h and the
+absolute-position tables sin, cos [T, H/2]. For a CUDA tensor its forward
+runs ``csrc/attention_block_relpos.cu`` (H = 192), which replaces the Pallas
+kernel ``_fused_block_relpos`` (``_kernel_relpos``); its gradient is the
+autodiff of ``reference_relpos`` on every device, as the JAX package's
+``custom_vjp`` differentiates ``_reference_relpos``.
 """
 
 from __future__ import annotations
@@ -256,3 +266,191 @@ def attention_block(x, ln, A, Wvo, c, eps: float, nh: int):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_block: no kernel for device {x.device}")
     return _AttentionBlock.apply(x, ln, A, Wvo, c, eps, nh)
+
+
+# ---------------------------------------------------------------------------
+# NBC's block: + Transformer-XL relative positions, trig-factorized
+# ---------------------------------------------------------------------------
+
+KERNEL_RELPOS_H = 192  # channels the relative-position kernel is compiled for (NBC)
+RELPOS_WORKSPACE_BYTES = 1 << 30  # the kernel's workspaces hold this many bytes of sequences
+
+relpos_launches = 0  # kernel launches made by attention_block_relpos since import
+
+
+def fold_weights_nbc(ln_weight, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, wpos, u_bias, v_bias,
+                     nh: int, eps: float = 1e-5):
+    """Fold NBC's LayerNorm + RelPosMultiHeadAttention parameters (torch
+    layout: Linear weights [out, in], ``pos_proj.weight`` [H, d_model],
+    ``u_bias``/``v_bias`` [nh, dh]) into the relative-position kernel's
+    operands, as the JAX package's ``fold_weights_nbc`` does:
+
+        A_h   = Wq_h Wk_h^T / sqrt(H)   (+ row H: Wk_h (bq_h + u_h) / sqrt(H); [H, H+1] = -1e30)
+        Gs_h  = Wq_h Wsin_h^T / sqrt(H) (+ row H: Wsin_h (bq_h + v_h) / sqrt(H)), Gc_h with Wcos
+        Wvo_h = Wv_h Wo_h               (+ [H, H] = 1, the ones lane)
+        c     = b_out + sum_h bv_h Wo_h
+
+    with the reference's 1/sqrt(d_model) scale and Wsin/Wcos the even/odd
+    rows of the position projection. Returns (ln [2, H], A [nh, H+2, H+2],
+    Gs, Gc [nh, H+2, H/2], Wvo [nh, H+2, H+2], c [1, H], eps), all float32,
+    differentiable in every parameter."""
+    f32 = torch.float32
+    H = wq.shape[1]
+    dh, d2 = H // nh, H // 2
+    scale = 1.0 / math.sqrt(H)
+
+    def heads(w):  # torch Linear weight [H, H] -> per-head input maps [nh, H, dh]
+        return w.to(f32).t().reshape(H, nh, dh).permute(1, 0, 2)
+
+    Wq, Wk, Wv = heads(wq), heads(wk), heads(wv)
+    Wo = wo.to(f32).t().reshape(nh, dh, H)  # rows of the out projection per head
+    wpos3 = wpos.to(f32).t().reshape(H, nh, dh)  # [d_model, nh, dh]
+    Wsin, Wcos = wpos3[0::2].permute(1, 0, 2), wpos3[1::2].permute(1, 0, 2)  # [nh, d/2, dh]
+    bq_h, bv_h = bq.to(f32).reshape(nh, dh), bv.to(f32).reshape(nh, dh)
+    qu, qv = bq_h + u_bias.to(f32), bq_h + v_bias.to(f32)
+
+    A = torch.zeros(nh, H + 2, H + 2, dtype=f32, device=wq.device)
+    Gs = torch.zeros(nh, H + 2, d2, dtype=f32, device=wq.device)
+    Gc = torch.zeros_like(Gs)
+    Wvo = torch.zeros_like(A)
+    A[:, :H, :H] = Wq @ Wk.transpose(1, 2) * scale
+    A[:, H, :H] = (Wk @ qu[:, :, None])[..., 0] * scale
+    A[:, H, H + 1] = NEG_INF
+    Gs[:, :H] = Wq @ Wsin.transpose(1, 2) * scale
+    Gs[:, H] = (Wsin @ qv[:, :, None])[..., 0] * scale
+    Gc[:, :H] = Wq @ Wcos.transpose(1, 2) * scale
+    Gc[:, H] = (Wcos @ qv[:, :, None])[..., 0] * scale
+    Wvo[:, :H, :H] = Wv @ Wo
+    Wvo[:, H, H] = 1.0
+    c = bo.to(f32) + (bv_h[:, None, :] @ Wo)[:, 0].sum(0)
+    ln = torch.stack([ln_weight.to(f32), ln_bias.to(f32)])
+    return ln, A, Gs, Gc, Wvo, c[None], eps
+
+
+def reference_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int):
+    """Plain PyTorch version of the folded NBC block, with the JAX
+    reference's rounding points (``_reference_relpos``): xa, the operands, t,
+    gs, gc, Aq, Bq (each elementwise step), the tables, p and vo are rounded
+    to x's dtype; every product accumulates in float32. One head at a time,
+    as the Pallas kernel walks them, so that no [nh, M, T, T] tensor exists.
+    x: [M, T, H]; sin_t, cos_t: [T, H/2]."""
+    dt, f32 = x.dtype, torch.float32
+
+    def rnd(t):
+        return t.to(dt).to(f32)
+
+    H = x.shape[-1]
+    xf = x.to(f32)
+    xc = xf - xf.mean(-1, keepdim=True)
+    var = (xc * xc).mean(-1, keepdim=True)
+    xln = xc * torch.rsqrt(var + eps) * ln[0] + ln[1]
+    ones = torch.ones_like(xln[..., :1])
+    xa = rnd(torch.cat([xln, ones, 0 * ones], -1))
+    sin_b, cos_b = rnd(sin_t.to(x.device)), rnd(cos_t.to(x.device))
+    o = None
+    for h in range(nh):
+        t = rnd(xa @ rnd(A[h]))
+        gs, gc = rnd(xa @ rnd(Gs[h])), rnd(xa @ rnd(Gc[h]))
+        Aq = rnd(rnd(gs * sin_b) + rnd(gc * cos_b))
+        Bq = rnd(rnd(gc * sin_b) - rnd(gs * cos_b))
+        s = t @ xa.transpose(1, 2) + (Aq @ cos_b.t() + Bq @ sin_b.t())
+        p = rnd(torch.softmax(s, dim=-1))
+        vo = rnd(xa @ rnd(Wvo[h]))
+        o = p @ vo if o is None else o + p @ vo
+    return (o[..., :H] + c[0] + xf).to(dt)
+
+
+def _check_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, nh):
+    """Raise ValueError unless the relative-position kernel takes these inputs."""
+    name = "attention_block_relpos"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be [M, T, H], got {tuple(x.shape)}")
+    M, T, H = x.shape
+    if H != KERNEL_RELPOS_H or T < 1 or nh < 1 or H % nh:
+        raise ValueError(f"{name}: the kernel takes H = {KERNEL_RELPOS_H}, T >= 1 and nh "
+                         f"dividing H, got H = {H}, T = {T}, nh = {nh}")
+    Ha, d2 = H + 2, H // 2
+    expect = {"ln": (ln, (2, H)), "A": (A, (nh, Ha, Ha)), "Gs": (Gs, (nh, Ha, d2)),
+              "Gc": (Gc, (nh, Ha, d2)), "Wvo": (Wvo, (nh, Ha, Ha)), "c": (c, (1, H)),
+              "sin": (sin_t, (T, d2)), "cos": (cos_t, (T, d2))}
+    for key, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name}: {key} must be float32 {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+
+
+def _forward_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int):
+    global relpos_launches
+    if x.device.type == "cpu":
+        return reference_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps, nh)
+    _check_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, nh)
+    M, T, H = x.shape
+    y = torch.empty_like(x)
+    if M == 0:
+        return y
+    from nbss_tpu_torch.ops import _build
+
+    lib = _build.library()
+    head_cols, key_cols = (lib.nbss_attention_block_relpos_head_cols(),
+                           lib.nbss_attention_block_relpos_key_cols())
+    per_seq = T * ((nh * head_cols + key_cols) * x.element_size() + (H + T) * 4)
+    chunk = max(1, min(M, RELPOS_WORKSPACE_BYTES // per_seq))
+    xk = torch.empty(chunk * T, key_cols, dtype=x.dtype, device=x.device)
+    P = torch.empty(chunk * T, nh * head_cols, dtype=x.dtype, device=x.device)
+    acc = torch.empty(chunk * T, H, dtype=torch.float32, device=x.device)
+    scores = torch.empty(chunk * T, T, dtype=torch.float32, device=x.device)
+    wcat = torch.empty(H + 2, nh * head_cols, dtype=torch.float32, device=x.device)
+    err = lib.nbss_attention_block_relpos_fwd(
+        x.data_ptr(), ln.data_ptr(), A.data_ptr(), Gs.data_ptr(), Gc.data_ptr(), Wvo.data_ptr(),
+        c.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(), y.data_ptr(), xk.data_ptr(),
+        P.data_ptr(), acc.data_ptr(), scores.data_ptr(), wcat.data_ptr(), M, T, H, nh, chunk, ctypes.c_float(eps), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention_block_relpos kernel launch failed with CUDA error {err}")
+    relpos_launches += 1
+    return y
+
+
+class _AttentionBlockRelpos(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps, nh, save):
+        if save:
+            ctx.save_for_backward(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t)
+        ctx.eps, ctx.nh = eps, nh
+        return _forward_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps, nh)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, ln, A, Gs, Gc, Wvo, c)]
+            y = reference_relpos(*leaves, sin_t, cos_t, ctx.eps, ctx.nh)
+            grads = torch.autograd.grad(y, leaves, g)
+        return (*grads, None, None, None, None, None)
+
+
+def attention_block_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int):
+    """y = x + out_proj(RelPosMHSA(LN(x))) on x [M, T, H] (float32 or
+    bfloat16), NBC's attention half, from the operands of
+    ``fold_weights_nbc`` and the float32 [T, H/2] tables of
+    ``models.nbc.sincos_position_tables``. Differentiable in x, ln, A, Gs,
+    Gc, Wvo and c.
+
+    A CPU tensor takes ``reference_relpos``; a CUDA tensor launches the
+    kernel ``csrc/attention_block_relpos.cu``, or raises if it does not take
+    these inputs. The gradient is the autodiff of ``reference_relpos`` on
+    every device, as the JAX package's ``custom_vjp`` takes the autodiff of
+    its ``_reference_relpos``: the Pallas kernel has no backward."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention_block_relpos: no kernel for device {x.device}")
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, ln, A, Gs, Gc, Wvo, c))
+    return _AttentionBlockRelpos.apply(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps, nh, save)

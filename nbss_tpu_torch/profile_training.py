@@ -45,8 +45,8 @@ def main() -> int:
     items = [data[(i, 1000 + i)] for i in range(B)]
     batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]))
     online = arch == "online_spatialnet"
-    module, kernels, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, None,
-                                                         remat=online, attention=args.attention)
+    module, counts, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, None,
+                                                        remat=online, attention=args.attention)
     optimizer = ("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}) if online else ("Adam", {"lr": 1e-3})
     trainer = Trainer(module, optimizer=optimizer, seed=2)
     trainer.init()
@@ -56,14 +56,14 @@ def main() -> int:
         trainer.train_step(batch)
     torch.cuda.synchronize()
 
-    fwd0, bwd0 = kernels.launches, kernels.bwd_launches
+    fwd0, bwd0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    fwd, bwd = kernels.launches - fwd0, kernels.bwd_launches - bwd0
+    fwd, bwd = (n - n0 for n, n0 in zip(counts(), (fwd0, bwd0)))
     want_fwd = per_fwd * (2 if online else 1)  # remat recomputes each layer's forward
     if fwd != STEPS * want_fwd or bwd != STEPS * per_fwd:
         print(f"profile_training: {fwd} forward and {bwd} backward kernel launches in {STEPS} "

@@ -1,5 +1,8 @@
-"""Convert the JAX package's SpatialNet and OnlineSpatialNet parameter trees
-into the port's ``state_dict``.
+"""Convert the JAX package's SpatialNet, OnlineSpatialNet and NBC parameter
+trees into the port's ``state_dict``.
+
+For NBC the exact inverse of ``nbss_tpu.utils.torch_compat.nbc_params_from_torch``
+(``nbc_state_dict_from_flax``).
 
 For the mhsa and T-ConvFFN layers of OnlineSpatialNet, whose layout is
 SpatialNet's module for module, the exact inverse of
@@ -142,4 +145,45 @@ def online_spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
             sd.update(mamba_state_dict_from_flax(lp["tconvffn_mamba"], f"{t}.tconvffn."))
         else:
             sd.update(_tconvffn(lp, f"{t}.tconvffn"))
+    return sd
+
+
+def _convT(kernel) -> torch.Tensor:  # flax [k, in, out] -> torch ConvTranspose1d [in, out, k]
+    return _t(np.transpose(np.asarray(kernel)[::-1], (1, 2, 0)))
+
+
+def _linear(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A Dense (under ``Dense_0``) as a Linear; no bias if it has none."""
+    sd = {f"{prefix}.weight": _dense(p["Dense_0"]["kernel"])}
+    if "bias" in p["Dense_0"]:
+        sd[f"{prefix}.bias"] = _t(p["Dense_0"]["bias"])
+    return sd
+
+
+def nbc_state_dict_from_flax(params: Mapping, n_layers: int,
+                             n_conv_layers: int = 3) -> Dict[str, torch.Tensor]:
+    """JAX NBC params -> ``nbss_tpu_torch.models.nbc.NBC`` state_dict (the
+    reference torch NBC's names), the exact inverse of
+    ``nbss_tpu.utils.torch_compat.nbc_params_from_torch``: the ConvTranspose
+    decoder's flax kernel [k, in, out] is flipped back along k into torch's
+    [in, out, k]; the conv stack's GroupNorms sit at ``conv.{3i+1}``."""
+    p = params.get("params", params)
+    sd = {"encoder.weight": _conv(p["encoder"]["Conv_0"]["kernel"]),
+          "encoder.bias": _t(p["encoder"]["Conv_0"]["bias"]),
+          "decoder.weight": _convT(p["decoder"]["ConvTranspose_0"]["kernel"]),
+          "decoder.bias": _t(p["decoder"]["ConvTranspose_0"]["bias"])}
+    for l in range(n_layers):
+        t, bp = f"sa_layers.{l}", p[f"block_{l}"]
+        sd.update(_norm(bp["norm1"], f"{t}.norm1"))
+        sd.update(_norm(bp["norm2"], f"{t}.norm2"))
+        sa = bp["self_attn"]
+        for proj in ("query_proj", "key_proj", "value_proj", "out_proj", "pos_proj"):
+            sd.update(_linear(sa[proj], f"{t}.self_attn.{proj}"))
+        sd[f"{t}.self_attn.u_bias"] = _t(sa["u_bias"])
+        sd[f"{t}.self_attn.v_bias"] = _t(sa["v_bias"])
+        sd.update(_linear(bp["linear1"], f"{t}.linear1"))
+        sd.update(_linear(bp["linear2"], f"{t}.linear2"))
+        for i in range(n_conv_layers):
+            sd.update(_conv_layer(bp[f"conv_{i}"], f"{t}.conv.{3 * i}"))
+            sd.update(_norm(bp[f"conv_norm_{i}"], f"{t}.conv.{3 * i + 1}"))
     return sd

@@ -114,6 +114,23 @@ def test_reference_bwd_matches_pallas_backward_bf16():
                                    err_msg=name)
 
 
+def test_reference_matches_pallas_at_nbc_head_width():
+    """NBC's augmented q/k heads (dh = 24 + d_model = 216) with dv = 24, the
+    widths the widened kernels take: the forward at atol 2e-4, rtol 1e-4 and
+    the adjoint at 5e-3 against the interpreted Pallas kernels, float32."""
+    M, T, dh, dv = 2, 9, 216, 24
+    q, k, v, g = _inputs(9, M, T, dh, dv)
+    q = q / np.sqrt(dh / 24.0)  # scores of the size NBC's pre-scaled q' gives
+    want, vjp = jax.vjp(lambda a, b, c: j_attention(a, b, c, None, NH), *_jax([q, k, v]))
+    got = att.reference(*_torch([q, k, v]), None, NH)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=1e-4)
+    for name, a, w in zip(("dq", "dk", "dv"), att.reference_bwd(*_torch([q, k, v]), None,
+                                                                torch.from_numpy(g), NH),
+                          vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-3, rtol=5e-3, err_msg=name)
+    att._shape("narrowband_attention", *_torch([q, k, v]), None, NH)  # the checks take it
+
+
 def test_reference_bwd_is_the_adjoint_of_reference():
     """In float64, where no rounding point matters, reference_bwd equals
     torch autograd through reference."""
@@ -171,7 +188,7 @@ def test_function_refuses_other_devices():
 
 
 @pytest.mark.parametrize("shapes,nh,mask_shape,match", [
-    (((2, 5, 2 * 216), (2, 5, 2 * 216), (2, 5, 2 * 96)), 2, None, "head widths"),  # NBC's q/k
+    (((2, 5, 2 * 257), (2, 5, 2 * 257), (2, 5, 2 * 24)), 2, None, "head widths"),  # q/k > 256
     (((2, 5, 8), (2, 5, 8), (2, 5, 8 * 65)), 8, None, "head widths"),
     (((2, 5, 8), (2, 6, 8), (2, 5, 8)), 4, None, "k must be"),
     (((2, 5, 8), (2, 5, 8), (2, 5, 6)), 4, None, "nh \\* dv"),
@@ -180,8 +197,9 @@ def test_function_refuses_other_devices():
 ])
 def test_kernel_checks_refuse_what_the_kernels_do_not_take(shapes, nh, mask_shape, match):
     """The checks the wrappers make before a launch, on CPU tensors of the
-    shapes in question: head widths above 64 (NBC's augmented q/k width of
-    216 among them), mismatched shapes, a mask of another shape."""
+    shapes in question: a q/k head width above 256 (one past the widened
+    limit that takes NBC's 216), a v head width above 64, mismatched shapes,
+    a mask of another shape."""
     q, k, v = (torch.zeros(s) for s in shapes)
     mask = None if mask_shape is None else torch.zeros(mask_shape)
     with pytest.raises(ValueError, match=match):

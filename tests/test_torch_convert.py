@@ -26,14 +26,16 @@ import pytest
 import torch
 
 from nbss_tpu.io import Norm as JNorm
+from nbss_tpu.models.nbc import NBC as JNBC
 from nbss_tpu.models.spatialnet import SpatialNet as JSpatialNet
 from nbss_tpu.train.module import TrainModule as JTrainModule
-from nbss_tpu.utils.torch_compat import spatialnet_params_from_torch
+from nbss_tpu.utils.torch_compat import nbc_params_from_torch, spatialnet_params_from_torch
 from nbss_tpu_torch.io.norm import Norm
+from nbss_tpu_torch.models.nbc import NBC
 from nbss_tpu_torch.models.spatialnet import SpatialNet
 from nbss_tpu_torch.ops.metrics import si_sdr
 from nbss_tpu_torch.train.module import TrainModule
-from nbss_tpu_torch.utils.convert import spatialnet_state_dict_from_flax
+from nbss_tpu_torch.utils.convert import nbc_state_dict_from_flax, spatialnet_state_dict_from_flax
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = ROOT / "logs" / "SpatialNet" / "version_0" / "checkpoints"
@@ -89,6 +91,27 @@ def test_epoch39_checkpoint_port_matches_jax():
 
 def _port_sources():
     return sorted((ROOT / "nbss_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("n_layers,n_conv_layers", [(2, 3), (1, 1)])
+def test_nbc_converter_round_trips_through_torch_compat(n_layers, n_conv_layers):
+    """flax NBC -> the port's state_dict (every name and shape of the port's
+    NBC, the ConvTranspose kernel flipped) -> ``nbc_params_from_torch`` ->
+    the tree it came from, leaf for leaf."""
+    kw = dict(dim_input=4, dim_output=4, n_layers=n_layers, n_heads=2, hidden_size=16,
+              ffn_size=32, inner_conv_groups=2, inner_conv_layers=n_conv_layers)
+    params = JNBC(**kw).init(jax.random.PRNGKey(2), jnp.zeros((1, 2, 10, 4)))
+    sd = nbc_state_dict_from_flax(params, n_layers, n_conv_layers)
+    net = NBC(**kw, device="cpu")
+    net.load_state_dict(sd, strict=True)
+    assert len(sd) == len(jax.tree_util.tree_leaves(params))  # each leaf once
+    back = nbc_params_from_torch({k: v.numpy() for k, v in net.state_dict().items()},
+                                 n_layers, n_conv_layers)
+    want = jax.tree_util.tree_leaves_with_path(params["params"])
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(got[path], np.asarray(leaf), err_msg=str(path))
 
 
 def test_port_sources_import_no_jax():

@@ -28,8 +28,15 @@ The narrow-band attention kernels are held against ``attention.reference``
 and ``attention.reference_bwd`` at the same bounds, with no mask, a causal
 [T, T] mask and an ALiBi [nh, T, T] mask: one frame, lengths off and on the
 tiles, 251 and 1024 frames, every compiled head width, dv != dh, one
-sequence and the training count 1032; row-strided q, k, v slices; and a
+sequence and the training count 1032, and the wide kernels' q/k heads (NBC's
+216, a ragged 100, the widest 256); row-strided q, k, v slices; and a
 2-layer OnlineSpatialNet mhsa model's gradients against its plain path's.
+
+NBC's relative-position block kernel is held against
+``attention_block.reference_relpos`` at the forward bounds (one frame,
+ragged lengths, NBC's 248 frames, 1, 2, 4 and 8 heads, a run over several
+workspace chunks), with bit-identical relaunches; a 2-layer NBC's gradients
+through it against the plain module composition's.
 """
 
 import numpy as np
@@ -301,7 +308,11 @@ def test_online_spatialnet_gradients_through_scan_kernels_match_plain_path(card,
 # stream the kernels are held to (1024 frames), and the training count 1032
 ATTN_SHAPES = [(1, 1, 4, 24, 24), (5, 13, 4, 24, 24), (7, 64, 2, 16, 16), (3, 65, 3, 32, 32),
                (9, 251, 4, 24, 24), (2, 300, 2, 64, 64), (4, 37, 4, 8, 12), (2, 1024, 1, 24, 24),
-               (1032, 251, 4, 24, 24)]
+               (1032, 251, 4, 24, 24),
+               # the wide kernels (q/k heads above 64): NBC's augmented 216 with dv = 24, one
+               # frame, off the 32-row tiles, a ragged width, the widest q/k 256 with dv 64
+               (5, 13, 8, 216, 24), (1, 1, 2, 216, 24), (6, 251, 8, 216, 24), (3, 65, 2, 100, 16),
+               (2, 37, 1, 256, 64)]
 ATTN_MASKS = ["none", "causal", "alibi"]
 
 
@@ -399,7 +410,7 @@ def test_narrowband_attention_kernels_refuse_what_they_do_not_take(card):
     from nbss_tpu_torch.ops import attention as att
 
     (q, k, v), m, g = _attn_inputs(0, 2, 9, 2, 24, 24, "causal", torch.float32)
-    wide = torch.zeros(2, 9, 2 * 216, device="cuda")  # NBC's augmented q/k head width
+    wide = torch.zeros(2, 9, 2 * 257, device="cuda")  # one past the widest q/k head, 256
     with pytest.raises(ValueError, match="head widths"):
         att.narrowband_attention(wide, wide, v, None, 2)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -442,6 +453,115 @@ def test_online_spatialnet_gradients_through_attention_kernels_match_plain_path(
         grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
         assert launched == (((4 if remat else 2), 2) if net is fused else (0, 0))
     for name, gk in grads[0].items():
+        assert gk is not None and gk.abs().max() > 0, name
+        if dtype == torch.float32:
+            gp = grads[1][name]
+            torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
+                                       msg=name)
+
+
+# (M, T, nh) at NBC's H = 192: one frame, lengths off and on the 16-row tiles, NBC's
+# 248 frames, 1, 2, 4 and 8 heads
+RELPOS_SHAPES = [(5, 1, 8), (7, 13, 8), (3, 16, 8), (4, 17, 4), (2, 248, 8), (1, 33, 1),
+                 (37, 64, 2)]
+
+
+def _relpos_operands(seed, M, T, nh, H=192):
+    from nbss_tpu_torch.models.nbc import sincos_position_tables
+
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, scale):
+        return scale * torch.randn(*shape, generator=g)
+
+    wq, wk, wv, wo, wpos = (w(H, H, scale=H ** -0.5) for _ in range(5))
+    bq, bk, bv, bo = (w(H, scale=0.1) for _ in range(4))
+    u, v = w(nh, H // nh, scale=0.3), w(nh, H // nh, scale=0.3)
+    ln_w, ln_b = 1 + w(H, scale=0.1), w(H, scale=0.1)
+    *ops, eps = ab.fold_weights_nbc(ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, wpos, u, v, nh)
+    tables = [torch.tensor(t) for t in sincos_position_tables(T, H)]
+    x = torch.randn(M, T, H, generator=g)
+    return x.cuda(), [t.cuda() for t in (*ops, *tables)], eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh", RELPOS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_relpos_kernel_matches_plain(card, M, T, nh, dtype):
+    x, ops, eps = _relpos_operands(M * 1000 + T + nh, M, T, nh)
+    x = x.to(dtype)
+    before = ab.relpos_launches
+    y = ab.attention_block_relpos(x, *ops, eps, nh)
+    torch.cuda.synchronize()
+    assert ab.relpos_launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    want = ab.reference_relpos(x.float(), *ops, eps, nh)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+    else:
+        plain_err = (ab.reference_relpos(x, *ops, eps, nh).float() - want).abs().max().item()
+        err = (y.float() - want).abs().max().item()
+        assert np.isfinite(err) and err <= 2 * plain_err, (err, plain_err)
+    assert torch.equal(y, ab.attention_block_relpos(x, *ops, eps, nh))  # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_relpos_chunks_give_the_same_bits(card, dtype, monkeypatch):
+    """Sequences go through the workspaces a chunk at a time: workspaces of
+    one sequence (ten chunks) give the bits of one chunk of ten."""
+    x, ops, eps = _relpos_operands(5, 10, 29, 8)
+    x = x.to(dtype)
+    whole = ab.attention_block_relpos(x, *ops, eps, 8)
+    monkeypatch.setattr(ab, "RELPOS_WORKSPACE_BYTES", 1)
+    assert torch.equal(whole, ab.attention_block_relpos(x, *ops, eps, 8))
+
+
+@pytest.mark.gpu
+def test_attention_block_relpos_kernel_refuses_what_it_does_not_take(card):
+    x, ops, eps = _relpos_operands(0, 2, 9, 8)
+    with pytest.raises(ValueError, match="H = 192"):
+        ab.attention_block_relpos(x[..., :96].contiguous(), *ops, eps, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ab.attention_block_relpos(x.half(), *ops, eps, 8)
+    with pytest.raises(ValueError, match="sin must be"):
+        ab.attention_block_relpos(x, *ops[:6], ops[6][:4], ops[7], eps, 8)
+    with pytest.raises(ValueError, match="A must be"):
+        ab.attention_block_relpos(x, *ops, eps, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ab.attention_block_relpos(x.transpose(1, 2).contiguous().transpose(1, 2), *ops, eps, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nbc_gradients_through_relpos_kernel_match_plain_path(card, dtype):
+    """A 2-layer NBC at H=192, 8 heads (B=2, F=3, 20 frames): a loss through
+    the default path launches the relative-position kernel once per layer,
+    gives the input and every parameter but the key projection's bias (which
+    the softmax removes) a non-zero gradient, and in fp32 each gradient is
+    within 5e-3 x max|plain| of the plain module composition's (the attention
+    module with the plain narrow-band attention)."""
+    from nbss_tpu_torch.models.nbc import NBC
+
+    kw = dict(dim_input=16, dim_output=4, n_layers=2, dropout=0.0)
+    gen = torch.Generator().manual_seed(0)
+    fused = NBC(**kw, dtype=dtype, generator=gen, device="cuda")
+    plain = NBC(**kw, fused_block=False, attention_kernel=False, device="cuda")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 3, 20, 16, generator=gen).cuda()
+    w = torch.randn(2, 3, 20, 4, generator=gen).cuda()
+    grads = []
+    for net in (fused, plain):
+        xg = x.clone().requires_grad_()
+        before = ab.relpos_launches
+        (net(xg) * w).sum().backward()
+        torch.cuda.synchronize()
+        assert ab.relpos_launches - before == (2 if net is fused else 0)
+        grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
+    for name, gk in grads[0].items():
+        if name.endswith("key_proj.bias"):
+            assert gk is None, name
+            continue
         assert gk is not None and gk.abs().max() > 0, name
         if dtype == torch.float32:
             gp = grads[1][name]

@@ -106,7 +106,7 @@ def test_causal_conv_pads_on_the_left():
         y_cut = conv(x[:, :6])
     torch.testing.assert_close(y[:, :6], y_cut)  # no frame sees a later one
     with pytest.raises(ValueError, match="padding"):
-        Conv1d(3, 5, 4, padding="valid")
+        Conv1d(3, 5, 4, padding="full")  # a mode the port does not have ('valid' is NBC's)
 
 
 def test_arch_streaming_equals_offline():
