@@ -11,7 +11,8 @@ for OnlineSpatialNet ``mamba(16,4)`` (the committed streaming run: 8 layers,
 H=96, online utterance norm, neg-SNR with PIT), which also streams, and for
 OnlineSpatialNet ``mhsa(251)`` (the same widths with masked attention, 4
 heads, and the causal T-ConvFFN); then NBC serving at the full width of
-``configs/NBC.yaml``. Twenty-five phases:
+``configs/NBC.yaml``; then SpatialNet-small again with ``fused_ffn=True``,
+whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -103,7 +104,27 @@ heads, and the causal T-ConvFFN); then NBC serving at the full width of
     a PyTorch library composition of the same function (LN, the projections,
     ``scaled_dot_product_attention`` over the 216-wide augmented heads, the
     out projection) and its bound; rows 4-5 at dh = 216 and their
-    ``scaled_dot_product_attention`` counterparts; the NBC serving rate.
+    ``scaled_dot_product_attention`` counterparts; the NBC serving rate;
+26. the T-ConvFFN kernel vs ``tconvffn.reference`` at the serving shape
+    (M = 16*129, T = 251, H = 96, FF = 192, 8 groups): fp32 at atol 2e-4,
+    rtol 1e-4, a second launch bit-identical; bf16 under the rule of phase
+    3; ragged shapes (T = 1, 2, 13; M = 1) and SpatialNet-large's widths (H =
+    192, FF = 384) in fp32; the fp32 gradient through its Function against
+    the plain path's at M = 2*129, x and every parameter within 5e-3 x
+    max|plain|;
+27. SpatialNet-small ``fused_ffn=True`` serving: ``forward`` and
+    ``predict_step`` at B=16 in bf16, 8 T-ConvFFN and 8 attention-block
+    launches per forward and no backward launch; fp32 kernel path vs the
+    plain module composition, SI-SDR >= 50 dB;
+28. training: ``Trainer`` fits 8 SyntheticDataset items for 20 steps at B=8
+    (Adam 1e-3, clip 5, bf16): 8 T-ConvFFN, 8 attention-block and 8
+    attention-block backward launches a step, every loss finite, the last 5
+    below the first 5; fp32 gradients of every parameter with ``fused_ffn``
+    on vs off (the T-ConvFFN composition; the attention block through its
+    kernels in both, as phase 8 holds that path), within 5e-3 x max|plain|;
+29. times: the T-ConvFFN kernel (bf16 and fp32), its plain version, a
+    PyTorch library composition of the same function and its bound; serving
+    and training rates with ``fused_ffn`` on and off, in turns.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -195,7 +216,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/25 device")
+    log("phase 1/29 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -203,7 +224,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/25 build (plain nvcc, sm_90a)")
+    log("phase 2/29 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -213,7 +234,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/25 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/29 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -240,7 +261,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/25 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/29 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -277,7 +298,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/25 times (CUDA events, after warm-up)")
+    log("phase 5/29 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -321,6 +342,7 @@ def main() -> int:
     rows67 = online_phases(dev)
     rows45 = mhsa_phases(dev)
     row8, wide4, wide5 = nbc_phases(dev)
+    row3 = tconvffn_phases(dev)
     rows45[0].update(wide4)
     rows45[1].update(wide5)
 
@@ -331,7 +353,7 @@ def main() -> int:
         "launches": launches, "launches_training": train_launches, "max_abs_err": err32,
         "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms, "ms_fp32": ms_fp32,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}, row2, *rows67, *rows45, row8]}), flush=True)
+        "library_ms": library_ms}, row2, row3, *rows67, *rows45, row8]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -364,7 +386,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/25 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/29 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -403,7 +425,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/25 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/29 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -441,7 +463,7 @@ def training_phases(dev):
     check_budget("training")
 
     # 8. gradient parity, fp32
-    log("phase 8/25 gradients: kernel path vs plain composition, fp32, one batch")
+    log("phase 8/29 gradients: kernel path vs plain composition, fp32, one batch")
     grads = []
     for fused in (True, False):
         net = SpatialNet(**FLAGSHIP, fused_block=fused, device=dev)
@@ -465,7 +487,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/25 times (CUDA events, after warm-up)")
+    log("phase 9/29 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     plain_ms = cuda_ms(lambda: ab.reference_bwd(xb, ln, A, Wvo, gb, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -569,7 +591,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/25 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/29 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -591,7 +613,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/25 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/29 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -622,7 +644,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/25 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/29 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -659,7 +681,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/25 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/29 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -680,7 +702,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/25 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/29 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -739,7 +761,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/25 times (CUDA events, after warm-up)")
+    log("phase 15/29 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -869,7 +891,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/25 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/29 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
                   for kind in ("none", "causal", "alibi")}
@@ -898,7 +920,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/25 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/29 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
     again = att.backward(*ins32, causal, g32, nh, st32)
@@ -928,7 +950,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/25 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/29 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -965,7 +987,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/25 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/29 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -987,7 +1009,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/25 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/29 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1046,7 +1068,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/25 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/29 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1180,7 +1202,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/25 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/29 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
@@ -1230,7 +1252,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/25 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/29 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1276,7 +1298,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/25 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/29 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1322,7 +1344,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/25 times (CUDA events, after warm-up)")
+    log("phase 25/29 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=3,
@@ -1434,6 +1456,283 @@ def nbc_phases(dev):
                           "bound_by": wide_bwd_by,
                           "max_err_fp32": dict(zip(("dq", "dk", "dv"), wide_bwd_errs))}}
     return row8, row4, row5
+
+
+def ffn_params(gen, H: int, FF: int, dev):
+    """Seeded random T-ConvFFN parameters in torch layout (fan-in scaled)."""
+    from nbss_tpu_torch.ops.tconvffn import PARAM_NAMES
+
+    cpg = FF // 8
+    shapes = {"ln_scale": (H,), "ln_bias": (H,), "w_up": (FF, H), "b_up": (FF,),
+              "gn_scale": (FF,), "gn_bias": (FF,), "w_down": (H, FF), "b_down": (H,),
+              **{f"w_c{i}": (FF, cpg, 3) for i in (1, 2, 3)},
+              **{f"b_c{i}": (FF,) for i in (1, 2, 3)}}
+    import torch
+
+    out = {}
+    for k in PARAM_NAMES:
+        fan_in = {"w_up": H, "w_down": FF}.get(k, 3 * cpg)
+        v = torch.randn(*shapes[k], generator=gen) / (fan_in ** 0.5 if k.startswith("w_") else 10)
+        out[k] = (v + 1 if k.endswith("_scale") else v).to(dev)
+    return out
+
+
+def tconvffn_phases(dev):
+    """Phases 26-29: SpatialNet-small with ``fused_ffn=True``, whose
+    T-ConvFFN runs through the row-3 kernel. Returns row 3's entry of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from nbss_tpu_torch.data.synthetic import SyntheticDataset
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops import tconvffn as tc
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.loop import Trainer
+    from nbss_tpu_torch.train.module import TrainModule
+
+    n_layers, H, FF = FLAGSHIP["num_layers"], FLAGSHIP["dim_hidden"], FLAGSHIP["dim_ffn"]
+    G = FLAGSHIP["conv_groups"][1]
+    n_freq, T = FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
+    M = B * n_freq
+    gen = torch.Generator().manual_seed(6)
+    net = SpatialNet(**FLAGSHIP, fused_ffn=True, dtype=torch.bfloat16, generator=gen,
+                     device=dev).eval()
+    with torch.no_grad():
+        p = {k: v.detach() for k, v in tc.params_from_sequential(net.layers[0].tconvffn).items()}
+
+    def fwd_check(x, params, label):
+        with torch.no_grad():
+            y = tc.tconvffn(x, params, G)
+            torch.cuda.synchronize()
+            want = tc.reference(x, params, G)
+        err = (y - want).abs().max().item()
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4, msg=label)
+        return y, err
+
+    # 26. row 3 vs plain
+    log(f"phase 26/29 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    x32 = torch.randn(M, T, H, generator=gen).to(dev)
+    y, ffn_err32 = fwd_check(x32, p, "fp32")
+    with torch.no_grad():
+        deterministic = torch.equal(y, tc.tconvffn(x32, p, G))
+    log(f"fp32: max |kernel - plain| = {ffn_err32:.3e} (atol 2e-4, rtol 1e-4): ok; two launches "
+        f"bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("two launches of the T-ConvFFN kernel differ")
+    del y
+    xb = x32.to(torch.bfloat16)
+    with torch.no_grad():
+        want = tc.reference(xb.float(), p, G)
+        ffn_errbf = (tc.tconvffn(xb, p, G).float() - want).abs().max().item()
+        plainbf = (tc.reference(xb, p, G).float() - want).abs().max().item()
+    del want
+    log(f"bf16: max |kernel - fp32 plain| = {ffn_errbf:.4f}, plain bf16 version's = "
+        f"{plainbf:.4f} (bound: 2x the plain version's)")
+    if not ffn_errbf <= 2 * plainbf:
+        raise AssertionError(f"bf16 T-ConvFFN error {ffn_errbf} exceeds 2 x {plainbf}")
+    for Mr, Tr in ((5, 1), (3, 2), (7, 13), (1, T)):
+        _, e = fwd_check(torch.randn(Mr, Tr, H, generator=gen).to(dev), p, f"ragged {(Mr, Tr)}")
+        log(f"ragged (M, T) = {(Mr, Tr)}: {e:.2e}: ok")
+    p_large = ffn_params(gen, 2 * H, 2 * FF, dev)
+    _, e = fwd_check(torch.randn(2 * n_freq, T, 2 * H, generator=gen).to(dev), p_large,
+                     "SpatialNet-large widths")
+    log(f"SpatialNet-large widths (H={2 * H}, FF={2 * FF}) at M={2 * n_freq}: {e:.2e}: ok")
+    Mg = 2 * n_freq
+    xg = torch.randn(Mg, T, H, generator=gen).to(dev)
+    gy = torch.randn(Mg, T, H, generator=gen).to(dev)
+    grads = []
+    for kernel in (True, False):
+        leaves = [xg.clone().requires_grad_()] + [v.clone().requires_grad_() for v in p.values()]
+        y = tc.tconvffn(leaves[0], dict(zip(p, leaves[1:])), G, kernel=kernel)
+        grads.append(torch.autograd.grad(y, leaves, gy))
+    worst = 0.0
+    for name, a, w in zip(("x", *p), *grads):
+        rel = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= 5e-3:
+            raise AssertionError(f"T-ConvFFN gradient {name}: {rel:.2e} x max|plain|")
+    log(f"fp32 gradients through the kernel's Function at M={Mg}, x and every parameter: worst "
+        f"max |kernel - plain| / max|plain| = {worst:.2e} (bound 5e-3)")
+    del grads, xg, gy, x32, p_large
+    torch.cuda.empty_cache()
+    check_budget("tconvffn vs plain")
+
+    # 27. serving
+    log(f"phase 27/29 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+        f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
+    module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
+                         loss=Loss(name="neg_si_sdr", pit=True))
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
+    tc.launches = ab.launches = ab.bwd_launches = 0
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave, target)
+    torch.cuda.synchronize()
+    served = (tc.launches, ab.launches, ab.bwd_launches)
+    for name, out in (("forward", yr_hat), ("predict_step", pred)):
+        if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    if served != (2 * n_layers, 2 * n_layers, 0):
+        raise AssertionError(f"launches (tconvffn, attention block, its backward) {served} in two "
+                             f"forwards, expected {(2 * n_layers, 2 * n_layers, 0)}")
+    log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; launches (tconvffn, "
+        f"attention block, backward) {served} ({n_layers} + {n_layers} per forward)")
+    kernel32 = SpatialNet(**FLAGSHIP, fused_ffn=True, device=dev).eval()
+    kernel32.load_state_dict(net.state_dict())
+    plain32 = SpatialNet(**FLAGSHIP, fused_block=False, device=dev).eval()
+    plain32.load_state_dict(net.state_dict())
+    tc.launches = 0
+    y_kernel, _ = TrainModule(**{**module.__dict__, "arch": kernel32}).forward(wave)
+    launched = tc.launches
+    y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(wave)
+    ffn_sdr = si_sdr(y_kernel, y_plain).min().item()
+    del kernel32, plain32, y_kernel, y_plain
+    log(f"fp32 kernel path vs plain composition: min SI-SDR {ffn_sdr:.1f} dB (bound >= 50); "
+        f"tconvffn launched {launched} times")
+    if launched != n_layers or not ffn_sdr >= 50.0:
+        raise AssertionError(f"fp32 kernel path: {launched} launches, SI-SDR {ffn_sdr:.1f} dB")
+    torch.cuda.empty_cache()
+    check_budget("fused_ffn serving")
+
+    # 28. training
+    log(f"phase 28/29 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+        f"items for {TRAIN_STEPS} steps, bf16")
+    data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
+                            audio_time_len=SECONDS)
+    items = [data[(i, 1000 + i)] for i in range(B_TRAIN)]
+    batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]),
+             [it[2] for it in items])
+
+    def trainer_for(fused_ffn, losses):
+        m = TrainModule(arch=SpatialNet(**FLAGSHIP, fused_ffn=fused_ffn, dtype=torch.bfloat16,
+                                        device=dev),
+                        channels=tuple(range(CHANNELS)), stft=STFT(n_fft=256, n_hop=128),
+                        norm=Norm(mode="frequency"))
+        t = Trainer(m, optimizer=("Adam", {"lr": 1e-3}), gradient_clip_val=5.0, seed=2,
+                    device=dev, logger=lambda k, v, step: losses.append(v)
+                    if k.startswith("train/") else None)
+        t.init()
+        return t
+
+    losses = []
+    trainer = trainer_for(True, losses)
+    tc.launches = ab.launches = ab.bwd_launches = 0
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit = (tc.launches, ab.launches, ab.bwd_launches)
+    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
+    log(f"launches (tconvffn, attention block, its backward) in {TRAIN_STEPS} steps: {fit}")
+    if fit != (TRAIN_STEPS * n_layers,) * 3:
+        raise AssertionError(f"expected {n_layers} launches of each a step")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+    grads = []  # row 3 against the plain T-ConvFFN; phase 8 holds the attention block's path
+    for fused_ffn in (True, False):
+        net32 = SpatialNet(**FLAGSHIP, fused_ffn=fused_ffn, device=dev)
+        net32.load_state_dict(trainer.arch.state_dict())
+        m32 = TrainModule(**{**trainer.module.__dict__, "arch": net32})
+        m32.training_step(trainer.to_device(batch)).backward()
+        grads.append({n: q.grad for n, q in net32.named_parameters()})
+        del net32, m32
+    worst = ("", 0.0)
+    for name, gk in grads[0].items():
+        gp = grads[1][name]
+        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+        if gk.abs().max() == 0 or rel > 5e-3:
+            raise AssertionError(f"gradient of {name}: max |kernel - plain| = {rel:.2e} "
+                                 f"x max|plain| (bound 5e-3)")
+    log(f"fp32 gradients, fused_ffn on vs off, {len(grads[0])} parameters: worst "
+        f"{worst[1]:.2e} ({worst[0]}; bound 5e-3)")
+    del grads
+    torch.cuda.empty_cache()
+    check_budget("fused_ffn training")
+
+    # 29. times
+    log("phase 29/29 times (CUDA events, after warm-up)")
+    with torch.no_grad():
+        ffn_ms = cuda_ms(lambda: tc.tconvffn(xb, p, G), iters=10)
+        x32 = xb.float()
+        ffn_ms_fp32 = cuda_ms(lambda: tc.tconvffn(x32, p, G), iters=5)
+        del x32
+        ffn_plain_ms = cuda_ms(lambda: tc.reference(xb, p, G), iters=3, warmup=1)
+        bf = torch.bfloat16
+        w = {k: v.to(bf) for k, v in p.items()}
+
+        def library():  # one PyTorch composition of the same function; the port never calls it
+            z = F.silu(F.linear(F.layer_norm(xb, (H,), w["ln_scale"], w["ln_bias"]), w["w_up"],
+                                w["b_up"])).transpose(1, 2)
+            z = F.silu(F.conv1d(z, w["w_c1"], w["b_c1"], padding=1, groups=G))
+            z = F.conv1d(z, w["w_c2"], w["b_c2"], padding=1, groups=G)
+            z = F.silu(F.group_norm(z, G, w["gn_scale"], w["gn_bias"]))
+            z = F.silu(F.conv1d(z, w["w_c3"], w["b_c3"], padding=1, groups=G))
+            return F.linear(z.transpose(1, 2), w["w_down"], w["b_down"])
+
+        ffn_library_ms = cuda_ms(library, iters=10)
+    ffn_bytes = 2 * xb.numel() * xb.element_size() + sum(v.numel() * 2 for v in p.values())
+    ffn_ops = 2 * M * T * (2 * H * FF + 3 * 3 * FF * (FF // G))  # up, down, three grouped convs
+    ffn_bound, ffn_by = bound(ffn_bytes, ffn_ops)
+    log(f"tconvffn bf16 M={M}: kernel {ffn_ms:.3f} ms (fp32 {ffn_ms_fp32:.3f} ms), plain "
+        f"{ffn_plain_ms:.3f} ms, library (layer_norm + linear + grouped conv1d x3 + group_norm "
+        f"+ linear) {ffn_library_ms:.3f} ms, bound {ffn_bound:.4f} ms ({ffn_by}: "
+        f"{ffn_bytes / 1e6:.0f} MB, {ffn_ops / 1e9:.1f} GFLOP grouped)")
+    del xb
+
+    net_off = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, device=dev).eval()
+    net_off.load_state_dict(net.state_dict())
+    module_off = TrainModule(**{**module.__dict__, "arch": net_off})
+
+    def step_ms(fn, reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / reps * 1e3
+
+    serve = {True: [], False: []}
+    for mod in (module, module_off):
+        mod.predict_step(wave)  # warm-up
+    for on in (True, False, False, True):  # in turns
+        serve[on].append(step_ms(lambda: (module if on else module_off).predict_step(wave), 3))
+    serve_ms = {k: float(np.mean(v)) for k, v in serve.items()}
+    log(f"serving: predict_step on {B} x {SECONDS:g} s, fused_ffn on {serve_ms[True]:.1f} ms = "
+        f"{B * SECONDS / serve_ms[True] * 1e3:.1f} audio-s/s, off {serve_ms[False]:.1f} ms = "
+        f"{B * SECONDS / serve_ms[False] * 1e3:.1f} audio-s/s")
+    del module_off, net_off
+    trainer_off = trainer_for(False, [])
+    train = {True: [], False: []}
+    for t in (trainer, trainer_off):
+        t.train_step(batch)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    for on in (True, False, False, True):
+        train[on].append(step_ms(lambda: (trainer if on else trainer_off).train_step(batch), 3))
+    train_ms = {k: float(np.mean(v)) for k, v in train.items()}
+    log(f"training: train_step on {B_TRAIN} x {SECONDS:g} s, fused_ffn on {train_ms[True]:.1f} "
+        f"ms = {B_TRAIN * SECONDS / train_ms[True] * 1e3:.1f} audio-s/s, off "
+        f"{train_ms[False]:.1f} ms = {B_TRAIN * SECONDS / train_ms[False] * 1e3:.1f} audio-s/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check_budget("fused_ffn times")
+    return {"name": "tconvffn", "route": "cuda", "source": "nbss_tpu_torch/csrc/tconvffn.cu",
+            "replaces": "nbss_tpu/ops/tconvffn.py:148", "launches": served[0],
+            "launches_training": fit[0], "max_abs_err": ffn_err32, "max_err_bf16": ffn_errbf,
+            "ms": ffn_ms, "ms_fp32": ffn_ms_fp32, "plain_ms": ffn_plain_ms,
+            "bound_ms": ffn_bound, "bound_by": ffn_by, "library_ms": ffn_library_ms,
+            "serve_sdr_db_fp32": ffn_sdr,
+            "serve_step_ms": {"fused_ffn": serve_ms[True], "plain_ffn": serve_ms[False]},
+            "train_step_ms": {"fused_ffn": train_ms[True], "plain_ffn": train_ms[False]}}
 
 
 if __name__ == "__main__":

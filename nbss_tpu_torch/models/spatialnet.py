@@ -16,8 +16,13 @@ With the default LayerNorm pre-norm the narrow-band ``x + MHSA(LN(x))`` runs
 through ``ops.attention_block`` (the CUDA kernel on a CUDA tensor), as the JAX
 package runs its Pallas kernel on an accelerator. ``fused_block=False`` runs
 the plain module composition instead (the einsum ``MultiheadAttention``).
-The T-ConvFFN is a plain composition, as it is by default in the JAX
-package.
+
+The T-ConvFFN is the plain ``nn.Sequential`` composition unless
+``fused_ffn`` is true, as in the JAX package, where ``fused_ffn=None`` (the
+default) means off (``bool(None)``). With it true, the default norms (LN
+first, GN in the middle) and k = 3 temporal convs, the whole chain runs
+through ``ops.tconvffn`` (the CUDA kernel on a CUDA tensor); other settings
+keep the composition, as the JAX package's conditions do.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from nbss_tpu_torch.models.base import (
     new_norm,
 )
 from nbss_tpu_torch.ops.attention_block import attention_block, fold_weights
+from nbss_tpu_torch.ops.tconvffn import params_from_sequential, tconvffn
 
 
 class SpatialNetLayer(nn.Module):
@@ -43,7 +49,8 @@ class SpatialNetLayer(nn.Module):
                  full: LinearGroup, kernel_size: Tuple[int, int] = (5, 3),
                  conv_groups: Tuple[int, int] = (8, 8),
                  norms: Sequence[str] = ("LN", "LN", "GN", "LN", "LN", "LN"),
-                 fused_block: bool = True, generator: Optional[torch.Generator] = None):
+                 fused_block: bool = True, fused_ffn: Optional[bool] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         H, FF, S = dim_hidden, dim_ffn, dim_squeeze
         f_groups, t_groups = conv_groups
@@ -51,6 +58,8 @@ class SpatialNetLayer(nn.Module):
         g = generator
         self.num_heads = num_heads
         self.fused_block = fused_block and norms[0].upper() == "LN"
+        self.fused_ffn = (bool(fused_ffn) and norms[1].upper() == "LN"
+                          and norms[2].upper() == "GN" and t_k == 3)
         self.fconv1 = nn.Sequential(new_norm(norms[3], H, f_groups),
                                     Conv1d(H, H, f_k, groups=f_groups, generator=g), PReLU(H))
         self.norm_full = new_norm(norms[5], H, f_groups)
@@ -82,6 +91,8 @@ class SpatialNetLayer(nn.Module):
             x = self._fused_tsa_block(x)
         else:
             x = x + self.mhsa(self.norm_mhsa(x))
+        if self.fused_ffn:
+            return x + self._fused_tconvffn(x)
         return x + self.tconvffn(x)
 
     def _full(self, xt):
@@ -99,6 +110,12 @@ class SpatialNetLayer(nn.Module):
                             self.num_heads)
         return y.reshape(B, Fq, T, H)
 
+    def _fused_tconvffn(self, x):
+        B, Fq, T, H = x.shape
+        y = tconvffn(x.reshape(B * Fq, T, H).contiguous(), params_from_sequential(self.tconvffn),
+                     self.tconvffn[3].groups)
+        return y.reshape(B, Fq, T, H)
+
 
 class SpatialNet(nn.Module):
     """[B, F, T, dim_input] -> [B, F, T, dim_output] (float32 out).
@@ -112,8 +129,8 @@ class SpatialNet(nn.Module):
                  kernel_size: Tuple[int, int] = (5, 3), conv_groups: Tuple[int, int] = (8, 8),
                  norms: Sequence[str] = ("LN", "LN", "GN", "LN", "LN", "LN"),
                  full_share: int = 0, dtype: Optional[torch.dtype] = None,
-                 fused_block: bool = True, generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 fused_block: bool = True, fused_ffn: Optional[bool] = None,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         g = generator
         self.dtype = dtype
@@ -124,7 +141,7 @@ class SpatialNet(nn.Module):
             SpatialNetLayer(dim_hidden, dim_ffn, dim_squeeze, num_heads,
                             full=fulls[min(l, len(fulls) - 1)], kernel_size=kernel_size,
                             conv_groups=conv_groups, norms=norms, fused_block=fused_block,
-                            generator=g)
+                            fused_ffn=fused_ffn, generator=g)
             for l in range(num_layers))
         self.decoder = Linear(dim_hidden, dim_output, generator=g)
         self.to(device)

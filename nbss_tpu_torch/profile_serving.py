@@ -2,19 +2,22 @@
 
     python3 -m nbss_tpu_torch.profile_serving [--arch spatialnet|online_spatialnet|nbc]
                                               [--attention 'mamba(16,4)'|'mhsa(251)'|...]
+                                              [--fused-ffn]
 
 Serves SpatialNet-small, or OnlineSpatialNet with the time module
 ``--attention`` (default mamba(16,4), the committed run; mhsa(251) is the
 masked-attention alternative) at 8 layers, H=96, at B=16 x 6 channels x 4 s
 at 8 kHz; or NBC (``configs/NBC.yaml``: 4 layers, H=192, 8 heads) at B=16 x
-8 channels x 4 s at 16 kHz, STFT 512/256; seeded random weights, bf16,
+8 channels x 4 s at 16 kHz, STFT 512/256; seeded random weights, bf16
+(``--fused-ffn``: SpatialNet-small's T-ConvFFN through its kernel, row 3),
 through ``TrainModule.predict_step`` under ``torch.profiler`` for three
 steps, after two warm-up steps, and prints the device time of the 25
 costliest kernels, the port's kernels' shares and the device's busy share of
 the profiled wall time. It checks that each step launched the arch's kernel
 once per block (8 attention blocks, 16 scans for mamba(16,4), 8 narrow-band
-attentions for mhsa(N), 4 relative-position blocks for NBC) and no backward
-kernel. Needs a CUDA card.
+attentions for mhsa(N), 4 relative-position blocks for NBC; with
+``--fused-ffn`` also 8 T-ConvFFN kernels, whose share it prints) and no
+backward kernel. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,11 +36,13 @@ NBC_WIDTHS = dict(dim_input=2 * NBC_C, dim_output=4, n_layers=4, encoder_kernel_
                   inner_conv_groups=8, dropout=0.1)
 
 
-def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)"):
+def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)",
+          fused_ffn: bool = False):
     """(TrainModule, a function giving the kernel's forward and backward
     launch counts, its launches per forward, kernel names to sum) for
     SpatialNet-small, OnlineSpatialNet with ``attention``, as the committed
-    run trains it, or NBC."""
+    run trains it, or NBC. ``fused_ffn`` routes SpatialNet's T-ConvFFN through
+    its kernel."""
     from nbss_tpu_torch.io.loss import Loss
     from nbss_tpu_torch.io.norm import Norm
     from nbss_tpu_torch.io.stft import STFT
@@ -52,7 +57,8 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
         return lambda: (kernels.launches, kernels.bwd_launches)
 
     if arch == "spatialnet":
-        net = SpatialNet(**WIDTHS, dtype=dtype, generator=generator, device="cuda")
+        net = SpatialNet(**WIDTHS, dtype=dtype, fused_ffn=fused_ffn, generator=generator,
+                         device="cuda")
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), counts(attention_block),
                 LAYERS, ("attention_block_kernel", "attention_block_bwd"))
     if arch == "nbc":  # the relative-position block has no backward kernel
@@ -81,12 +87,26 @@ def parse_args(description: str, archs=("spatialnet", "online_spatialnet")):
     parser.add_argument("--arch", choices=archs, default="spatialnet")
     parser.add_argument("--attention", default="mamba(16,4)",
                         help="OnlineSpatialNet's time module, e.g. 'mamba(16,4)' or 'mhsa(251)'")
-    return parser.parse_args()
+    parser.add_argument("--fused-ffn", action="store_true",
+                        help="SpatialNet only: the T-ConvFFN through its kernel (row 3)")
+    args = parser.parse_args()
+    if args.fused_ffn and args.arch != "spatialnet":
+        parser.error("--fused-ffn takes --arch spatialnet")
+    return args
+
+
+def ffn_report(events, device_us: float, steps: int) -> None:
+    """Print the T-ConvFFN kernel's (row 3's) device time and share."""
+    us = sum(e.self_device_time_total for e in events if "tconvffn_" in e.key)
+    print(f"tconvffn (row 3): {us / steps / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
+          f"of device time")
 
 
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from nbss_tpu_torch.ops import tconvffn
 
     args = parse_args(__doc__.splitlines()[0], ("spatialnet", "online_spatialnet", "nbc"))
     arch = args.arch
@@ -96,16 +116,20 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     module, counts, per_fwd, (fwd_key, _) = build(arch, torch.bfloat16, gen,
-                                                  attention=args.attention)
+                                                  attention=args.attention,
+                                                  fused_ffn=args.fused_ffn)
     channels, samples, rate = (NBC_C, NBC_S, 16000) if arch == "nbc" else (C, S, 8000)
     if arch == "online_spatialnet":
         arch = f"{arch} {args.attention}"
+    if args.fused_ffn:
+        arch = f"{arch} fused_ffn"
     module.arch.eval()
     wave = (0.1 * torch.randn(B, channels, samples, generator=gen)).cuda()
     for _ in range(2):
         module.predict_step(wave)
     torch.cuda.synchronize()
     fwd0, bwd0 = counts()
+    ffn0 = tconvffn.launches
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -117,6 +141,11 @@ def main() -> int:
     if fwd != STEPS * per_fwd or bwd != 0:
         print(f"profile_serving: {fwd} forward and {bwd} backward kernel launches in {STEPS} "
               f"steps, expected {per_fwd} and 0 a step", file=sys.stderr)
+        return 1
+    ffn_want = STEPS * LAYERS if args.fused_ffn else 0
+    if tconvffn.launches - ffn0 != ffn_want:
+        print(f"profile_serving: {tconvffn.launches - ffn0} T-ConvFFN launches in {STEPS} steps, "
+              f"expected {ffn_want}", file=sys.stderr)
         return 1
 
     # kernels and copies on the card only: operator rows repeat their kernels' time
@@ -140,6 +169,8 @@ def main() -> int:
     us = sum(e.self_device_time_total for e in events if fwd_key in e.key)
     print(f"{fwd_key}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
           f"of device time")
+    if args.fused_ffn:
+        ffn_report(events, device_us, STEPS)
     return 0
 
 

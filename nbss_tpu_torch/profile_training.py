@@ -2,6 +2,7 @@
 
     python3 -m nbss_tpu_torch.profile_training [--arch spatialnet|online_spatialnet]
                                                [--attention 'mamba(16,4)'|'mhsa(251)'|...]
+                                               [--fused-ffn]
 
 Trains SpatialNet-small (neg-SI-SDR with PIT, Adam), or OnlineSpatialNet
 with the time module ``--attention`` (default mamba(16,4)) as the committed
@@ -14,7 +15,10 @@ of the 25 costliest kernels, the port's kernels' shares and the device's
 busy share of the profiled wall time. It checks each step's launches: 8
 attention-block forward and 8 backward; 32 scan forward (16, and 16 more
 recomputed by remat) and 16 backward for mamba(16,4); 16 narrow-band
-attention forward (8 + 8) and 8 backward for mhsa(N). Needs a CUDA card.
+attention forward (8 + 8) and 8 backward for mhsa(N); with ``--fused-ffn``
+(SpatialNet's T-ConvFFN through its kernel) also 8 T-ConvFFN forward
+launches and none in the backward, which recomputes the plain chain under
+autograd. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from nbss_tpu_torch.data.synthetic import SyntheticDataset
-    from nbss_tpu_torch.profile_serving import build, parse_args
+    from nbss_tpu_torch.ops import tconvffn
+    from nbss_tpu_torch.profile_serving import LAYERS, build, ffn_report, parse_args
     from nbss_tpu_torch.train.loop import Trainer
 
     args = parse_args(__doc__.splitlines()[0])
@@ -46,17 +51,21 @@ def main() -> int:
     batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]))
     online = arch == "online_spatialnet"
     module, counts, per_fwd, (fwd_key, bwd_key) = build(arch, torch.bfloat16, None,
-                                                        remat=online, attention=args.attention)
+                                                        remat=online, attention=args.attention,
+                                                        fused_ffn=args.fused_ffn)
     optimizer = ("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}) if online else ("Adam", {"lr": 1e-3})
     trainer = Trainer(module, optimizer=optimizer, seed=2)
     trainer.init()
     if online:
         arch = f"{arch} {args.attention}"
+    if args.fused_ffn:
+        arch = f"{arch} fused_ffn"
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()
 
     fwd0, bwd0 = counts()
+    ffn0 = tconvffn.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -68,6 +77,11 @@ def main() -> int:
     if fwd != STEPS * want_fwd or bwd != STEPS * per_fwd:
         print(f"profile_training: {fwd} forward and {bwd} backward kernel launches in {STEPS} "
               f"steps, expected {want_fwd} and {per_fwd} a step", file=sys.stderr)
+        return 1
+    ffn_want = STEPS * LAYERS if args.fused_ffn else 0
+    if tconvffn.launches - ffn0 != ffn_want:
+        print(f"profile_training: {tconvffn.launches - ffn0} T-ConvFFN launches in {STEPS} "
+              f"steps, expected {ffn_want}", file=sys.stderr)
         return 1
 
     # kernels and copies on the card only: operator rows repeat their kernels' time
@@ -93,6 +107,8 @@ def main() -> int:
         us = sum(e.self_device_time_total for e in events if key in e.key)
         print(f"{label}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
               f"of device time")
+    if args.fused_ffn:
+        ffn_report(events, device_us, STEPS)
     return 0
 
 

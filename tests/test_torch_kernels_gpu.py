@@ -37,6 +37,12 @@ NBC's relative-position block kernel is held against
 ragged lengths, NBC's 248 frames, 1, 2, 4 and 8 heads, a run over several
 workspace chunks), with bit-identical relaunches; a 2-layer NBC's gradients
 through it against the plain module composition's.
+
+The T-ConvFFN kernel is held against ``tconvffn.reference`` at the forward
+bounds (one and two frames, ragged and whole 32-frame tiles, 251 and 1000
+frames, SpatialNet-small's and -large's widths), with bit-identical
+relaunches; a 2-layer SpatialNet(fused_ffn=True)'s gradients against the
+plain module composition's.
 """
 
 import numpy as np
@@ -562,6 +568,120 @@ def test_nbc_gradients_through_relpos_kernel_match_plain_path(card, dtype):
         if name.endswith("key_proj.bias"):
             assert gk is None, name
             continue
+        assert gk is not None and gk.abs().max() > 0, name
+        if dtype == torch.float32:
+            gp = grads[1][name]
+            torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
+                                       msg=name)
+
+
+# (M, T, H, FF): one frame, two frames, ragged and whole 32-frame tiles, the
+# serving length 251, a long stream; SpatialNet-small's and -large's widths
+TCONVFFN_SHAPES = [(5, 1, 96, 192), (3, 2, 96, 192), (7, 13, 96, 192), (2, 32, 96, 192),
+                   (3, 33, 96, 192), (1, 251, 96, 192), (129, 251, 96, 192),
+                   (2, 1000, 96, 192), (4, 1, 192, 384), (3, 45, 192, 384),
+                   (2, 251, 192, 384)]
+
+
+def _tconvffn_operands(seed, M, T, H, FF):
+    from nbss_tpu_torch.ops.tconvffn import PARAM_NAMES
+
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"ln_scale": (H,), "ln_bias": (H,), "w_up": (FF, H), "b_up": (FF,),
+              "gn_scale": (FF,), "gn_bias": (FF,), "w_down": (H, FF), "b_down": (H,),
+              **{f"w_c{i}": (FF, FF // 8, 3) for i in (1, 2, 3)},
+              **{f"b_c{i}": (FF,) for i in (1, 2, 3)}}
+    params = {}
+    for k in PARAM_NAMES:
+        fan_in = {"w_up": H, "w_down": FF}.get(k, 3 * FF // 8)
+        v = torch.randn(*shapes[k], generator=g) / (fan_in ** 0.5 if k.startswith("w_") else 10)
+        params[k] = (v + 1 if k.endswith("_scale") else v).cuda()
+    return torch.randn(M, T, H, generator=g).cuda(), params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,H,FF", TCONVFFN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tconvffn_kernel_matches_plain(card, M, T, H, FF, dtype):
+    from nbss_tpu_torch.ops import tconvffn as tc
+
+    x, p = _tconvffn_operands(M * 1000 + T + H, M, T, H, FF)
+    x = x.to(dtype)
+    before = tc.launches
+    y = tc.tconvffn(x, p)
+    torch.cuda.synchronize()
+    assert tc.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    want = tc.reference(x.float(), p)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+    else:
+        plain_err = (tc.reference(x, p).float() - want).abs().max().item()
+        err = (y.float() - want).abs().max().item()
+        assert np.isfinite(err) and err <= 2 * plain_err, (err, plain_err)
+    assert torch.equal(y, tc.tconvffn(x, p))  # no atomics
+
+
+@pytest.mark.gpu
+def test_tconvffn_plain_on_the_card_launches_nothing(card):
+    from nbss_tpu_torch.ops import tconvffn as tc
+
+    x, p = _tconvffn_operands(1, 3, 20, 96, 192)
+    before = tc.launches
+    y = tc.tconvffn(x, p, kernel=False)
+    assert tc.launches == before
+    assert torch.equal(y, tc.reference(x, p))
+
+
+@pytest.mark.gpu
+def test_tconvffn_kernel_refuses_what_it_does_not_take(card):
+    from nbss_tpu_torch.ops import tconvffn as tc
+
+    x, p = _tconvffn_operands(0, 2, 9, 96, 192)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tc.tconvffn(x.half(), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.tconvffn(x.transpose(0, 1).contiguous().transpose(0, 1), p)
+    with pytest.raises(ValueError, match="groups = 4"):
+        tc.tconvffn(x, p, groups=4)
+    x64, p64 = _tconvffn_operands(0, 2, 9, 64, 128)
+    with pytest.raises(ValueError, match="H = 64"):
+        tc.tconvffn(x64, p64)
+    with pytest.raises(ValueError, match="w_c2 must be"):
+        tc.tconvffn(x, {**p, "w_c2": p["w_c2"][..., :1]})
+    with pytest.raises(ValueError, match="b_down must be"):
+        tc.tconvffn(x, {**p, "b_down": p["b_down"].cpu()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatialnet_fused_ffn_gradients_match_plain_path(card, dtype):
+    """A 2-layer SpatialNet at H=96 with fused_ffn=True (F=9, 20 frames): a
+    forward launches the T-ConvFFN kernel once per layer, a loss gives the
+    input and every parameter (each T-ConvFFN one among them) a non-zero
+    gradient, and in fp32 each gradient is within 5e-3 x max|plain| of the
+    plain module composition's."""
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+    from nbss_tpu_torch.ops import tconvffn as tc
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=96, dim_ffn=192,
+              num_heads=4, dim_squeeze=8, num_freqs=9)
+    gen = torch.Generator().manual_seed(0)
+    fused = SpatialNet(**kw, dtype=dtype, fused_ffn=True, generator=gen, device="cuda")
+    plain = SpatialNet(**kw, fused_block=False, device="cuda")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 9, 20, 12, generator=gen).cuda()
+    w = torch.randn(2, 9, 20, 4, generator=gen).cuda()
+    grads = []
+    for net in (fused, plain):
+        xg = x.clone().requires_grad_()
+        before = tc.launches
+        (net(xg) * w).sum().backward()
+        torch.cuda.synchronize()
+        assert tc.launches - before == (2 if net is fused else 0)
+        grads.append({"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}})
+    assert sum(".tconvffn." in n for n in grads[0]) == 28
+    for name, gk in grads[0].items():
         assert gk is not None and gk.abs().max() > 0, name
         if dtype == torch.float32:
             gp = grads[1][name]
