@@ -29,19 +29,25 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 6. backward kernel vs plain at the training shape (M = 8*129, T = 251): fp32
    with TF32 off, each of dx, dln, dA, dWvo, dc within atol
    5e-3 x max|plain| and rtol 5e-3 (the JAX package's gradient bound,
-   scaled to each output since the weight cotangents sum over all rows);
-   bf16 no farther from the fp32 plain result than twice the plain bf16
-   version, or than the fp32 bound where the plain bf16 version is exact;
+   scaled to each output since the weight cotangents sum over all rows),
+   float32 on the CUDA-core kernel; bf16 on the tensor-core kernel
+   (``attention_block_bwd_tc.cu``) no farther from the fp32 plain result
+   than twice the plain bf16 version, or than the fp32 bound where the plain
+   bf16 version is exact, two launches bit-identical (the weight cotangents
+   too), and so at the edges of its 16-frame tiles (T = 1, 13, 16, 17, 64,
+   65, 256, 251 with M = 1, and nh = 3);
 7. training slice: ``Trainer`` draws the flagship in bf16 from a seeded
    generator and fits 8 fixed ``SyntheticDataset`` items (Adam 1e-3, clip 5,
    neg-SI-SDR with PIT) for 20 steps, launch counts reset just before and
-   read just after (8 forward and 8 backward launches a step); every loss
+   read just after (8 forward and 8 backward launches a step, every
+   backward on the tensor-core kernel); every loss
    finite, the mean of the last 5 below the mean of the first 5;
 8. gradient parity: one fp32 batch through the kernels and through the plain
    module composition from one state dict, every parameter's gradient within
    5e-3 x max|plain|;
-9. times: the backward kernel, its plain version, the backward of the
-   PyTorch library composition, the fp32 forward kernel; the train step;
+9. times: the backward kernel (bf16 on the tensor cores, fp32 on the CUDA
+   cores), its plain version, the backward of the PyTorch library
+   composition; the train step;
 10. selective-scan forward kernel vs ``ssm.reference`` at the serving shape
     (M = 16*129, T = 251, D = 192, N = 16): fp32 at atol 2e-4, rtol 1e-4;
     bf16 no farther from the fp32 plain result than twice the plain bf16
@@ -65,22 +71,29 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 16. narrow-band attention forward kernel vs ``attention.reference`` at the
     serving shape (M = 16*129, T = 251, nh = 4, dh = 24): fp32 at atol 2e-4,
     rtol 1e-4 with no mask, the causal [T, T] mask and the ALiBi [nh, T, T]
-    mask; bf16 (causal mask) no farther from the fp32 plain result than twice
-    the plain bf16 version; ragged shapes (T = 1, T = 13, M = 1, dv != dh),
-    forward and backward in fp32;
+    mask, on the CUDA-core kernel; bf16 (causal mask) on the tensor-core
+    kernel (``narrowband_attention_tc.cu``) no farther from the fp32 plain
+    result than twice the plain bf16 version, two launches bit-identical,
+    and so at the edges of its tiles and key chunk (T = 1, 13, 16, 17, 64,
+    65, 256, 257, 300 and 251 with M = 1; both masks; q/k heads of 24, 64
+    and 216); ragged shapes (T = 1, T = 13, M = 1, dv != dh), forward and
+    backward in fp32;
 17. attention backward kernel vs ``attention.reference_bwd`` at the training
     shape (M = 8*129): each of dq, dk, dv within 5e-3 x max|plain| in fp32 and
     within the bf16 rule of phase 6; a second launch bit-identical;
 18. OnlineSpatialNet mhsa(251) serving at B=16 in bf16: 8 attention launches
-    per forward and no backward launch; fp32 kernel path vs the plain
+    per forward, all on the tensor-core kernel, and no backward launch; fp32
+    kernel path vs the plain
     attention, SI-SDR >= 50 dB;
 19. streaming (a KV ring buffer of 250 frames) vs ``forward`` at B=4: fp32
     SI-SDR >= 50 dB, the bf16 figure printed;
 20. training: 20 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
-    remat): falling loss, 16 forward (8 + 8 recomputed) and 8 backward
-    attention launches a step; fp32 gradients, kernel path vs plain, within
+    remat): falling loss, 16 forward (8 + 8 recomputed, all on the
+    tensor-core kernel) and 8 backward attention launches a step; fp32
+    gradients, kernel path vs plain, within
     5e-3 x max|plain|; peak device memory;
-21. times: both attention kernels, their plain versions, one
+21. times: both attention kernels (the forward in bf16 on the tensor cores
+    and in fp32 on the CUDA cores), their plain versions, one
     ``scaled_dot_product_attention`` call (and its backward) with the same
     float mask, and bounds; serving, streaming and training rates;
 22. NBC's relative-position block kernel vs ``attention_block.reference_relpos``
@@ -92,7 +105,8 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 23. the narrow-band attention kernels at NBC's widths (nh = 8, q/k heads of
     dh + d_model = 216, dv = 24, no mask, M = 2*257): forward at atol 2e-4,
     rtol 1e-4, dq, dk, dv within 5e-3 x max|plain|, bf16 under the rules of
-    phases 3 and 6, relaunches bit-identical;
+    phases 3 and 6 (the bf16 forward on the tensor-core kernel), relaunches
+    bit-identical;
 24. NBC serving (``configs/NBC.yaml``: 4 layers, H=192, 8 heads; 8 channels
     x 4 s at 16 kHz, STFT 512/256, frequency norm) through ``forward`` and
     ``predict_step`` at B=16 in bf16: 4 relative-position launches per
@@ -103,8 +117,9 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 25. times: the relative-position kernel (bf16 and fp32), its plain version,
     a PyTorch library composition of the same function (LN, the projections,
     ``scaled_dot_product_attention`` over the 216-wide augmented heads, the
-    out projection) and its bound; rows 4-5 at dh = 216 and their
-    ``scaled_dot_product_attention`` counterparts; the NBC serving rate;
+    out projection) and its bound; rows 4-5 at dh = 216 (the forward in
+    bf16 and fp32) and their ``scaled_dot_product_attention`` counterparts;
+    the NBC serving rate;
 26. the T-ConvFFN kernel vs ``tconvffn.reference`` at the serving shape
     (M = 16*129, T = 251, H = 96, FF = 192, 8 groups): fp32 at atol 2e-4,
     rtol 1e-4, a second launch bit-identical; bf16 under the rule of phase
@@ -339,9 +354,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     row2, train_launches = training_phases(dev)
+    fresh_start()
     rows67 = online_phases(dev)
+    fresh_start()
     rows45 = mhsa_phases(dev)
+    fresh_start()
     row8, wide4, wide5 = nbc_phases(dev)
+    fresh_start()
     row3 = tconvffn_phases(dev)
     rows45[0].update(wide4)
     rows45[1].update(wide5)
@@ -360,10 +379,47 @@ def main() -> int:
     return 0
 
 
+def fresh_start() -> None:
+    """Between model groups: collect the previous group's Python objects and
+    empty the allocator cache, so each group's rates start from the same
+    state. Kept, the blocks one group leaves cached (the bf16 attention-block
+    backward's 0.5 GB workspace among them) slowed the next group's train step
+    by up to 8%."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def bound(io_bytes: int, flops: int, flop_per_s: float = BF16_FLOP_PER_S):
     """(ms, 'bytes' or 'operations'): the larger of the two least times."""
     t_bytes, t_flops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
     return max(t_bytes, t_flops), "bytes" if t_bytes > t_flops else "operations"
+
+
+def bf16_rule(label, got, want, plain, atol, rtol):
+    """Hold bf16 outputs to the bf16 rule: each no farther from the fp32
+    plain result (want) than twice the plain bf16 version is, or than the
+    fp32 bound (atol + rtol x max|want|) where the plain bf16 version is
+    exact. Returns the errors."""
+    errs = []
+    for i, (a, w, p) in enumerate(zip(got, want, plain)):
+        e, ep = (a.float() - w).abs().max().item(), (p.float() - w).abs().max().item()
+        b = atol + rtol * w.abs().max().item()
+        if not e <= max(2 * ep, b):
+            raise AssertionError(f"{label} output {i}: bf16 error {e} exceeds max(2 x {ep}, {b})")
+        errs.append(e)
+    return errs
+
+
+def relaunched(label, first, second):
+    """Raise unless two launches' outputs are bit-identical."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
 
 
 def training_phases(dev):
@@ -395,6 +451,7 @@ def training_phases(dev):
             layer.mhsa.in_proj_bias, layer.mhsa.out_proj.weight, layer.mhsa.out_proj.bias, nh)
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     g32 = torch.randn(M, T, H, generator=gen).to(dev)
+    ab.bwd_tc_launches = 0
     got = ab.backward(x32, ln, A, Wvo, g32, eps, nh)
     torch.cuda.synchronize()
     want = ab.reference_bwd(x32, ln, A, Wvo, g32, eps, nh)
@@ -409,19 +466,43 @@ def training_phases(dev):
         + f"; two launches bit-identical: {deterministic}")
     if not deterministic:
         raise AssertionError("two launches of the backward kernel on the same inputs differ")
+    if ab.bwd_tc_launches != 0:
+        raise AssertionError(f"float32 backward reached the tensor-core kernel "
+                             f"({ab.bwd_tc_launches} launches)")
     xb, gb = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
     want = ab.reference_bwd(xb.float(), ln, A, Wvo, gb.float(), eps, nh)
-    errsbf = [(a.float() - w).abs().max().item()
-              for a, w in zip(ab.backward(xb, ln, A, Wvo, gb, eps, nh), want)]
+    got = ab.backward(xb, ln, A, Wvo, gb, eps, nh)
+    relaunched("bf16 attention_block backward", got, ab.backward(xb, ln, A, Wvo, gb, eps, nh))
+    errsbf = [(a.float() - w).abs().max().item() for a, w in zip(got, want)]
     plainbf = [(a.float() - w).abs().max().item()
                for a, w in zip(ab.reference_bwd(xb, ln, A, Wvo, gb, eps, nh), want)]
     bounds = [5e-3 * w.abs().max().item() for w in want]
-    log("bf16: max |kernel - fp32 plain| vs the plain bf16 version's: " + ", ".join(
-        f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(names, errsbf, plainbf)))
+    log("bf16 (tensor-core kernel): max |kernel - fp32 plain| vs the plain bf16 version's: "
+        + ", ".join(f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(names, errsbf, plainbf))
+        + "; two launches bit-identical, weight cotangents included")
     for name, e, p, b in zip(names, errsbf, plainbf, bounds):
         if not e <= max(2 * p, b):
             raise AssertionError(f"bf16 backward {name}: error {e} exceeds max(2 x {p}, {b})")
-    del got, again, want, x32, g32
+    if ab.bwd_tc_launches != 2:
+        raise AssertionError(f"bf16 backward: {ab.bwd_tc_launches} tensor-core launches, expected 2")
+    del got, want, x32, g32
+    # bf16 at the edges of the tensor-core kernel's 16-frame tiles, one sequence, odd nh
+    for Me, Te, nhe in ((5, 1, nh), (5, 13, nh), (5, 16, nh), (5, 17, nh), (5, 64, nh),
+                        (5, 65, nh), (3, 256, nh), (1, T, nh), (4, 40, 3)):
+        with torch.no_grad():  # the layer's weights folded into nhe heads
+            ops = ab.fold_weights(
+                layer.norm_mhsa.weight, layer.norm_mhsa.bias, layer.mhsa.in_proj_weight,
+                layer.mhsa.in_proj_bias, layer.mhsa.out_proj.weight, layer.mhsa.out_proj.bias,
+                nhe)[:3]
+        xe, ge = (torch.randn(Me, Te, H, generator=gen).to(dev).to(torch.bfloat16)
+                  for _ in range(2))
+        got = ab.backward(xe, *ops, ge, eps, nhe)
+        label = f"bf16 backward at (M, T, nh) = {(Me, Te, nhe)}"
+        relaunched(label, got, ab.backward(xe, *ops, ge, eps, nhe))
+        errs = bf16_rule(label, got, ab.reference_bwd(xe.float(), *ops, ge.float(), eps, nhe),
+                         ab.reference_bwd(xe, *ops, ge, eps, nhe), 0.0, 5e-3)
+        log(f"bf16 edge (M, T, nh) = {(Me, Te, nhe)}: worst {max(errs):.3e}, relaunch "
+            "bit-identical: ok")
     check_budget("backward vs plain")
 
     # 7. the training slice
@@ -440,20 +521,21 @@ def training_phases(dev):
                       seed=2, device=dev,
                       logger=lambda k, v, step: losses.append(v) if k.startswith("train/") else None)
     trainer.init()
-    ab.launches = ab.bwd_launches = 0
+    ab.launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     trainer.fit([batch], max_epochs=TRAIN_STEPS)
     torch.cuda.synchronize()
-    fit_fwd, fit_bwd = ab.launches, ab.bwd_launches
-    ab.launches = ab.bwd_launches = 0
+    fit_fwd, fit_bwd, fit_tc = ab.launches, ab.bwd_launches, ab.bwd_tc_launches
+    ab.launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    step_fwd, step_bwd = ab.launches, ab.bwd_launches
+    step_fwd, step_bwd, step_tc = ab.launches, ab.bwd_launches, ab.bwd_tc_launches
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
-    log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward in {TRAIN_STEPS} steps; "
-        f"one step {step_fwd} + {step_bwd}")
-    if (fit_fwd, fit_bwd) != (TRAIN_STEPS * n_layers,) * 2 or (step_fwd, step_bwd) != (n_layers,) * 2:
+    log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward ({fit_tc} on the tensor-core "
+        f"kernel) in {TRAIN_STEPS} steps; one step {step_fwd} + {step_bwd} ({step_tc})")
+    if ((fit_fwd, fit_bwd, fit_tc) != (TRAIN_STEPS * n_layers,) * 3
+            or (step_fwd, step_bwd, step_tc) != (n_layers,) * 3):
         raise AssertionError(f"expected {n_layers} forward and {n_layers} backward launches "
-                             "a step")
+                             "a step, every backward on the tensor-core kernel")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -489,6 +571,9 @@ def training_phases(dev):
     # 9. times
     log("phase 9/29 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
+    x32, g32 = xb.float(), gb.float()
+    ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
+    del x32, g32
     plain_ms = cuda_ms(lambda: ab.reference_bwd(xb, ln, A, Wvo, gb, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
     leaves = [t.detach().to(torch.bfloat16).requires_grad_() for t in (
@@ -505,9 +590,10 @@ def training_phases(dev):
         t.numel() * t.element_size() for t in (ln, A, Wvo, c))
     flops = 2 * M * (2 * T * H * 3 * H + 2 * 2 * T * T * H + 2 * T * H * H)  # 2x unfolded fwd
     bound_ms, bound_by = bound(io_bytes, flops)
-    log(f"attention_block backward bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"library backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{io_bytes / 1e6:.0f} MB, {flops / 1e9:.1f} GFLOP unfolded)")
+    log(f"attention_block backward bf16: tensor-core kernel {ms:.3f} ms (fp32, CUDA-core "
+        f"kernel {ms_fp32:.3f} ms), plain {plain_ms:.3f} ms, library backward "
+        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {io_bytes / 1e6:.0f} MB, "
+        f"{flops / 1e9:.1f} GFLOP unfolded)")
     del y, o, q, k, v, leaves
 
     for _ in range(2):
@@ -523,11 +609,14 @@ def training_phases(dev):
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     check_budget("training times")
     return {"name": "attention_block_bwd", "route": "cuda",
-            "source": "nbss_tpu_torch/csrc/attention_block_bwd.cu",
+            "source": "nbss_tpu_torch/csrc/attention_block_bwd_tc.cu",
+            "source_fp32": "nbss_tpu_torch/csrc/attention_block_bwd.cu",
+            "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"},
             "replaces": "nbss_tpu/ops/attention_block.py:316",
-            "launches": fit_bwd, "max_abs_err": max(errs32),
+            "launches": fit_bwd, "tc_launches": fit_tc, "max_abs_err": max(errs32),
             "max_err_fp32": dict(zip(names, errs32)), "max_err_bf16": dict(zip(names, errsbf)),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": ms, "ms_fp32": ms_fp32, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": library_ms, "train_step_ms": step_s * 1e3,
             "train_audio_s_per_s": B_TRAIN * SECONDS / step_s}, fit_fwd
 
@@ -893,22 +982,51 @@ def mhsa_phases(dev):
     # 16. forward kernel vs plain
     log(f"phase 16/29 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
+    tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
                   for kind in ("none", "causal", "alibi")}
     log("fp32: max |kernel - plain| " + ", ".join(f"{k} mask {e:.3e}"
                                                   for k, e in fwd_errs32.items())
         + " (atol 2e-4, rtol 1e-4): ok")
+    if att.tc_launches != tc0:
+        raise AssertionError("float32 attention reached the tensor-core kernel")
     causal = mask_of("causal", T, nh)
     insb = [t.to(torch.bfloat16) for t in ins32]
     del ins32
     want = att.reference(*[t.float() for t in insb], causal, nh)
-    fwd_errbf = (att.forward(*insb, causal, nh)[0].float() - want).abs().max().item()
+    got = att.forward(*insb, causal, nh, stats=True)
+    relaunched("bf16 attention", got, att.forward(*insb, causal, nh, stats=True))
+    fwd_errbf = (got[0].float() - want).abs().max().item()
     plainbf = (att.reference(*insb, causal, nh).float() - want).abs().max().item()
-    del want
-    log(f"bf16, causal mask: max |kernel - fp32 plain| = {fwd_errbf:.4f}, plain bf16 version's "
-        f"= {plainbf:.4f} (bound: 2x the plain version's)")
+    del want, got
+    log(f"bf16 (tensor-core kernel), causal mask: max |kernel - fp32 plain| = {fwd_errbf:.4f}, "
+        f"plain bf16 version's = {plainbf:.4f} (bound: 2x the plain version's); two launches "
+        "bit-identical, row statistics included")
     if not fwd_errbf <= 2 * plainbf:
         raise AssertionError(f"bf16 attention error {fwd_errbf} exceeds 2 x {plainbf}")
+    if att.tc_launches - tc0 != 2:
+        raise AssertionError(f"bf16 attention: {att.tc_launches - tc0} tensor-core launches, "
+                             "expected 2")
+    # bf16 at the edges of the tensor-core kernel's 16-row tiles and 256-key chunk (T > 256
+    # takes two passes over the chunks), one sequence, both masks, q/k heads of 24, 64, 216
+    for shape, kind in (((3, 1, 4, 24, 24), "causal"), ((3, 13, 4, 24, 24), "alibi"),
+                        ((3, 16, 4, 24, 24), "causal"), ((3, 17, 4, 24, 24), "alibi"),
+                        ((3, 64, 4, 24, 24), "causal"), ((3, 65, 4, 24, 24), "alibi"),
+                        ((3, 256, 4, 24, 24), "causal"), ((2, 257, 4, 24, 24), "alibi"),
+                        ((2, 300, 4, 24, 24), "causal"), ((1, T, 4, 24, 24), "alibi"),
+                        ((2, T, 4, 64, 64), "causal"), ((2, 17, 4, 64, 16), "none"),
+                        ((2, 65, 8, 216, 24), "alibi"), ((2, 300, 8, 216, 24), "causal"),
+                        ((2, 248, 8, 216, 24), "none")):
+        ins, _ = attention_inputs(gen, *shape, torch.bfloat16, dev)
+        m = mask_of(kind, shape[1], shape[2])
+        label = f"bf16 attention at (M, T, nh, dh, dv) = {shape}, {kind} mask"
+        got = att.forward(*ins, m, shape[2], stats=True)
+        relaunched(label, got, att.forward(*ins, m, shape[2], stats=True))
+        e = bf16_rule(label, got[:1], [att.reference(*[t.float() for t in ins], m, shape[2])],
+                      [att.reference(*ins, m, shape[2])], 2e-4, 1e-4)[0]
+        log(f"bf16 edge {shape}, {kind} mask: {e:.2e}, relaunch bit-identical: ok")
+    if att.tc_launches - tc0 != 32:
+        raise AssertionError(f"{att.tc_launches - tc0} tensor-core launches, expected 32")
     for shape, kind in (((5, 1, 4, 24, 24), "causal"), ((7, 13, 4, 24, 24), "alibi"),
                         ((1, T, 4, 24, 24), "causal"), ((3, 40, 4, 16, 32), "alibi")):
         ins, g = attention_inputs(gen, *shape, torch.float32, dev)
@@ -958,20 +1076,22 @@ def mhsa_phases(dev):
                          loss=Loss(name="neg_snr", pit=True))
     wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
     target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
-    att.launches = att.bwd_launches = 0
+    att.launches = att.bwd_launches = att.tc_launches = 0
     yr_hat, _ = module.forward(wave)
     pred = module.predict_step(wave, target)
     torch.cuda.synchronize()
-    serve_fwd, serve_bwd = att.launches, att.bwd_launches
+    serve_fwd, serve_bwd, serve_tc = att.launches, att.bwd_launches, att.tc_launches
     for name, out in (("forward", yr_hat), ("predict_step", pred)):
         if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
             raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
                                  f"{bool(torch.isfinite(out).all())}")
-    if serve_fwd != 2 * n_layers or serve_bwd != 0:
-        raise AssertionError(f"narrowband_attention launched {serve_fwd} forward and {serve_bwd} "
-                             f"backward kernels in two forwards, expected {2 * n_layers} and 0")
+    if (serve_fwd, serve_tc) != (2 * n_layers,) * 2 or serve_bwd != 0:
+        raise AssertionError(f"narrowband_attention launched {serve_fwd} forward ({serve_tc} on "
+                             f"the tensor-core kernel) and {serve_bwd} backward kernels in two "
+                             f"forwards, expected {2 * n_layers} on it and 0")
     log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; narrowband_attention "
-        f"launched {serve_fwd} times ({n_layers} per forward), its backward {serve_bwd}")
+        f"launched {serve_fwd} times ({n_layers} per forward, {serve_tc} on the tensor-core "
+        f"kernel), its backward {serve_bwd}")
     net32 = OnlineSpatialNet(**MHSA, device=dev).eval()
     net32.load_state_dict(net.state_dict())
     plain32 = OnlineSpatialNet(**MHSA, fused_attention=False, device=dev).eval()
@@ -1023,22 +1143,24 @@ def mhsa_phases(dev):
                       logger=lambda k, v, _: losses.append(v) if k.startswith("train/") else None)
     trainer.init()
     torch.cuda.reset_peak_memory_stats()
-    att.launches = att.bwd_launches = 0
+    att.launches = att.bwd_launches = att.tc_launches = 0
     trainer.fit([batch], max_epochs=TRAIN_STEPS)
     torch.cuda.synchronize()
-    fit_fwd, fit_bwd = att.launches, att.bwd_launches
-    att.launches = att.bwd_launches = 0
+    fit_fwd, fit_bwd, fit_tc = att.launches, att.bwd_launches, att.tc_launches
+    att.launches = att.bwd_launches = att.tc_launches = 0
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    step_fwd, step_bwd = att.launches, att.bwd_launches
+    step_fwd, step_bwd, step_tc = att.launches, att.bwd_launches, att.tc_launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
-    log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward in {TRAIN_STEPS} steps; one step "
-        f"{step_fwd} + {step_bwd} (forward {n_layers} + {n_layers} recomputed by remat, "
-        f"backward {n_layers}); peak memory {peak:.1f} GiB")
-    want = (2 * n_layers, n_layers)
-    if (step_fwd, step_bwd) != want or (fit_fwd, fit_bwd) != tuple(TRAIN_STEPS * w for w in want):
-        raise AssertionError(f"expected {want[0]} forward and {want[1]} backward launches a step")
+    log(f"launches: fit {fit_fwd} forward ({fit_tc} tensor-core) + {fit_bwd} backward in "
+        f"{TRAIN_STEPS} steps; one step {step_fwd} ({step_tc}) + {step_bwd} (forward {n_layers} "
+        f"+ {n_layers} recomputed by remat, backward {n_layers}); peak memory {peak:.1f} GiB")
+    want = (2 * n_layers, 2 * n_layers, n_layers)
+    if ((step_fwd, step_tc, step_bwd) != want
+            or (fit_fwd, fit_tc, fit_bwd) != tuple(TRAIN_STEPS * w for w in want)):
+        raise AssertionError(f"expected {want[0]} forward launches a step, all on the "
+                             f"tensor-core kernel, and {want[2]} backward")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1101,8 +1223,9 @@ def mhsa_phases(dev):
     bwd_bytes = 2 * nbytes(insbt) + nbytes([gbt, causal])  # q, k, v, g, mask in; dq, dk, dv out
     bwd_ops = 2 * M_train * nh * T * T * (3 * dh + 2 * dh)  # q k^T, e^T g', g' v^T, dS k, dS^T q
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
-    log(f"narrowband_attention bf16 M={M_serve}: kernel {fwd_ms:.3f} ms (fp32 "
-        f"{fwd_ms_fp32:.3f} ms), plain {fwd_plain_ms:.3f} ms, library (SDPA, float mask) "
+    log(f"narrowband_attention bf16 M={M_serve}: tensor-core kernel {fwd_ms:.3f} ms (fp32, "
+        f"CUDA-core kernel {fwd_ms_fp32:.3f} ms), plain {fwd_plain_ms:.3f} ms, library (SDPA, "
+        f"float mask) "
         f"{fwd_library_ms:.3f} ms, bound {fwd_bound:.4f} ms ({fwd_by}: "
         f"{fwd_bytes / 1e6:.0f} MB, {fwd_ops / 1e9:.1f} GFLOP); writing the row statistics "
         f"at M={M_train}: {fwd_train_ms:.3f} ms")
@@ -1139,9 +1262,12 @@ def mhsa_phases(dev):
              "serve_sdr_db_fp32": serve_sdr, "train_audio_s_per_s": B_TRAIN * SECONDS / step_s,
              "train_step_ms": step_s * 1e3, "train_peak_gib": peak}
     return [{"name": "narrowband_attention", "route": "cuda",
-             "source": "nbss_tpu_torch/csrc/narrowband_attention.cu",
+             "source": "nbss_tpu_torch/csrc/narrowband_attention_tc.cu",
+             "source_fp32": "nbss_tpu_torch/csrc/narrowband_attention.cu",
+             "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"},
              "replaces": "nbss_tpu/ops/attention.py:89", "launches": serve_fwd,
-             "launches_training": fit_fwd, "max_abs_err": max(fwd_errs32.values()),
+             "tc_launches": serve_tc, "launches_training": fit_fwd,
+             "tc_launches_training": fit_tc, "max_abs_err": max(fwd_errs32.values()),
              "max_err_fp32": fwd_errs32, "max_err_bf16": fwd_errbf, "ms": fwd_ms,
              "ms_fp32": fwd_ms_fp32, "ms_with_row_stats_m1032": fwd_train_ms,
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
@@ -1277,13 +1403,20 @@ def nbc_phases(dev):
     insb, gb = [t.to(torch.bfloat16) for t in ins32], g32.to(torch.bfloat16)
     del ins32, g32
     want = att.reference(*[t.float() for t in insb], None, nh)
-    wide_errbf = (att.forward(*insb, None, nh)[0].float() - want).abs().max().item()
+    tc0 = att.tc_launches
+    ob, stb = att.forward(*insb, None, nh, stats=True)
+    relaunched("bf16 wide attention", (ob, stb), att.forward(*insb, None, nh, stats=True))
+    wide_errbf = (ob.float() - want).abs().max().item()
     plainbf = (att.reference(*insb, None, nh).float() - want).abs().max().item()
-    log(f"bf16 forward: max |kernel - fp32 plain| = {wide_errbf:.4f}, plain bf16 version's = "
-        f"{plainbf:.4f} (bound: 2x the plain version's)")
+    log(f"bf16 forward (tensor-core kernel): max |kernel - fp32 plain| = {wide_errbf:.4f}, plain "
+        f"bf16 version's = {plainbf:.4f} (bound: 2x the plain version's); two launches "
+        "bit-identical")
     if not wide_errbf <= 2 * plainbf:
         raise AssertionError(f"bf16 wide attention error {wide_errbf} exceeds 2 x {plainbf}")
-    _, stb = att.forward(*insb, None, nh, stats=True)
+    if att.tc_launches - tc0 != 2:
+        raise AssertionError(f"bf16 wide attention: {att.tc_launches - tc0} tensor-core "
+                             "launches, expected 2")
+    del ob
     want = att.reference_bwd(*[t.float() for t in insb], None, gb.float(), nh)
     errs = [(a.float() - w).abs().max().item()
             for a, w in zip(att.backward(*insb, None, gb, nh, stb), want)]
@@ -1397,7 +1530,10 @@ def nbc_phases(dev):
     # rows 4-5 at dh = 216: the forward at the serving count, the backward at Ma
     qf, kf, vf = (torch.randn(M, T, nh * d, generator=gen).to(dev).to(torch.bfloat16)
                   for d in (dhp, dhp, dv))
-    wide_ms = cuda_ms(lambda: att.forward(qf, kf, vf, None, nh), iters=3)
+    wide_ms = cuda_ms(lambda: att.forward(qf, kf, vf, None, nh), iters=5)
+    q32, k32, v32 = (t.float() for t in (qf, kf, vf))
+    wide_ms_fp32 = cuda_ms(lambda: att.forward(q32, k32, v32, None, nh), iters=1, warmup=1)
+    del q32, k32, v32
 
     def heads(t):  # [M, T, nh*d] -> [M, nh, T, d], a view
         M_, T_, W = t.shape
@@ -1422,8 +1558,9 @@ def nbc_phases(dev):
     wide_bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in insb) + gb.numel() * 2
     wide_bwd_ops = 2 * Ma * nh * T * T * (3 * dhp + 2 * dv)
     wide_bwd_bound, wide_bwd_by = bound(wide_bwd_bytes, wide_bwd_ops)
-    log(f"narrowband_attention bf16 at dh={dhp}, dv={dv}, no mask: forward M={M} kernel "
-        f"{wide_ms:.3f} ms, library (SDPA) {wide_library_ms:.3f} ms, bound {wide_bound:.4f} ms "
+    log(f"narrowband_attention bf16 at dh={dhp}, dv={dv}, no mask: forward M={M} tensor-core "
+        f"kernel {wide_ms:.3f} ms (fp32, CUDA-core kernel {wide_ms_fp32:.3f} ms), library (SDPA) "
+        f"{wide_library_ms:.3f} ms, bound {wide_bound:.4f} ms "
         f"({wide_by}); plain at M={Ma} {wide_plain_ms:.3f} ms; backward M={Ma} kernel "
         f"{wide_bwd_ms:.3f} ms, plain {wide_bwd_plain_ms:.3f} ms, library (SDPA backward) "
         f"{wide_bwd_library_ms:.3f} ms, bound {wide_bwd_bound:.4f} ms ({wide_bwd_by})")
@@ -1447,7 +1584,8 @@ def nbc_phases(dev):
             "bound_by": relpos_by, "library_ms": relpos_library_ms,
             "serve_audio_s_per_s": B * SECONDS / serve_s, "serve_step_ms": serve_s * 1e3,
             "serve_sdr_db_fp32": sdrs["pre-LN"], "post_ln_sdr_db_fp32": sdrs["post-LN"]}
-    row4 = {"nbc_dh216": {"M": M, "ms": wide_ms, "library_ms": wide_library_ms,
+    row4 = {"nbc_dh216": {"M": M, "ms": wide_ms, "ms_fp32": wide_ms_fp32,
+                          "library_ms": wide_library_ms,
                           "bound_ms": wide_bound, "bound_by": wide_by, "plain_ms_m": Ma,
                           "plain_ms": wide_plain_ms, "max_abs_err": wide_fwd_err,
                           "max_err_bf16": wide_errbf}}

@@ -1,4 +1,5 @@
-// Narrow-band attention block, backward, for Hopper (sm_90a).
+// Narrow-band attention block, backward, for Hopper (sm_90a), float32 inputs
+// on the CUDA cores; bf16 inputs take attention_block_bwd_tc.cu.
 //
 // The adjoint of attention_block.cu: given x [M, T, H = 96] and the cotangent
 // g of y = x + sum_h softmax(xa A_h xa^T) (xa Wvo_h)[:, :H] + c, it returns
@@ -8,7 +9,7 @@
 //
 // recomputing the forward from (x, ln, A, Wvo) as the TPU kernel does.
 // Replaces the Pallas TPU kernel _fused_block_bwd / _bwd_kernel in
-// nbss_tpu/ops/attention_block.py, with its rounding points on the bf16 path:
+// nbss_tpu/ops/attention_block.py, with its rounding points (identities in float32):
 // t, vo, g' = g / rowsum(e), e (where it meets g'), dvo, dS and dt are rounded
 // to x's type; every product accumulates in float32; dxa and the weight
 // cotangents stay float32.
@@ -83,11 +84,6 @@ template <> struct Elem<float> {
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-};
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -715,7 +711,7 @@ extern "C" long long nbss_attention_block_bwd_workspace_floats(int nh) {
   return static_cast<long long>(block_floats(nh));
 }
 
-// x, g, dx: [M, T, H] float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1), contiguous.
+// x, g, dx: [M, T, H] float32, contiguous (bf16 inputs take attention_block_bwd_tc.cu).
 // ln [2, H], A and Wvo [nh, H+2, H+2]: float32, contiguous.
 // out: float32 [2 nh (H+2)^2 + 3H] = dA, dWvo, dln, dc one after another.
 // ws: float32, nblocks * nbss_attention_block_bwd_workspace_floats(nh), any content.
@@ -724,10 +720,9 @@ extern "C" long long nbss_attention_block_bwd_workspace_floats(int nh) {
 extern "C" int nbss_attention_block_bwd(const void* x, const void* ln, const void* A,
                                         const void* Wvo, const void* g, void* dx, void* out,
                                         void* ws, int nblocks, int M, int T, int Hdim, int nh,
-                                        float eps, int is_bf16, void* stream) {
+                                        float eps, void* stream) {
   if (Hdim != H || T < 1 || T > TMAX || M < 1 || nh < 1 || nblocks < 1 || nblocks > M)
     return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(is_bf16 ? launch<__nv_bfloat16>(x, ln, A, Wvo, g, dx, out, ws, nblocks, M, T, nh, eps, s)
-                     : launch<float>(x, ln, A, Wvo, g, dx, out, ws, nblocks, M, T, nh, eps, s));
+  return int(launch<float>(x, ln, A, Wvo, g, dx, out, ws, nblocks, M, T, nh, eps,
+                           static_cast<cudaStream_t>(stream)));
 }

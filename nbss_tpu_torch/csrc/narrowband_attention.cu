@@ -1,4 +1,5 @@
-// Narrow-band multi-head attention, forward, for Hopper (sm_90a).
+// Narrow-band multi-head attention, forward, for Hopper (sm_90a), float32
+// inputs on the CUDA cores; bf16 inputs take narrowband_attention_tc.cu.
 //
 // For each of M sequences of T frames and each head h:
 //
@@ -9,7 +10,7 @@
 // unnormalized weights are rounded, the product with v summed in float32,
 // then scaled by the reciprocal of the float32 row sum and rounded once).
 // These are the Pallas kernel's rounding points. q, k, v and o are float32
-// or bfloat16; the mask (none, [T, T] or [nh, T, T]) float32. When `stats`
+// here; the mask (none, [T, T] or [nh, T, T]) float32. When `stats`
 // is given, the row max m and 1 / sum(e) are written there as float32
 // [2, M, nh, T] for narrowband_attention_bwd.cu.
 //
@@ -239,23 +240,22 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // o = attention(q, k, v, mask) on `stream`; stats (may be null) receives the
-// row max and 1 / row sum for the backward. q, k, v, o are bfloat16 when
-// is_bf16, else float32; ldq, ldk, ldv are the row strides of q, k, v in
-// elements; mask is null or float32 [mask_heads, T, T] with mask_heads 1 or
-// nh. Returns the CUDA error of the launch (0 on success).
+// row max and 1 / row sum for the backward. q, k, v, o are float32 (bf16
+// inputs take narrowband_attention_tc.cu); ldq, ldk, ldv are the row strides
+// of q, k, v in elements; mask is null or float32 [mask_heads, T, T] with
+// mask_heads 1 or nh. Returns the CUDA error of the launch (0 on success).
 extern "C" int nbss_narrowband_attention_fwd(const void* q, const void* k, const void* v,
                                              const void* mask, void* o, void* stats,
                                              long long ldq, long long ldk, long long ldv,
                                              int M, int T, int nh, int dh, int dv,
-                                             int mask_heads, float scale, int is_bf16,
-                                             void* stream) {
+                                             int mask_heads, float scale, void* stream) {
   if (M < 1 || T < 1 || nh < 1 || dh < 1 || dv < 1 || dh > DKMAX || dv > DMAX ||
       (mask != nullptr && mask_heads != 1 && mask_heads != nh))
     return int(cudaErrorInvalidValue);
   const FwdArgs a{q, k, v, static_cast<const float*>(mask), o, static_cast<float*>(stats),
                   ldq, ldk, ldv, M, T, nh, dh, dv, mask_heads, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  return launch<float>(a, s);
 }
 
 // The largest q/k head width the kernels take.

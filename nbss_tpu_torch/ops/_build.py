@@ -96,8 +96,12 @@ def library() -> ctypes.CDLL:
                                                  ctypes.c_float, i, p]
         lib.nbss_attention_block_fwd.restype = i
         lib.nbss_attention_block_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                                 ctypes.c_float, i, p]
+                                                 ctypes.c_float, p]
         lib.nbss_attention_block_bwd.restype = i
+        lib.nbss_attention_block_bwd_tc.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+        lib.nbss_attention_block_bwd_tc.restype = i
+        lib.nbss_attention_block_bwd_tc_workspace_bytes.argtypes = [i] * 5
+        lib.nbss_attention_block_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
         lib.nbss_attention_block_bwd_workspace_floats.argtypes = [i]
         lib.nbss_attention_block_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.nbss_selective_scan_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
@@ -109,8 +113,10 @@ def library() -> ctypes.CDLL:
         lib.nbss_selective_scan_chunk.argtypes = []
         lib.nbss_selective_scan_chunk.restype = i
         ll, f = ctypes.c_longlong, ctypes.c_float
-        lib.nbss_narrowband_attention_fwd.argtypes = [p] * 6 + [ll] * 3 + [i] * 6 + [f, i, p]
+        lib.nbss_narrowband_attention_fwd.argtypes = [p] * 6 + [ll] * 3 + [i] * 6 + [f, p]
         lib.nbss_narrowband_attention_fwd.restype = i
+        lib.nbss_narrowband_attention_tc_fwd.argtypes = [p] * 6 + [ll] * 3 + [i] * 6 + [f, p]
+        lib.nbss_narrowband_attention_tc_fwd.restype = i
         lib.nbss_narrowband_attention_bwd.argtypes = [p] * 10 + [ll] * 3 + [i] * 6 + [f, i, p]
         lib.nbss_narrowband_attention_bwd.restype = i
         lib.nbss_narrowband_attention_max_width.argtypes = []

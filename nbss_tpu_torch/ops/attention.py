@@ -10,9 +10,12 @@ over the layout the JAX package uses: q and k [M, T, nh * dh], v and o
 The mask is none, additive [T, T] for every head, or [nh, T, T].
 
 ``narrowband_attention`` is a ``torch.autograd.Function``. For a CUDA tensor
-its forward runs the hand-written kernel ``csrc/narrowband_attention.cu``
-and its backward ``csrc/narrowband_attention_bwd.cu``; for a CPU tensor they
-run the plain PyTorch versions ``reference`` and ``reference_bwd``. The
+its forward runs a hand-written kernel chosen by dtype: bfloat16 inputs take
+``csrc/narrowband_attention_tc.cu`` (bf16 tensor cores, ``mma.sync``),
+float32 inputs ``csrc/narrowband_attention.cu`` (float32 FMA on the CUDA
+cores: no tensor-core product keeps float32's digits). Its backward runs
+``csrc/narrowband_attention_bwd.cu`` for both. For a CPU tensor they run the
+plain PyTorch versions ``reference`` and ``reference_bwd``. The
 kernels replace the Pallas TPU kernels ``narrowband_attention`` /
 ``_fused_forward`` and ``_fused_backward`` of the JAX package and keep their
 rounding points: the unnormalized weights e = exp(s - rowmax) are rounded to
@@ -26,9 +29,9 @@ When a gradient is wanted the forward kernel also writes each row's max and
 1 / sum(e) ([2, M, nh, T] float32), from which the backward kernel
 recomputes e; under ``no_grad`` nothing but o is written. The mask gets no
 gradient. The kernels take q/k head widths up to ``KERNEL_DHMAX`` (NBC's
-augmented heads of dh + d_model = 216 among them: above 64 a wide variant
-splits each row over four threads), v head widths up to ``KERNEL_DVMAX``,
-and any M, T >= 1.
+augmented heads of dh + d_model = 216 among them: above 64 the float32
+kernels split each row over four threads), v head widths up to
+``KERNEL_DVMAX``, and any M, T >= 1.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ KERNEL_DVMAX = 64  # largest v head width the kernels take; csrc holds the same 
 NARROW_DMAX = 64  # q/k head widths above this take the wide kernels (32-row tiles)
 
 launches = 0  # forward kernel launches made by narrowband_attention since import
+tc_launches = 0  # of which on the bf16 tensor-core kernel
 bwd_launches = 0  # backward kernel launches made by narrowband_attention since import
 
 
@@ -123,10 +127,12 @@ def _shape(name, q, k, v, mask, nh):
     if T < 1 or not 1 <= dh <= KERNEL_DHMAX or not 1 <= dv <= KERNEL_DVMAX:
         raise ValueError(f"{name}: the kernels take T >= 1 and head widths dh 1..{KERNEL_DHMAX}"
                          f", dv 1..{KERNEL_DVMAX}, got T = {T}, dh = {dh}, dv = {dv}")
-    tile = 64 if dh <= NARROW_DMAX else 32
-    if M * nh * -(-T // tile) >= 2 ** 31:
-        raise ValueError(f"{name}: M * nh * ceil(T / {tile}) = {M * nh * -(-T // tile)} blocks "
-                         "exceed the grid")
+    if q.dtype == torch.bfloat16 and name == "narrowband_attention":
+        blocks = M * nh  # the tensor-core forward runs a block per (sequence, head)
+    else:
+        blocks = M * nh * -(-T // (64 if dh <= NARROW_DMAX else 32))
+    if blocks >= 2 ** 31:
+        raise ValueError(f"{name}: {blocks} blocks exceed the grid")
     if mask is not None and (mask.device != q.device or tuple(mask.shape[-2:]) != (T, T)
                              or mask.dim() not in (2, 3)
                              or (mask.dim() == 3 and mask.shape[0] not in (1, nh))):
@@ -160,11 +166,12 @@ def _stream(x):
 
 
 def forward(q, k, v, mask=None, nh: int = 1, stats: bool = False):
-    """The attention: ``reference`` for a CPU tensor, the CUDA kernel for a
-    CUDA tensor (or ValueError if it does not take the inputs). Returns
+    """The attention: ``reference`` for a CPU tensor; for a CUDA tensor the
+    tensor-core kernel on bfloat16 inputs and the CUDA-core kernel on
+    float32 ones (or ValueError if it does not take the inputs). Returns
     (o, st); st holds each row's max and 1 / sum(e), [2, M, nh, T] float32,
     when ``stats`` is set on the card, else None."""
-    global launches
+    global launches, tc_launches
     if q.device.type == "cpu":
         return reference(q, k, v, mask, nh), None
     if q.device.type != "cuda":
@@ -184,13 +191,17 @@ def forward(q, k, v, mask=None, nh: int = 1, stats: bool = False):
     if widths != (KERNEL_DHMAX, KERNEL_DVMAX):
         raise RuntimeError(f"csrc/narrowband_attention.cu takes head widths up to {widths} "
                            f"(q/k, v), ops/attention.py expects {(KERNEL_DHMAX, KERNEL_DVMAX)}")
-    err = lib.nbss_narrowband_attention_fwd(
+    tc = q.dtype == torch.bfloat16
+    kernel = lib.nbss_narrowband_attention_tc_fwd if tc else lib.nbss_narrowband_attention_fwd
+    err = kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         o.data_ptr(), None if st is None else st.data_ptr(), ldq, ldk, ldv, M, T, nh, dh, dv,
-        mask_heads, 1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), _stream(q))
+        mask_heads, 1.0 / math.sqrt(dh), _stream(q))
     if err != 0:
-        raise RuntimeError(f"narrowband_attention kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"narrowband_attention {'tensor-core ' if tc else ''}kernel launch "
+                           f"failed with CUDA error {err}")
     launches += 1
+    tc_launches += tc
     return o, st
 
 

@@ -11,8 +11,11 @@ so that ``y = x + sum_h softmax(xa A_h xa^T) (xa Wvo_h)[:, :H] + c`` with
 ``xa = [LN(x), 1, 0]``.
 
 ``attention_block`` is a ``torch.autograd.Function``. For a CUDA tensor its
-forward runs the hand-written CUDA kernel ``csrc/attention_block.cu`` and its
-backward ``csrc/attention_block_bwd.cu``; for a CPU tensor they run the plain
+forward runs the hand-written CUDA kernel ``csrc/attention_block.cu``; its
+backward runs ``csrc/attention_block_bwd_tc.cu`` (bf16 tensor cores,
+``mma.sync``) on bfloat16 inputs and ``csrc/attention_block_bwd.cu``
+(float32 FMA on the CUDA cores: no tensor-core product keeps float32's
+digits) on float32 ones. For a CPU tensor they run the plain
 PyTorch versions ``reference`` and ``reference_bwd``. The kernels replace the
 Pallas TPU kernels ``_fused_block`` (``_kernel``) and ``_fused_block_bwd``
 (``_bwd_kernel``) of the JAX package, and the backward returns what the JAX
@@ -55,6 +58,9 @@ KERNEL_TMAX = 256  # longest sequence the kernel holds in shared memory
 
 launches = 0  # forward kernel launches made by attention_block since import
 bwd_launches = 0  # backward kernel launches made by attention_block since import
+bwd_tc_launches = 0  # of which on the bf16 tensor-core backward
+BWD_SLICE_ROWS = 1024  # frames per slice of the tensor-core backward's weight products
+BWD_MAX_SLICES = 64  # and at most this many slices, each a block per head and operand
 
 
 def fold_weights(ln_weight, ln_bias, in_proj_weight, in_proj_bias,
@@ -204,10 +210,11 @@ def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
 
 
 def backward(x, ln, A, Wvo, g, eps: float, nh: int):
-    """The block's adjoint: ``reference_bwd`` for a CPU tensor, the CUDA
-    kernel for a CUDA tensor (or ValueError if it does not take the inputs).
-    Returns (dx, dln, dA, dWvo, dc) as ``reference_bwd`` does."""
-    global bwd_launches
+    """The block's adjoint: ``reference_bwd`` for a CPU tensor; for a CUDA
+    tensor the tensor-core kernel on bfloat16 inputs and the CUDA-core kernel
+    on float32 ones (or ValueError if it does not take the inputs). Returns
+    (dx, dln, dA, dWvo, dc) as ``reference_bwd`` does."""
+    global bwd_launches, bwd_tc_launches
     if x.device.type == "cpu":
         return reference_bwd(x, ln, A, Wvo, g, eps, nh)
     _check("attention_block backward", x, ln, A, Wvo, nh)
@@ -226,17 +233,28 @@ def backward(x, ln, A, Wvo, g, eps: float, nh: int):
 
         lib = _build.library()
         nblocks = min(M, torch.cuda.get_device_properties(x.device).multi_processor_count)
-        ws = torch.empty(nblocks * lib.nbss_attention_block_bwd_workspace_floats(nh),
-                         dtype=torch.float32, device=x.device)
-        err = lib.nbss_attention_block_bwd(
-            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), out.data_ptr(), ws.data_ptr(), nblocks, M, T, H, nh,
-            ctypes.c_float(eps), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        tc = x.dtype == torch.bfloat16
+        if tc:
+            nslices = max(1, min(BWD_MAX_SLICES, -(-M * T // BWD_SLICE_ROWS)))
+            ws = torch.empty(lib.nbss_attention_block_bwd_tc_workspace_bytes(
+                M, T, nh, nblocks, nslices), dtype=torch.uint8, device=x.device)
+            err = lib.nbss_attention_block_bwd_tc(
+                x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), out.data_ptr(), ws.data_ptr(), nblocks, nslices, M, T, H, nh,
+                ctypes.c_float(eps), stream)
+        else:
+            ws = torch.empty(nblocks * lib.nbss_attention_block_bwd_workspace_floats(nh),
+                             dtype=torch.float32, device=x.device)
+            err = lib.nbss_attention_block_bwd(
+                x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), out.data_ptr(), ws.data_ptr(), nblocks, M, T, H, nh,
+                ctypes.c_float(eps), stream)
         if err != 0:
-            raise RuntimeError(f"attention_block backward kernel launch failed with "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"attention_block backward {'tensor-core ' if tc else ''}kernel "
+                               f"launch failed with CUDA error {err}")
         bwd_launches += 1
+        bwd_tc_launches += tc
     n = nh * Ha * Ha
     return (dx, out[2 * n:2 * n + 2 * H].view(2, H), out[:n].view(nh, Ha, Ha),
             out[n:2 * n].view(nh, Ha, Ha), out[2 * n + 2 * H:].view(1, H))

@@ -39,7 +39,8 @@ NBC_WIDTHS = dict(dim_input=2 * NBC_C, dim_output=4, n_layers=4, encoder_kernel_
 def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)",
           fused_ffn: bool = False):
     """(TrainModule, a function giving the kernel's forward and backward
-    launch counts, its launches per forward, kernel names to sum) for
+    launch counts, its launches per forward, (forward, backward) tuples of
+    kernel-name pieces whose device time is summed) for
     SpatialNet-small, OnlineSpatialNet with ``attention``, as the committed
     run trains it, or NBC. ``fused_ffn`` routes SpatialNet's T-ConvFFN through
     its kernel."""
@@ -60,24 +61,26 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
         net = SpatialNet(**WIDTHS, dtype=dtype, fused_ffn=fused_ffn, generator=generator,
                          device="cuda")
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), counts(attention_block),
-                LAYERS, ("attention_block_kernel", "attention_block_bwd"))
+                LAYERS, (("attention_block_kernel",), ("attention_block_bwd",)))
     if arch == "nbc":  # the relative-position block has no backward kernel
         net = NBC(**NBC_WIDTHS, dtype=dtype, generator=generator, device="cuda")
         module = TrainModule(arch=net, channels=tuple(range(NBC_C)),
                              stft=STFT(n_fft=512, n_hop=256), norm=Norm(mode="frequency"))
         return (module, lambda: (attention_block.relpos_launches, 0), NBC_WIDTHS["n_layers"],
-                ("relpos_", None))
+                (("relpos_",), ()))
     net = OnlineSpatialNet(**WIDTHS, attention=attention, dtype=dtype, remat=remat,
                            generator=generator, device="cuda")
     module = TrainModule(arch=net, norm=Norm(mode="utterance", online=True),
                          loss=Loss(name="neg_snr", pit=True))
     kind, cfg = parse_attention(attention)
     if kind == "mhsa":
+        # the forward: narrowband_attention_tc_kernel in bf16, the CUDA-core kernels in fp32
         return (module, counts(narrowband), LAYERS,
-                ("narrowband_attention_kernel", "narrowband_attention_bwd"))
+                (("narrowband_attention_tc_kernel", "narrowband_attention_kernel",
+                  "narrowband_attention_wide_kernel"), ("narrowband_attention_bwd",)))
     blocks = 2 if cfg["replace_ffn"] else 1  # Mamba blocks a layer
     return (module, counts(ssm), blocks * LAYERS,
-            ("selective_scan_kernel", "selective_scan_bwd"))
+            (("selective_scan_kernel",), ("selective_scan_bwd",)))
 
 
 def parse_args(description: str, archs=("spatialnet", "online_spatialnet")):
@@ -93,6 +96,11 @@ def parse_args(description: str, archs=("spatialnet", "online_spatialnet")):
     if args.fused_ffn and args.arch != "spatialnet":
         parser.error("--fused-ffn takes --arch spatialnet")
     return args
+
+
+def device_us_of(events, keys) -> float:
+    """Device time of the kernels whose names hold any of ``keys``."""
+    return sum(e.self_device_time_total for e in events if any(k in e.key for k in keys))
 
 
 def ffn_report(events, device_us: float, steps: int) -> None:
@@ -166,8 +174,8 @@ def main() -> int:
         print(f"{e.self_device_time_total / STEPS / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / device_us:6.1f}% "
               f"{e.count / STEPS:10.1f}  {e.key[:110]}")
-    us = sum(e.self_device_time_total for e in events if fwd_key in e.key)
-    print(f"{fwd_key}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
+    us = device_us_of(events, fwd_key)
+    print(f"{' + '.join(fwd_key)}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
           f"of device time")
     if args.fused_ffn:
         ffn_report(events, device_us, STEPS)

@@ -37,7 +37,7 @@ def main() -> int:
 
     from nbss_tpu_torch.data.synthetic import SyntheticDataset
     from nbss_tpu_torch.ops import tconvffn
-    from nbss_tpu_torch.profile_serving import LAYERS, build, ffn_report, parse_args
+    from nbss_tpu_torch.profile_serving import LAYERS, build, device_us_of, ffn_report, parse_args
     from nbss_tpu_torch.train.loop import Trainer
 
     args = parse_args(__doc__.splitlines()[0])
@@ -103,10 +103,10 @@ def main() -> int:
         print(f"{e.self_device_time_total / STEPS / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / device_us:6.1f}% "
               f"{e.count / STEPS:10.1f}  {e.key[:110]}")
-    for label, key in (("forward kernel", fwd_key), ("backward kernels", bwd_key)):
-        us = sum(e.self_device_time_total for e in events if key in e.key)
-        print(f"{label}: {us / STEPS / 1e3:.2f} ms/step = {100 * us / device_us:.1f}% "
-              f"of device time")
+    for label, keys in (("forward kernel", fwd_key), ("backward kernels", bwd_key)):
+        us = device_us_of(events, keys)
+        print(f"{label} ({' + '.join(keys)}): {us / STEPS / 1e3:.2f} ms/step = "
+              f"{100 * us / device_us:.1f}% of device time")
     if args.fused_ffn:
         ffn_report(events, device_us, STEPS)
     return 0

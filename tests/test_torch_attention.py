@@ -11,7 +11,9 @@ whose rounding points ``reference`` follows (the unnormalized weights
 rounded, the float32 product with v scaled by 1 / sum(e), one final
 rounding), so only the order of the float32 sums differs. The gradients at
 atol and rtol 5e-3 (the JAX package's gradient bound). The Function on the
-CPU is ``reference`` and ``reference_bwd`` exactly.
+CPU is ``reference`` and ``reference_bwd`` exactly. At the edges of the
+tensor-core forward's tiles and key chunk (T = 16, 17, 64, 65, 257) both
+plain versions are held against the interpreted kernels in float32 and bf16.
 """
 
 import jax
@@ -112,6 +114,42 @@ def test_reference_bwd_matches_pallas_backward_bf16():
         w = _f32(w)
         np.testing.assert_allclose(_f32(a), w, atol=5e-3 * np.abs(w).max(), rtol=5e-3,
                                    err_msg=name)
+
+
+# the edges of the tensor-core forward's tiles: 16 query rows, 16-key blocks,
+# and the 256-key chunk beyond which it takes two passes over the chunks
+EDGE_T = [16, 17, 64, 65, 257]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", EDGE_T)
+def test_reference_and_adjoint_match_pallas_at_tile_edges(T, dtype):
+    """``reference`` and ``reference_bwd``, the yardsticks the card holds the
+    kernels to, against the interpreted Pallas forward and its backward
+    through ``jax.vjp`` at the tile edges: float32 at atol 2e-4, rtol 1e-4
+    (forward) and 5e-3 (adjoint); bf16 within one bf16 step (forward) and
+    5e-3 x each cotangent's largest value (adjoint), as above."""
+    M, dh, dv = 2, 8, 8
+    q, k, v, g = _inputs(T, M, T, dh, dv)
+    mask = _mask("causal" if T % 2 else "alibi", T)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                          torch.bfloat16)
+    want, vjp = jax.vjp(lambda a, b, c: j_attention(a, b, c, jnp.asarray(mask), NH),
+                        *_jax([q, k, v], jdt))
+    tq, tk, tv = _torch([q, k, v], tdt)
+    got = att.reference(tq, tk, tv, torch.from_numpy(mask), NH)
+    grads = att.reference_bwd(tq, tk, tv, torch.from_numpy(mask), torch.from_numpy(g).to(tdt),
+                              NH)
+    want, wants = _f32(want), [_f32(w) for w in vjp(jnp.asarray(g, jdt))]
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(got), want, atol=2e-4, rtol=1e-4)
+    else:
+        step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)  # one bf16 step
+        assert (np.abs(_f32(got) - want) <= step).all(), np.abs(_f32(got) - want).max()
+    for name, a, w in zip(("dq", "dk", "dv"), grads, wants):
+        assert a.dtype == tdt, name
+        atol = 5e-3 if dtype == "float32" else 5e-3 * np.abs(w).max()
+        np.testing.assert_allclose(_f32(a), w, atol=atol, rtol=5e-3, err_msg=name)
 
 
 def test_reference_matches_pallas_at_nbc_head_width():

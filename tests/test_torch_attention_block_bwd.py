@@ -12,11 +12,17 @@ H = 16):
   (rtol 2**-8), since both round at the same points and only sum in another
   order.
 
+At the edges of the tensor-core backward's 16-frame tiles (T = 16, 17, 64,
+65) ``reference_bwd`` is also held against ``jax.vjp`` of the JAX package's
+``attention_block`` (its custom_vjp runs the interpreted Pallas backward),
+in float32 and bf16 at the bounds above.
+
 The ``autograd.Function`` gives ``reference_bwd``'s gradients on the CPU, and
 a loss through the default SpatialNet reaches the input and every LayerNorm
 and attention parameter through it.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,6 +90,32 @@ def test_reference_bwd_bf16_rounds_like_jax_kernel(rng):
         step = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)  # one bf16 step at max|w|
         np.testing.assert_allclose(a.float().numpy(), w, atol=step, rtol=2.0 ** -8,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [16, 17, 64, 65])
+def test_reference_bwd_matches_jax_vjp_at_tile_edges(rng, T, dtype):
+    """At the edges of the tensor-core backward's 16-frame tiles,
+    ``reference_bwd`` (its yardstick on the card) against ``jax.vjp`` of the
+    JAX package's ``attention_block``, whose custom_vjp runs the interpreted
+    Pallas backward: float32 at atol and rtol 5e-3, bf16 within one bf16
+    step at each output's largest magnitude, as above."""
+    x, g, jfold, tfold = _operands(rng, 2, T, 16, 4)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                          torch.bfloat16)
+    _, vjp = jax.vjp(lambda a, ln, A, Wvo, c: jab.attention_block(a, ln, A, Wvo, c, 1e-5, 4),
+                     jnp.asarray(x, jdt), *jfold[:4])
+    want = [np.asarray(w.astype(jnp.float32)) for w in vjp(jnp.asarray(g, jdt))]
+    got = ab.reference_bwd(torch.from_numpy(x).to(tdt), *tfold[:3],
+                           torch.from_numpy(g).to(tdt), 1e-5, 4)
+    for name, a, w in zip(NAMES, got, want):
+        assert tuple(a.shape) == w.shape, name
+        if dtype == "float32":
+            np.testing.assert_allclose(a.numpy(), w, atol=5e-3, rtol=5e-3, err_msg=name)
+        else:
+            step = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+            np.testing.assert_allclose(a.float().numpy(), w, atol=step, rtol=2.0 ** -8,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -24,6 +24,15 @@ training count 1032; channel counts below, at and above a block's 64; state
 sizes 4 and 16. A 2-layer OnlineSpatialNet's gradients through the scan
 kernels are held against its plain path's.
 
+The tensor-core kernels, which bf16 inputs reach (the attention forward and
+the attention-block backward), are held at the edges of their tiles (T = 1,
+13, 16, 17, 64, 65, 256, and 257, 300 for the forward's two-pass path; one
+sequence; both masks; q/k heads of 24, 64, 216) with bit-identical
+relaunches; the counters show that float32 reaches the CUDA-core kernels and
+bf16 the tensor-core ones; they refuse dh > 256, dv > 64 and H != 96; and a
+2-layer bf16 SpatialNet's and mhsa model's gradients through them lie within
+the bf16 rule of the plain path's.
+
 The narrow-band attention kernels are held against ``attention.reference``
 and ``attention.reference_bwd`` at the same bounds, with no mask, a causal
 [T, T] mask and an ALiBi [nh, T, T] mask: one frame, lengths off and on the
@@ -151,6 +160,100 @@ def test_attention_block_bwd_kernel_refuses_what_it_does_not_take(card):
     x64 = x[:, :8, :64].contiguous()
     with pytest.raises(ValueError, match="H = 96"):
         ab.backward(x64, ln[:, :64].contiguous(), A, Wvo, x64, eps, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh", [(5, T, 4) for T in (1, 13, 16, 17, 64, 65, 256)]
+                         + [(1, 251, 4), (4, 40, 3)])
+def test_attention_block_bwd_tensor_core_kernel_at_tile_edges(card, M, T, nh):
+    """bf16 through the tensor-core backward at the edges of its 16-frame
+    tiles: the bf16 rule of the test above, a relaunch bit-identical (the
+    weight cotangents too: fixed-order sums, no atomics), one tensor-core
+    launch each."""
+    x, (ln, A, Wvo, _), eps = _operands(M * 100 + T, M, T, nh)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(T + 1)).cuda()
+    x, g = x.bfloat16(), g.bfloat16()
+    before = ab.bwd_tc_launches
+    got = ab.backward(x, ln, A, Wvo, g, eps, nh)
+    again = ab.backward(x, ln, A, Wvo, g, eps, nh)
+    torch.cuda.synchronize()
+    assert ab.bwd_tc_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ab.reference_bwd(x.float(), ln, A, Wvo, g.float(), eps, nh)
+    plain = _bwd_errors(ab.reference_bwd(x, ln, A, Wvo, g, eps, nh), want)
+    for name, e, p, w in zip(BWD_NAMES, _bwd_errors(got, want), plain, want):
+        assert np.isfinite(e) and e <= max(2 * p, 5e-3 * w.abs().max().item()), (name, e, p)
+
+
+@pytest.mark.gpu
+def test_dtype_picks_the_attention_block_backward_kernel(card):
+    """float32 reaches the CUDA-core backward and bfloat16 the tensor-core
+    one, as the counters show."""
+    x, (ln, A, Wvo, _), eps = _operands(3, 2, 40, 4)
+    for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+        b0, t0 = ab.bwd_launches, ab.bwd_tc_launches
+        ab.backward(x.to(dtype), ln, A, Wvo, x.to(dtype), eps, 4)
+        assert (ab.bwd_launches - b0, ab.bwd_tc_launches - t0) == (1, tc)
+
+
+@pytest.mark.gpu
+def test_tensor_core_attention_block_bwd_refuses_what_it_does_not_take(card):
+    x, (ln, A, Wvo, _), eps = _operands(0, 2, 257, 4)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="T <= 256"):
+        ab.backward(x, ln, A, Wvo, x, eps, 4)
+    x64 = x[:, :8, :64].contiguous()
+    with pytest.raises(ValueError, match="H = 96"):
+        ab.backward(x64, ln[:, :64].contiguous(), A, Wvo, x64, eps, 4)
+
+
+def _bf16_rule_on_gradients(kernel, plain, ref):
+    """Each gradient of the bf16 kernel path no farther from the fp32 plain
+    path's than twice the bf16 plain path's is, or than the fp32 bound
+    (5e-3 x max|fp32|)."""
+    for name, r in ref.items():
+        e = (kernel[name].float() - r).abs().max().item()
+        p = (plain[name].float() - r).abs().max().item()
+        assert np.isfinite(e) and e <= max(2 * p, 5e-3 * r.abs().max().item()), (name, e, p)
+
+
+def _gradients(net, x, w):
+    xg = x.clone().requires_grad_()
+    (net(xg).float() * w).sum().backward()
+    return {"x": xg.grad, **{n: p.grad for n, p in net.named_parameters()}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["spatialnet", "mhsa"])
+def test_bf16_gradients_through_tensor_core_kernels_within_bf16_rule(card, arch):
+    """A 2-layer bf16 SpatialNet (the tensor-core backward) and a 2-layer bf16
+    OnlineSpatialNet mhsa(16) (the tensor-core forward) at H=96: the kernel
+    path's gradients against the plain path's under the bf16 rule, both held
+    to the fp32 plain path."""
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=96, dim_ffn=192,
+              num_heads=4, dim_squeeze=8, num_freqs=9)
+    if arch == "spatialnet":
+        make, off = (lambda **k: SpatialNet(**kw, **k, device="cuda")), {"fused_block": False}
+        counter = (ab, "bwd_tc_launches")
+    else:
+        from nbss_tpu_torch.ops import attention as att
+
+        make = lambda **k: OnlineSpatialNet(**kw, attention="mhsa(16)", **k, device="cuda")
+        off, counter = {"fused_attention": False}, (att, "tc_launches")
+    gen = torch.Generator().manual_seed(0)
+    kernel = make(dtype=torch.bfloat16, generator=gen)
+    plain, ref = make(dtype=torch.bfloat16, **off), make(**off)
+    plain.load_state_dict(kernel.state_dict())
+    ref.load_state_dict(kernel.state_dict())
+    x = torch.randn(2, 9, 40, 12, generator=gen).cuda()
+    w = torch.randn(2, 9, 40, 4, generator=gen).cuda()
+    before = getattr(*counter)
+    grads_kernel = _gradients(kernel, x, w)
+    assert getattr(*counter) - before == 2  # one launch a layer
+    _bf16_rule_on_gradients(grads_kernel, _gradients(plain, x, w), _gradients(ref, x, w))
 
 
 @pytest.mark.gpu
@@ -425,6 +528,64 @@ def test_narrowband_attention_kernels_refuse_what_they_do_not_take(card):
         att.narrowband_attention(q, k, v, m[:8, :8], 2)
     with pytest.raises(ValueError, match="stats must be"):
         att.backward(q, k, v, m, g, 2, None)
+
+
+# bf16 at the edges of the tensor-core forward's tiles: 16 query rows, 16-key blocks, the
+# 256-key chunk (T > 256 takes two passes over the chunks); one sequence; q/k heads of 24,
+# 64 and 216
+TC_ATTN_SHAPES = [(3, T, 4, 24, 24) for T in (1, 13, 16, 17, 64, 65, 256, 257, 300)] + [
+    (1, 251, 4, 24, 24), (2, 251, 4, 64, 64), (2, 65, 8, 216, 24), (2, 300, 8, 216, 24),
+    (1, 248, 8, 216, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh,dh,dv", TC_ATTN_SHAPES)
+@pytest.mark.parametrize("mask", ["causal", "alibi"])
+def test_narrowband_attention_tensor_core_kernel_at_tile_edges(card, M, T, nh, dh, dv, mask):
+    """bf16 through the tensor-core forward: no farther from the fp32 plain
+    result than twice the plain bf16 version, a relaunch bit-identical
+    (the row statistics too), one tensor-core launch each."""
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), m, _ = _attn_inputs(M * T + dh + 3, M, T, nh, dh, dv, mask, torch.bfloat16)
+    before = att.tc_launches
+    o, st = att.forward(q, k, v, m, nh, stats=True)
+    o2, st2 = att.forward(q, k, v, m, nh, stats=True)
+    torch.cuda.synchronize()
+    assert att.tc_launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+    want = att.reference(q.float(), k.float(), v.float(), m, nh)
+    err = (o.float() - want).abs().max().item()
+    plain = (att.reference(q, k, v, m, nh).float() - want).abs().max().item()
+    assert np.isfinite(err) and err <= max(2 * plain, 2e-4 + 1e-4 * want.abs().max().item()), (
+        err, plain)
+
+
+@pytest.mark.gpu
+def test_dtype_picks_the_attention_kernels(card):
+    """float32 reaches the CUDA-core kernels and bfloat16 the tensor-core
+    forward, as the counters show; the backward kernel is the same for both."""
+    from nbss_tpu_torch.ops import attention as att
+
+    for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+        (q, k, v), m, g = _attn_inputs(1, 3, 40, 4, 24, 24, "causal", dtype)
+        f0, t0, b0 = att.launches, att.tc_launches, att.bwd_launches
+        _, st = att.forward(q, k, v, m, 4, stats=True)
+        att.backward(q, k, v, m, g, 4, st)
+        assert (att.launches - f0, att.tc_launches - t0, att.bwd_launches - b0) == (1, tc, 1)
+
+
+@pytest.mark.gpu
+def test_tensor_core_attention_refuses_what_it_does_not_take(card):
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), _, _ = _attn_inputs(0, 2, 9, 2, 24, 24, "none", torch.bfloat16)
+    wide = torch.zeros(2, 9, 2 * 257, dtype=torch.bfloat16, device="cuda")  # dh 257 > 256
+    with pytest.raises(ValueError, match="head widths"):
+        att.forward(wide, wide, v, None, 2)
+    vwide = torch.zeros(2, 9, 2 * 65, dtype=torch.bfloat16, device="cuda")  # dv 65 > 64
+    with pytest.raises(ValueError, match="head widths"):
+        att.forward(q, k, vwide, None, 2)
 
 
 @pytest.mark.gpu
