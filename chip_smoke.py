@@ -20,10 +20,15 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
    card at the path's shapes (fp32 with TF32 off: atol 2e-4, rtol 1e-4, the
    JAX package's own kernel bounds; bf16: no farther from the fp32 plain
    result than twice the plain bf16 version is, since the kernel rounds at
-   no more points than the plain version and only sums in another order);
+   no more points than the plain version and only sums in another order):
+   float32 on the CUDA-core kernel, bf16 on the tensor-core kernel
+   (``attention_block_tc.cu``), two launches bit-identical, and so at the
+   edges of its 16-frame tiles and 128-key halves (T = 1, 15, 16, 17, 64,
+   65, 250, 251, 256, M = 1, nh = 3);
 4. slice: ``TrainModule.forward`` and ``predict_step``, with launch counts
-   reset just before and read just after; then fp32 through the kernel and
-   through the plain module composition, SI-SDR between the two >= 50 dB;
+   reset just before and read just after (8 a forward, all on the
+   tensor-core kernel); then fp32 through the kernel and through the plain
+   module composition, SI-SDR between the two >= 50 dB;
 5. times: CUDA events for each kernel, its plain version and one PyTorch
    library call of the same function; the end-to-end serving rate;
 6. backward kernel vs plain at the training shape (M = 8*129, T = 251): fp32
@@ -39,12 +44,16 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 7. training slice: ``Trainer`` draws the flagship in bf16 from a seeded
    generator and fits 8 fixed ``SyntheticDataset`` items (Adam 1e-3, clip 5,
    neg-SI-SDR with PIT) for 20 steps, launch counts reset just before and
-   read just after (8 forward and 8 backward launches a step, every
-   backward on the tensor-core kernel); every loss
+   read just after (8 forward and 8 backward launches a step, every one on
+   the tensor-core kernels); every loss
    finite, the mean of the last 5 below the mean of the first 5;
-8. gradient parity: one fp32 batch through the kernels and through the plain
-   module composition from one state dict, every parameter's gradient within
-   5e-3 x max|plain|;
+8. gradient parity (``nbss_tpu_torch.check_gradients``): one batch through
+   the kernels in fp32, through the plain module composition in fp32 and
+   with its arch in float64, from one state dict; every parameter's kernel
+   gradient no farther from the float64 one, and from the plain fp32 one,
+   than max(5e-3 x max|float64|, 2 x max|plain fp32 - float64|) (two fp32
+   runs that round differently can be 1e-2 x max|grad| apart at trained
+   weights, so neither is the reference);
 9. times: the backward kernel (bf16 on the tensor cores, fp32 on the CUDA
    cores), its plain version, the backward of the PyTorch library
    composition; the train step;
@@ -79,8 +88,12 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
     and 216); ragged shapes (T = 1, T = 13, M = 1, dv != dh), forward and
     backward in fp32;
 17. attention backward kernel vs ``attention.reference_bwd`` at the training
-    shape (M = 8*129): each of dq, dk, dv within 5e-3 x max|plain| in fp32 and
-    within the bf16 rule of phase 6; a second launch bit-identical;
+    shape (M = 8*129): each of dq, dk, dv within 5e-3 x max|plain| in fp32 (on
+    the CUDA-core kernel) and, on the tensor-core kernel
+    (``narrowband_attention_bwd_tc.cu``), within the bf16 rule of phase 6;
+    second launches bit-identical, dk and dv included; and so at the edges of
+    its 16-row tiles and 256-row chunks (T = 1, 15, 16, 17, 64, 65, 251, 256,
+    257, 300, M = 1, both masks, heads of 24, 64 and 216);
 18. OnlineSpatialNet mhsa(251) serving at B=16 in bf16: 8 attention launches
     per forward, all on the tensor-core kernel, and no backward launch; fp32
     kernel path vs the plain
@@ -88,8 +101,8 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 19. streaming (a KV ring buffer of 250 frames) vs ``forward`` at B=4: fp32
     SI-SDR >= 50 dB, the bf16 figure printed;
 20. training: 20 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
-    remat): falling loss, 16 forward (8 + 8 recomputed, all on the
-    tensor-core kernel) and 8 backward attention launches a step; fp32
+    remat): falling loss, 16 forward (8 + 8 recomputed) and 8 backward
+    attention launches a step, all on the tensor-core kernels; fp32
     gradients, kernel path vs plain, within
     5e-3 x max|plain|; peak device memory;
 21. times: both attention kernels (the forward in bf16 on the tensor cores
@@ -105,8 +118,8 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 23. the narrow-band attention kernels at NBC's widths (nh = 8, q/k heads of
     dh + d_model = 216, dv = 24, no mask, M = 2*257): forward at atol 2e-4,
     rtol 1e-4, dq, dk, dv within 5e-3 x max|plain|, bf16 under the rules of
-    phases 3 and 6 (the bf16 forward on the tensor-core kernel), relaunches
-    bit-identical;
+    phases 3 and 6 (forward and backward on the tensor-core kernels),
+    relaunches bit-identical;
 24. NBC serving (``configs/NBC.yaml``: 4 layers, H=192, 8 heads; 8 channels
     x 4 s at 16 kHz, STFT 512/256, frequency norm) through ``forward`` and
     ``predict_step`` at B=16 in bf16: 4 relative-position launches per
@@ -258,21 +271,46 @@ def main() -> int:
             layer.norm_mhsa.weight, layer.norm_mhsa.bias, layer.mhsa.in_proj_weight,
             layer.mhsa.in_proj_bias, layer.mhsa.out_proj.weight, layer.mhsa.out_proj.bias, nh)
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
+    ab.tc_launches = 0
     y = ab.attention_block(x32, ln, A, Wvo, c, eps, nh)
     torch.cuda.synchronize()
     want = ab.reference(x32, ln, A, Wvo, c, eps, nh)
     err32 = (y - want).abs().max().item()
     torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
-    log(f"fp32: max |kernel - plain| = {err32:.3e} (atol 2e-4, rtol 1e-4): ok")
+    log(f"fp32 (CUDA-core kernel): max |kernel - plain| = {err32:.3e} (atol 2e-4, rtol 1e-4): ok")
+    if ab.tc_launches != 0:
+        raise AssertionError(f"float32 attention_block reached the tensor-core kernel "
+                             f"({ab.tc_launches} launches)")
     xb = x32.to(torch.bfloat16)
     want = ab.reference(xb.float(), ln, A, Wvo, c, eps, nh)
-    errbf = (ab.attention_block(xb, ln, A, Wvo, c, eps, nh).float() - want).abs().max().item()
-    err_plain = (ab.reference(xb, ln, A, Wvo, c, eps, nh).float() - want).abs().max().item()
-    del y, want
-    log(f"bf16: max |kernel - fp32 plain| = {errbf:.4f}, plain bf16 version's = {err_plain:.4f} "
-        f"(bound: 2x the plain version's)")
-    if not errbf <= 2 * err_plain:
-        raise AssertionError(f"bf16 kernel error {errbf} exceeds 2 x {err_plain}")
+    ybf = ab.attention_block(xb, ln, A, Wvo, c, eps, nh)
+    relaunched("bf16 attention_block", [ybf], [ab.attention_block(xb, ln, A, Wvo, c, eps, nh)])
+    plainbf = ab.reference(xb, ln, A, Wvo, c, eps, nh)
+    errbf, = bf16_rule("bf16 attention_block", [ybf], [want], [plainbf], 2e-4, 1e-4)
+    err_plain = (plainbf.float() - want).abs().max().item()
+    differ = (ybf != plainbf).float().mean().item()
+    del y, want, ybf, plainbf
+    log(f"bf16 (tensor-core kernel): max |kernel - fp32 plain| = {errbf:.4f}, plain bf16 "
+        f"version's = {err_plain:.4f} (bound: 2x the plain version's); {100 * differ:.2f}% of "
+        "elements differ from the plain bf16 version; two launches bit-identical")
+    if ab.tc_launches != 2:
+        raise AssertionError(f"bf16 attention_block: {ab.tc_launches} tensor-core launches, "
+                             "expected 2")
+    # bf16 at the edges of the tensor-core kernel's 16-frame tiles and 128-key halves
+    for Me, Te, nhe in ((1, 1, nh), (5, 15, nh), (5, 16, nh), (5, 17, nh), (3, 64, nh),
+                        (3, 65, nh), (2, 250, nh), (1, T, nh), (2, 256, nh), (4, 40, 3)):
+        with torch.no_grad():
+            ops = ab.fold_weights(
+                layer.norm_mhsa.weight, layer.norm_mhsa.bias, layer.mhsa.in_proj_weight,
+                layer.mhsa.in_proj_bias, layer.mhsa.out_proj.weight, layer.mhsa.out_proj.bias,
+                nhe)[:4]
+        xe = torch.randn(Me, Te, H, generator=gen).to(dev).to(torch.bfloat16)
+        label = f"bf16 attention_block at (M, T, nh) = {(Me, Te, nhe)}"
+        ye = ab.attention_block(xe, *ops, eps, nhe)
+        relaunched(label, [ye], [ab.attention_block(xe, *ops, eps, nhe)])
+        e, = bf16_rule(label, [ye], [ab.reference(xe.float(), *ops, eps, nhe)],
+                       [ab.reference(xe, *ops, eps, nhe)], 2e-4, 1e-4)
+        log(f"bf16 edge (M, T, nh) = {(Me, Te, nhe)}: {e:.3e}, relaunch bit-identical: ok")
     check_budget("kernel vs plain")
 
     # 4. the serving slice
@@ -283,21 +321,23 @@ def main() -> int:
                          loss=Loss(name="neg_si_sdr", pit=True))
     wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
     target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
-    ab.launches = ab.bwd_launches = 0
+    ab.launches = ab.tc_launches = ab.bwd_launches = 0
     yr_hat, _ = module.forward(wave)
     pred = module.predict_step(wave, target)
     torch.cuda.synchronize()
-    launches, serve_bwd = ab.launches, ab.bwd_launches
+    launches, serve_tc, serve_bwd = ab.launches, ab.tc_launches, ab.bwd_launches
     n_layers = FLAGSHIP["num_layers"]
     for name, out in (("forward", yr_hat), ("predict_step", pred)):
         if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
             raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
                                  f"{bool(torch.isfinite(out).all())}")
-    if launches != 2 * n_layers or serve_bwd != 0:
-        raise AssertionError(f"attention_block launched {launches} forward and {serve_bwd} "
-                             f"backward kernels in two forwards, expected {2 * n_layers} and 0")
+    if launches != 2 * n_layers or serve_tc != launches or serve_bwd != 0:
+        raise AssertionError(f"attention_block launched {launches} forward ({serve_tc} on the "
+                             f"tensor-core kernel) and {serve_bwd} backward kernels in two "
+                             f"forwards, expected {2 * n_layers}, all on the tensor-core kernel, "
+                             "and 0")
     log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; attention_block "
-        f"launched {launches} times ({n_layers} per forward)")
+        f"launched {launches} times ({n_layers} per forward), all on the tensor-core kernel")
 
     net32 = SpatialNet(**FLAGSHIP, dtype=None, device=dev).eval()
     net32.load_state_dict(net.state_dict())
@@ -333,9 +373,13 @@ def main() -> int:
     flops = M * (2 * T * H * 3 * H + 2 * 2 * T * T * H + 2 * T * H * H)  # unfolded function
     t_bytes, t_flops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     bound_ms, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes > t_flops else "operations"
-    log(f"attention_block bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {io_bytes / 1e6:.0f} MB, "
-        f"{flops / 1e9:.1f} GFLOP unfolded)")
+    folded = M * nh * 2 * T * H * ((H + 2) + H + 2 * T)  # t, vo, scores, pv over 96 channels
+    folded_ms = folded / BF16_FLOP_PER_S * 1e3
+    log(f"attention_block bf16: tensor-core kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{io_bytes / 1e6:.0f} MB, {flops / 1e9:.1f} GFLOP unfolded); the folded function's "
+        f"floor {folded_ms:.4f} ms ({folded / 1e9:.1f} GFLOP, {folded / ms / 1e9:.1f} "
+        "TFLOP/s achieved)")
 
     for _ in range(2):
         module.predict_step(wave)
@@ -348,7 +392,7 @@ def main() -> int:
     log(f"serving: predict_step on {B} x {SECONDS:g} s in {step_s * 1e3:.1f} ms = "
         f"{B * SECONDS / step_s:.1f} audio-s/s")
     ms_fp32 = cuda_ms(lambda: ab.attention_block(x32, ln, A, Wvo, c, eps, nh), iters=10)
-    log(f"attention_block fp32: kernel {ms_fp32:.3f} ms")
+    log(f"attention_block fp32: CUDA-core kernel {ms_fp32:.3f} ms")
     check_budget("times")
     del module, net, wave, target, x32, xb
     torch.cuda.empty_cache()
@@ -367,12 +411,15 @@ def main() -> int:
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
-        "source": "nbss_tpu_torch/csrc/attention_block.cu",
+        "source": "nbss_tpu_torch/csrc/attention_block_tc.cu",
+        "source_fp32": "nbss_tpu_torch/csrc/attention_block.cu",
+        "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"},
         "replaces": "nbss_tpu/ops/attention_block.py:183",
-        "launches": launches, "launches_training": train_launches, "max_abs_err": err32,
-        "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms, "ms_fp32": ms_fp32,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}, row2, row3, *rows67, *rows45, row8]}), flush=True)
+        "launches": launches, "tc_launches": serve_tc, "launches_training": train_launches,
+        "max_abs_err": err32, "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms,
+        "ms_fp32": ms_fp32, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms},
+        row2, row3, *rows67, *rows45, row8]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -429,13 +476,9 @@ def training_phases(dev):
     import torch
     import torch.nn.functional as F
 
-    from nbss_tpu_torch.data.synthetic import SyntheticDataset
-    from nbss_tpu_torch.io.norm import Norm
-    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch import check_gradients
     from nbss_tpu_torch.models.spatialnet import SpatialNet
     from nbss_tpu_torch.ops import attention_block as ab
-    from nbss_tpu_torch.train.loop import Trainer
-    from nbss_tpu_torch.train.module import TrainModule
 
     names = ("dx", "dln", "dA", "dWvo", "dc")
     n_layers, H, nh = FLAGSHIP["num_layers"], FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
@@ -508,34 +551,22 @@ def training_phases(dev):
     # 7. the training slice
     log(f"phase 7/29 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
-    data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
-                            audio_time_len=SECONDS)
-    items = [data[(i, 1000 + i)] for i in range(B_TRAIN)]
-    batch = (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]),
-             [it[2] for it in items])
-    module = TrainModule(arch=SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, device=dev),
-                         channels=tuple(range(CHANNELS)), stft=STFT(n_fft=256, n_hop=128),
-                         norm=Norm(mode="frequency"))
-    losses = []
-    trainer = Trainer(module, optimizer=("Adam", {"lr": 1e-3}), gradient_clip_val=5.0,
-                      seed=2, device=dev,
-                      logger=lambda k, v, step: losses.append(v) if k.startswith("train/") else None)
-    trainer.init()
-    ab.launches = ab.bwd_launches = ab.bwd_tc_launches = 0
-    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
+    module, trainer, batch, losses = check_gradients.fit(dev)  # data and init launch nothing
     torch.cuda.synchronize()
-    fit_fwd, fit_bwd, fit_tc = ab.launches, ab.bwd_launches, ab.bwd_tc_launches
-    ab.launches = ab.bwd_launches = ab.bwd_tc_launches = 0
+    fit = (ab.launches, ab.tc_launches, ab.bwd_launches, ab.bwd_tc_launches)
+    ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    step_fwd, step_bwd, step_tc = ab.launches, ab.bwd_launches, ab.bwd_tc_launches
+    step = (ab.launches, ab.tc_launches, ab.bwd_launches, ab.bwd_tc_launches)
+    fit_fwd, fit_bwd, fit_tc = fit[0], fit[2], fit[3]
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
-    log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward ({fit_tc} on the tensor-core "
-        f"kernel) in {TRAIN_STEPS} steps; one step {step_fwd} + {step_bwd} ({step_tc})")
-    if ((fit_fwd, fit_bwd, fit_tc) != (TRAIN_STEPS * n_layers,) * 3
-            or (step_fwd, step_bwd, step_tc) != (n_layers,) * 3):
+    log(f"launches: fit {fit[0]} forward ({fit[1]} on the tensor-core kernel) + {fit[2]} "
+        f"backward ({fit[3]} on the tensor-core kernel) in {TRAIN_STEPS} steps; one step "
+        f"{step[0]} ({step[1]}) + {step[2]} ({step[3]})")
+    if fit != (TRAIN_STEPS * n_layers,) * 4 or step != (n_layers,) * 4:
         raise AssertionError(f"expected {n_layers} forward and {n_layers} backward launches "
-                             "a step, every backward on the tensor-core kernel")
+                             "a step, every one on the tensor-core kernels")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -544,26 +575,12 @@ def training_phases(dev):
         raise AssertionError("the loss did not fall")
     check_budget("training")
 
-    # 8. gradient parity, fp32
-    log("phase 8/29 gradients: kernel path vs plain composition, fp32, one batch")
-    grads = []
-    for fused in (True, False):
-        net = SpatialNet(**FLAGSHIP, fused_block=fused, device=dev)
-        net.load_state_dict(module.arch.state_dict())
-        m32 = TrainModule(**{**module.__dict__, "arch": net})
-        m32.training_step(trainer.to_device(batch)).backward()
-        grads.append({n: p.grad for n, p in net.named_parameters()})
-        del net, m32
-    worst = ("", 0.0)
-    for name, gk in grads[0].items():
-        gp = grads[1][name]
-        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
-        worst = max(worst, (name, rel), key=lambda t: t[1])
-        if gk.abs().max() == 0 or rel > 5e-3:
-            raise AssertionError(f"gradient of {name}: max |kernel - plain| = {rel:.2e} "
-                                 f"x max|plain| (bound 5e-3)")
-    log(f"{len(grads[0])} parameters: worst max |kernel - plain| / max|plain| = "
-        f"{worst[1]:.2e} ({worst[0]}; bound 5e-3)")
+    # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
+    # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
+    log("phase 8/29 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+        "one batch")
+    grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
+    log(check_gradients.hold(grads))
     del grads
     torch.cuda.empty_cache()
     check_budget("gradients")
@@ -1040,8 +1057,11 @@ def mhsa_phases(dev):
     # 17. backward kernel vs plain
     log(f"phase 17/29 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
+    btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
     again = att.backward(*ins32, causal, g32, nh, st32)
+    if att.bwd_tc_launches != btc0:
+        raise AssertionError("float32 attention backward reached the tensor-core kernel")
     deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
     log("fp32: max |kernel - plain| " + ", ".join(
         f"{n} {e:.3e}" for n, e in zip(names, bwd_errs32))
@@ -1053,18 +1073,43 @@ def mhsa_phases(dev):
     del ins32, g32
     _, stbt = att.forward(*insbt, causal, nh, stats=True)
     want = att.reference_bwd(*[t.float() for t in insbt], causal, gbt.float(), nh)
-    bwd_errsbf = [(a.float() - w).abs().max().item()
-                  for a, w in zip(att.backward(*insbt, causal, gbt, nh, stbt), want)]
+    gotbf = att.backward(*insbt, causal, gbt, nh, stbt)
+    relaunched("bf16 attention backward", gotbf, att.backward(*insbt, causal, gbt, nh, stbt))
+    bwd_errsbf = bf16_rule("bf16 attention backward", gotbf, want,
+                           att.reference_bwd(*insbt, causal, gbt, nh), 0.0, 5e-3)
     plainbf = [(a.float() - w).abs().max().item()
                for a, w in zip(att.reference_bwd(*insbt, causal, gbt, nh), want)]
-    bounds = [5e-3 * w.abs().max().item() for w in want]
-    del want
-    log("bf16: max |kernel - fp32 plain| vs the plain bf16 version's: " + ", ".join(
-        f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(names, bwd_errsbf, plainbf)))
-    for name, e, p, b in zip(names, bwd_errsbf, plainbf, bounds):
-        if not e <= max(2 * p, b):
-            raise AssertionError(f"bf16 attention backward {name}: error {e} exceeds "
-                                 f"max(2 x {p}, {b})")
+    del want, gotbf
+    log("bf16 (tensor-core kernel): max |kernel - fp32 plain| vs the plain bf16 version's: "
+        + ", ".join(f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(names, bwd_errsbf, plainbf))
+        + "; two launches bit-identical, dk and dv included")
+    if att.bwd_tc_launches - btc0 != 2:
+        raise AssertionError(f"bf16 attention backward: {att.bwd_tc_launches - btc0} "
+                             "tensor-core launches, expected 2")
+    # bf16 at the edges of the tensor-core backward's 16-row tiles and 256-row chunks
+    # (T > 256 takes the keys and queries in two chunks), both masks, heads of 24, 64, 216
+    for shape, kind in (((1, 1, 4, 24, 24), "causal"), ((3, 15, 4, 24, 24), "alibi"),
+                        ((3, 16, 4, 24, 24), "causal"), ((3, 17, 4, 24, 24), "alibi"),
+                        ((3, 64, 4, 24, 24), "causal"), ((3, 65, 4, 24, 24), "alibi"),
+                        ((1, T, 4, 24, 24), "alibi"), ((2, 256, 4, 24, 24), "causal"),
+                        ((2, 257, 4, 24, 24), "alibi"), ((2, 300, 4, 24, 24), "causal"),
+                        ((2, 300, 4, 24, 24), "none"), ((2, 65, 4, 64, 64), "causal"),
+                        ((2, 17, 4, 64, 16), "none"), ((2, 65, 8, 216, 24), "alibi"),
+                        ((1, 248, 8, 216, 24), "none")):
+        ins, ge = attention_inputs(gen, *shape, torch.bfloat16, dev)
+        m = mask_of(kind, shape[1], shape[2])
+        label = f"bf16 attention backward at (M, T, nh, dh, dv) = {shape}, {kind} mask"
+        _, ste = att.forward(*ins, m, shape[2], stats=True)
+        got = att.backward(*ins, m, ge, shape[2], ste)
+        relaunched(label, got, att.backward(*ins, m, ge, shape[2], ste))
+        e = bf16_rule(label, got, att.reference_bwd(*[t.float() for t in ins], m, ge.float(),
+                                                    shape[2]),
+                      att.reference_bwd(*ins, m, ge, shape[2]), 0.0, 5e-3)
+        log(f"bf16 backward edge {shape}, {kind} mask: worst {max(e):.2e}, relaunch "
+            "bit-identical: ok")
+    if att.bwd_tc_launches - btc0 != 32:
+        raise AssertionError(f"{att.bwd_tc_launches - btc0} tensor-core backward launches, "
+                             "expected 32")
     check_budget("attention backward vs plain")
 
     # 18. serving
@@ -1143,24 +1188,27 @@ def mhsa_phases(dev):
                       logger=lambda k, v, _: losses.append(v) if k.startswith("train/") else None)
     trainer.init()
     torch.cuda.reset_peak_memory_stats()
-    att.launches = att.bwd_launches = att.tc_launches = 0
+    att.launches = att.bwd_launches = att.tc_launches = att.bwd_tc_launches = 0
     trainer.fit([batch], max_epochs=TRAIN_STEPS)
     torch.cuda.synchronize()
-    fit_fwd, fit_bwd, fit_tc = att.launches, att.bwd_launches, att.tc_launches
-    att.launches = att.bwd_launches = att.tc_launches = 0
+    fit_fwd, fit_bwd, fit_tc, fit_btc = (att.launches, att.bwd_launches, att.tc_launches,
+                                         att.bwd_tc_launches)
+    att.launches = att.bwd_launches = att.tc_launches = att.bwd_tc_launches = 0
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    step_fwd, step_bwd, step_tc = att.launches, att.bwd_launches, att.tc_launches
+    step_fwd, step_bwd, step_tc, step_btc = (att.launches, att.bwd_launches, att.tc_launches,
+                                             att.bwd_tc_launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
-    log(f"launches: fit {fit_fwd} forward ({fit_tc} tensor-core) + {fit_bwd} backward in "
-        f"{TRAIN_STEPS} steps; one step {step_fwd} ({step_tc}) + {step_bwd} (forward {n_layers} "
-        f"+ {n_layers} recomputed by remat, backward {n_layers}); peak memory {peak:.1f} GiB")
-    want = (2 * n_layers, 2 * n_layers, n_layers)
-    if ((step_fwd, step_tc, step_bwd) != want
-            or (fit_fwd, fit_tc, fit_bwd) != tuple(TRAIN_STEPS * w for w in want)):
-        raise AssertionError(f"expected {want[0]} forward launches a step, all on the "
-                             f"tensor-core kernel, and {want[2]} backward")
+    log(f"launches: fit {fit_fwd} forward ({fit_tc} tensor-core) + {fit_bwd} backward "
+        f"({fit_btc} tensor-core) in {TRAIN_STEPS} steps; one step {step_fwd} ({step_tc}) + "
+        f"{step_bwd} ({step_btc}) (forward {n_layers} + {n_layers} recomputed by remat, "
+        f"backward {n_layers}); peak memory {peak:.1f} GiB")
+    want = (2 * n_layers, 2 * n_layers, n_layers, n_layers)
+    if ((step_fwd, step_tc, step_bwd, step_btc) != want
+            or (fit_fwd, fit_tc, fit_bwd, fit_btc) != tuple(TRAIN_STEPS * w for w in want)):
+        raise AssertionError(f"expected {want[0]} forward and {want[2]} backward launches a "
+                             "step, all on the tensor-core kernels")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1198,6 +1246,11 @@ def mhsa_phases(dev):
     del ins32
     fwd_plain_ms = cuda_ms(lambda: att.reference(*insb, causal, nh), iters=3, warmup=1)
     bwd_ms = cuda_ms(lambda: att.backward(*insbt, causal, gbt, nh, stbt), iters=10)
+    ins32, g32 = [t.float() for t in insbt], gbt.float()
+    _, st32 = att.forward(*ins32, causal, nh, stats=True)
+    bwd_ms_fp32 = cuda_ms(lambda: att.backward(*ins32, causal, g32, nh, st32), iters=3,
+                          warmup=1)
+    del ins32, g32, st32
     bwd_plain_ms = cuda_ms(lambda: att.reference_bwd(*insbt, causal, gbt, nh), iters=3, warmup=1)
 
     def heads(t):  # [M, T, nh*d] -> [M, nh, T, d], a view
@@ -1229,7 +1282,8 @@ def mhsa_phases(dev):
         f"{fwd_library_ms:.3f} ms, bound {fwd_bound:.4f} ms ({fwd_by}: "
         f"{fwd_bytes / 1e6:.0f} MB, {fwd_ops / 1e9:.1f} GFLOP); writing the row statistics "
         f"at M={M_train}: {fwd_train_ms:.3f} ms")
-    log(f"narrowband_attention backward bf16 M={M_train}: kernel {bwd_ms:.3f} ms, plain "
+    log(f"narrowband_attention backward bf16 M={M_train}: tensor-core kernel {bwd_ms:.3f} ms "
+        f"(fp32, CUDA-core kernel {bwd_ms_fp32:.3f} ms), plain "
         f"{bwd_plain_ms:.3f} ms, library (SDPA backward) {bwd_library_ms:.3f} ms, bound "
         f"{bwd_bound:.4f} ms ({bwd_by}: {bwd_bytes / 1e6:.0f} MB, {bwd_ops / 1e9:.1f} GFLOP)")
     del insb, insbt, gbt, stbt
@@ -1273,12 +1327,15 @@ def mhsa_phases(dev):
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
              "library_ms": fwd_library_ms, **rates},
             {"name": "narrowband_attention_bwd", "route": "cuda",
-             "source": "nbss_tpu_torch/csrc/narrowband_attention_bwd.cu",
+             "source": "nbss_tpu_torch/csrc/narrowband_attention_bwd_tc.cu",
+             "source_fp32": "nbss_tpu_torch/csrc/narrowband_attention_bwd.cu",
+             "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"},
              "replaces": "nbss_tpu/ops/attention.py:197", "launches": fit_bwd,
-             "launches_training": fit_bwd, "max_abs_err": max(bwd_errs32),
-             "max_err_fp32": dict(zip(names, bwd_errs32)),
+             "tc_launches": fit_btc, "launches_training": fit_bwd,
+             "max_abs_err": max(bwd_errs32), "max_err_fp32": dict(zip(names, bwd_errs32)),
              "max_err_bf16": dict(zip(names, bwd_errsbf)), "ms": bwd_ms,
-             "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+             "ms_fp32": bwd_ms_fp32, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound,
+             "bound_by": bwd_by,
              "library_ms": bwd_library_ms}]
 
 
@@ -1418,12 +1475,20 @@ def nbc_phases(dev):
                              "launches, expected 2")
     del ob
     want = att.reference_bwd(*[t.float() for t in insb], None, gb.float(), nh)
-    errs = [(a.float() - w).abs().max().item()
-            for a, w in zip(att.backward(*insb, None, gb, nh, stb), want)]
+    btc0 = att.bwd_tc_launches
+    gotb = att.backward(*insb, None, gb, nh, stb)
+    relaunched("bf16 wide attention backward", gotb, att.backward(*insb, None, gb, nh, stb))
+    errs = [(a.float() - w).abs().max().item() for a, w in zip(gotb, want)]
     plain = [(a.float() - w).abs().max().item()
              for a, w in zip(att.reference_bwd(*insb, None, gb, nh), want)]
-    log("bf16 backward: max |kernel - fp32 plain| vs the plain bf16 version's: " + ", ".join(
-        f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(("dq", "dk", "dv"), errs, plain)))
+    del gotb
+    log("bf16 backward (tensor-core kernel): max |kernel - fp32 plain| vs the plain bf16 "
+        "version's: " + ", ".join(
+            f"{n} {e:.3e} / {p:.3e}" for n, e, p in zip(("dq", "dk", "dv"), errs, plain))
+        + "; two launches bit-identical")
+    if att.bwd_tc_launches - btc0 != 2:
+        raise AssertionError(f"bf16 wide attention backward: {att.bwd_tc_launches - btc0} "
+                             "tensor-core launches, expected 2")
     for name, e, p, w in zip(("dq", "dk", "dv"), errs, plain, want):
         if not e <= max(2 * p, 5e-3 * w.abs().max().item()):
             raise AssertionError(f"bf16 wide attention backward {name}: {e} vs plain {p}")
@@ -1547,6 +1612,11 @@ def nbc_phases(dev):
     del qf, kf, vf
     wide_plain_ms = cuda_ms(lambda: att.reference(*insb, None, nh), iters=2, warmup=1)
     wide_bwd_ms = cuda_ms(lambda: att.backward(*insb, None, gb, nh, stb), iters=3)
+    ins32, g32 = [t.float() for t in insb], gb.float()
+    _, st32 = att.forward(*ins32, None, nh, stats=True)
+    wide_bwd_ms_fp32 = cuda_ms(lambda: att.backward(*ins32, None, g32, nh, st32), iters=1,
+                               warmup=1)
+    del ins32, g32, st32
     wide_bwd_plain_ms = cuda_ms(lambda: att.reference_bwd(*insb, None, gb, nh), iters=2,
                                 warmup=1)
     leaves = [t.detach().clone().requires_grad_() for t in insb]
@@ -1561,8 +1631,9 @@ def nbc_phases(dev):
     log(f"narrowband_attention bf16 at dh={dhp}, dv={dv}, no mask: forward M={M} tensor-core "
         f"kernel {wide_ms:.3f} ms (fp32, CUDA-core kernel {wide_ms_fp32:.3f} ms), library (SDPA) "
         f"{wide_library_ms:.3f} ms, bound {wide_bound:.4f} ms "
-        f"({wide_by}); plain at M={Ma} {wide_plain_ms:.3f} ms; backward M={Ma} kernel "
-        f"{wide_bwd_ms:.3f} ms, plain {wide_bwd_plain_ms:.3f} ms, library (SDPA backward) "
+        f"({wide_by}); plain at M={Ma} {wide_plain_ms:.3f} ms; backward M={Ma} tensor-core "
+        f"kernel {wide_bwd_ms:.3f} ms (fp32, CUDA-core kernel {wide_bwd_ms_fp32:.3f} ms), plain "
+        f"{wide_bwd_plain_ms:.3f} ms, library (SDPA backward) "
         f"{wide_bwd_library_ms:.3f} ms, bound {wide_bwd_bound:.4f} ms ({wide_bwd_by})")
     del insb, gb, stb
 
@@ -1589,7 +1660,8 @@ def nbc_phases(dev):
                           "bound_ms": wide_bound, "bound_by": wide_by, "plain_ms_m": Ma,
                           "plain_ms": wide_plain_ms, "max_abs_err": wide_fwd_err,
                           "max_err_bf16": wide_errbf}}
-    row5 = {"nbc_dh216": {"M": Ma, "ms": wide_bwd_ms, "plain_ms": wide_bwd_plain_ms,
+    row5 = {"nbc_dh216": {"M": Ma, "ms": wide_bwd_ms, "ms_fp32": wide_bwd_ms_fp32,
+                          "plain_ms": wide_bwd_plain_ms,
                           "library_ms": wide_bwd_library_ms, "bound_ms": wide_bwd_bound,
                           "bound_by": wide_bwd_by,
                           "max_err_fp32": dict(zip(("dq", "dk", "dv"), wide_bwd_errs))}}
@@ -1709,11 +1781,14 @@ def tconvffn_phases(dev):
                          loss=Loss(name="neg_si_sdr", pit=True))
     wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
     target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
-    tc.launches = ab.launches = ab.bwd_launches = 0
+    tc.launches = ab.launches = ab.tc_launches = ab.bwd_launches = 0
     yr_hat, _ = module.forward(wave)
     pred = module.predict_step(wave, target)
     torch.cuda.synchronize()
     served = (tc.launches, ab.launches, ab.bwd_launches)
+    if ab.tc_launches != ab.launches:
+        raise AssertionError(f"{ab.launches - ab.tc_launches} bf16 attention-block launches "
+                             "missed the tensor-core kernel")
     for name, out in (("forward", yr_hat), ("predict_step", pred)):
         if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
             raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
@@ -1722,7 +1797,8 @@ def tconvffn_phases(dev):
         raise AssertionError(f"launches (tconvffn, attention block, its backward) {served} in two "
                              f"forwards, expected {(2 * n_layers, 2 * n_layers, 0)}")
     log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; launches (tconvffn, "
-        f"attention block, backward) {served} ({n_layers} + {n_layers} per forward)")
+        f"attention block, backward) {served} ({n_layers} + {n_layers} per forward, the "
+        "attention block's all on its tensor-core kernel)")
     kernel32 = SpatialNet(**FLAGSHIP, fused_ffn=True, device=dev).eval()
     kernel32.load_state_dict(net.state_dict())
     plain32 = SpatialNet(**FLAGSHIP, fused_block=False, device=dev).eval()

@@ -1,4 +1,6 @@
-// Narrow-band attention block, forward, for Hopper (sm_90a).
+// Narrow-band attention block, forward, for Hopper (sm_90a), float32: fp32
+// FMA on the CUDA cores, since no tensor-core product keeps float32's
+// digits. bf16 inputs take attention_block_tc.cu (bf16 tensor cores).
 //
 // Computes, for each of M independent sequences x[m] of T frames by H = 96
 // channels,
@@ -62,11 +64,6 @@ template <> struct Elem<float> {
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-};
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -351,16 +348,15 @@ cudaError_t launch(const void* x, const void* ln, const void* A, const void* Wvo
 
 }  // namespace
 
-// x, y: [M, T, H] float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1), contiguous.
+// x, y: [M, T, H] float32, contiguous (bf16 inputs take attention_block_tc.cu).
 // ln [2, H], A and Wvo [nh, H+2, H+2], c [H]: float32, contiguous.
 // Returns the CUDA error of the launch (0 on success); shapes the kernel is
 // not built for return cudaErrorInvalidValue without launching.
 extern "C" int nbss_attention_block_fwd(const void* x, const void* ln, const void* A,
                                         const void* Wvo, const void* c, void* y,
                                         int M, int T, int Hdim, int nh, float eps,
-                                        int is_bf16, void* stream) {
+                                        void* stream) {
   if (Hdim != H || T < 1 || T > TMAX || M < 1 || nh < 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(is_bf16 ? launch<__nv_bfloat16>(x, ln, A, Wvo, c, y, M, T, nh, eps, s)
-                     : launch<float>(x, ln, A, Wvo, c, y, M, T, nh, eps, s));
+  return int(launch<float>(x, ln, A, Wvo, c, y, M, T, nh, eps, s));
 }

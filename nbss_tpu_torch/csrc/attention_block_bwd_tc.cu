@@ -60,26 +60,16 @@
 // from L2 in the passes instead of staging them cost 1.2 ms a call (4.5
 // against 3.3 ms at the training shape on an H100).
 
-#include <cmath>
-
-#include "mma_bf16.cuh"
+#include "attention_block_tc.cuh"
 
 namespace {
 
-using namespace nbss_mma;
-using bf16 = __nv_bfloat16;
+using namespace nbss_block;
 
-constexpr int H = 96;          // channels the kernel is built for
-constexpr int HA = H + 2;      // row stride of the folded operands
 constexpr int HW = 112;        // width of the xa and dt rows written for the weight products
-constexpr int TMAX = 256;      // longest sequence the shared tiles hold
 constexpr int NW = 8;          // warps per block
 constexpr int NT = NW * 32;
-constexpr int LS = H + 8;      // row stride (elements) of the shared bf16 tiles
-constexpr int KS = H / 16;     // k-steps over the channels
-constexpr int NC = H / 8;      // n-tiles over the channels
 constexpr int TILE_BYTES = TMAX * LS * 2;
-constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int SMEM_BYTES = 4 * TILE_BYTES + 3 * TMAX * 4;
 static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
@@ -90,134 +80,6 @@ static_assert(NW * 3 * H * 4 <= TILE_BYTES, "the dln/dc reduction fits in a tile
 constexpr int GW = 7;
 constexpr int GROWS = 64;      // rows staged at a time
 constexpr int GLS = HW + 8;    // their shared row stride
-
-// bf16 weights per head, as the main kernel reads them (prepared by prep):
-//   AT [104][96]  AT[n][k] = A[k][n]    (B of t = xa A)
-//   WT [96][96]   WT[n][k] = Wvo[k][n]  (B of vo = xa Wvo)
-//   Ab [96][96]   Ab[i][k] = A[i][k]    (B of dxa = dt A^T)
-//   Wb [96][96]   Wb[i][k] = Wvo[i][k]  (B of dxa = dvo Wvo^T)
-// and float32 vectors per head: abias [104] = A[H][:], wbias [96] = Wvo[H][:],
-// acol [96] = A[:H][H], each rounded to bf16.
-constexpr int AT_N = 104;
-constexpr int WTS_PER_HEAD = AT_N * H + 3 * H * H;
-constexpr int VEC_PER_HEAD = AT_N + 2 * H;
-
-__global__ void attention_block_bwd_tc_prep(const float* __restrict__ A,
-                                            const float* __restrict__ Wvo, bf16* __restrict__ wts,
-                                            float* __restrict__ vecs, int nh) {
-  const int h = blockIdx.x;
-  const float* Ah = A + size_t(h) * HA * HA;
-  const float* Wh = Wvo + size_t(h) * HA * HA;
-  bf16* AT = wts + size_t(h) * WTS_PER_HEAD;
-  bf16* WT = AT + AT_N * H;
-  bf16* Ab = WT + H * H;
-  bf16* Wb = Ab + H * H;
-  float* abias = vecs + size_t(h) * VEC_PER_HEAD;
-  float* wbias = abias + AT_N;
-  float* acol = wbias + H;
-  for (int idx = threadIdx.x; idx < AT_N * H; idx += blockDim.x) {
-    const int n = idx / H, k = idx % H;
-    AT[idx] = __float2bfloat16(n < HA ? Ah[k * HA + n] : 0.f);
-  }
-  for (int idx = threadIdx.x; idx < H * H; idx += blockDim.x) {
-    const int n = idx / H, k = idx % H;
-    WT[idx] = __float2bfloat16(Wh[k * HA + n]);
-    Ab[idx] = __float2bfloat16(Ah[n * HA + k]);
-    Wb[idx] = __float2bfloat16(Wh[n * HA + k]);
-  }
-  for (int n = threadIdx.x; n < AT_N; n += blockDim.x)
-    abias[n] = n < HA ? round_bf16(Ah[H * HA + n]) : 0.f;
-  for (int n = threadIdx.x; n < H; n += blockDim.x) {
-    wbias[n] = round_bf16(Wh[H * HA + n]);
-    acol[n] = round_bf16(Ah[n * HA + H]);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// A fragments of rows r0 .. r0 + 15 of a shared [*][LS] tile, all 6 k-steps.
-__device__ __forceinline__ void load_a(uint32_t (&F)[KS][4], const bf16* tile, int r0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldsm_x4(F[ks], tile + (r0 + (lane & 15)) * LS + ks * 16 + (lane >> 4) * 8);
-}
-
-// c[u] (+)= F (16 rows) . rows r0 + 16u .. r0 + 16u + 15 of `tile` (over the
-// channels), u < NK: the [16, 16] products whose B operand is the tile's
-// rows as columns. The k-steps go outermost, so the 2 NK accumulators form
-// independent chains.
-template <int NK, bool ACCUMULATE = false>
-__device__ __forceinline__ void mma_rows(float (&c)[NK][2][4], const uint32_t (&F)[KS][4],
-                                         const bf16* tile, int r0, int lane) {
-  if (!ACCUMULATE) {
-#pragma unroll
-    for (int u = 0; u < NK; ++u)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) c[u][n][0] = c[u][n][1] = c[u][n][2] = c[u][n][3] = 0.f;
-  }
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int u = 0; u < NK; ++u) {
-      uint32_t B[4];
-      ldsm_x4(B, tile + (r0 + 16 * u + (lane & 7) + (lane >> 4) * 8) * LS + ks * 16 +
-                     ((lane >> 3) & 1) * 8);
-      mma(c[u][0], F[ks], B[0], B[1]);
-      mma(c[u][1], F[ks], B[2], B[3]);
-    }
-  }
-}
-
-// The scores of key tile kt for the query rows of F (t): s = t xa^T + t[:, H];
-// keys >= T get -inf.
-__device__ __forceinline__ void score_tile(float (&s)[2][4], const uint32_t (&F)[KS][4],
-                                           const bf16* XA, int kt, int T, const float (&cq)[2],
-                                           int lane) {
-  const int t4 = lane & 3;
-  float c[1][2][4];
-  mma_rows<1>(c, F, XA, kt * 16, lane);
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[n][e] = kt * 16 + n * 8 + 2 * t4 + (e & 1) < T ? c[0][n][e] + cq[e >> 1] : -INFINITY;
-}
-
-// Rows [0, rows) of a [*][96] bf16 matrix in global memory into a shared
-// [*][LS] tile, 16 bytes at a time; rows [rows, pad) zero.
-__device__ __forceinline__ void stage_weights(bf16* dst, const bf16* __restrict__ src, int rows,
-                                              int pad, int tid) {
-  for (int idx = tid; idx < pad * (H / 8); idx += NT) {
-    const int r = idx / (H / 8), c = (idx % (H / 8)) * 8;
-    if (r < rows)
-      cp_async16(dst + r * LS + c, src + r * H + c);
-    else
-      *reinterpret_cast<uint4*>(dst + r * LS + c) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// acc[NC] += P (16 x 16, A fragment over rows r0 .. r0 + 15 of `tile`) . tile
-// rows r0 .. r0 + 15 (all channels): the B operand read transposed.
-__device__ __forceinline__ void mma_tile_t(float (&acc)[NC][4], const uint32_t (&P)[4],
-                                           const bf16* tile, int r0, int lane) {
-#pragma unroll
-  for (int nn = 0; nn < NC / 2; ++nn) {
-    uint32_t B[4];
-    ldsm_x4_t(B, tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LS + nn * 16 + (lane >> 4) * 8);
-    mma(acc[2 * nn], P, B[0], B[1]);
-    mma(acc[2 * nn + 1], P, B[2], B[3]);
-  }
-}
-
-// The A fragments of a [16, 96] C-fragment tile, each value rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t (&D)[KS][4], const float (&c)[NC][4]) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) pack_a(D[ks], c[2 * ks], c[2 * ks + 1]);
-}
 
 struct Work {
   bf16* xa_rows;   // [M * T][HW]: xa of every frame (lane H = 1)
@@ -300,8 +162,8 @@ attention_block_bwd_tc_kernel(const bf16* __restrict__ x, const float* __restric
       // and Wvo_h^T staged in the g' tile, which is free until P2
       bf16* ATs = GP;                 // [112][LS]: rows H + 2 .. 111 zero
       bf16* WTs = GP + 112 * LS;      // [H][LS]
-      stage_weights(ATs, AT, AT_N, 112, tid);
-      stage_weights(WTs, WT, H, H, tid);
+      stage_weights(ATs, AT, AT_N, 112, tid, NT);
+      stage_weights(WTs, WT, H, H, tid, NT);
       cp_async_wait_all();
       __syncthreads();
       for (int rt = warp; rt < ntile; rt += NW) {
@@ -532,8 +394,8 @@ attention_block_bwd_tc_kernel(const bf16* __restrict__ x, const float* __restric
       // from the dt and dvo rows this warp wrote, with A_h and Wvo_h staged in the t tile
       bf16* Abs = TS;            // [H][LS]
       bf16* Wbs = TS + H * LS;   // [H][LS]
-      stage_weights(Abs, Ab, H, H, tid);
-      stage_weights(Wbs, Wb, H, H, tid);
+      stage_weights(Abs, Ab, H, H, tid, NT);
+      stage_weights(Wbs, Wb, H, H, tid, NT);
       cp_async_wait_all();
       __syncthreads();
       for (int rt = warp; rt < ntile; rt += NW) {
@@ -770,8 +632,8 @@ extern "C" int nbss_attention_block_bwd_tc(const void* x, const void* ln, const 
                reinterpret_cast<float*>(base + L.part)};
   float* wpart = reinterpret_cast<float*>(base + L.wpart);
 
-  attention_block_bwd_tc_prep<<<nh, 256, 0, s>>>(static_cast<const float*>(A),
-                                                 static_cast<const float*>(Wvo), wts, vecs, nh);
+  attention_block_tc_prep<H><<<nh, 256, 0, s>>>(static_cast<const float*>(A),
+                                                static_cast<const float*>(Wvo), wts, vecs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(attention_block_bwd_tc_kernel,

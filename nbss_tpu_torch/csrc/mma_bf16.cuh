@@ -1,6 +1,8 @@
 // Fragment helpers for the tensor-core kernels (narrowband_attention_tc.cu,
+// narrowband_attention_bwd_tc.cu, attention_block_tc.cu,
 // attention_block_bwd_tc.cu): mma.sync m16n8k16 with bf16 operands and a
-// float32 accumulator, ldmatrix from shared memory, cp.async staging.
+// float32 accumulator, ldmatrix from shared memory, movmatrix, cp.async
+// staging.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4), as the PTX ISA
 // gives it:
@@ -56,6 +58,24 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An 8x8 bf16 matrix held as one register a lane (lane l: row l / 4, columns
+// 2 (l % 4) .. + 1, the layout of each quarter of an A or C fragment),
+// transposed across the warp.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// The A fragment of X^T from the A fragment of a 16x16 tile X: quarter
+// (r, c) of X^T is quarter (c, r) of X, transposed.
+__device__ __forceinline__ void transpose_a(uint32_t (&t)[4], const uint32_t (&a)[4]) {
+  t[0] = movmatrix_t(a[0]);
+  t[1] = movmatrix_t(a[2]);
+  t[2] = movmatrix_t(a[1]);
+  t[3] = movmatrix_t(a[3]);
 }
 
 // Two floats rounded to bf16 (round to nearest even) in one register.

@@ -35,11 +35,6 @@ template <> struct Elem<float> {
   static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 };
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-};
 
 // a . b over D values (a multiple of 4): a in registers, b a row in shared
 // memory read as float4, four partial sums over d % 4 added pairwise. An fma

@@ -1,4 +1,7 @@
-// Narrow-band multi-head attention, backward, for Hopper (sm_90a).
+// Narrow-band multi-head attention, backward, for Hopper (sm_90a), float32:
+// fp32 FMA on the CUDA cores, since no tensor-core product keeps float32's
+// digits. bf16 inputs take narrowband_attention_bwd_tc.cu (bf16 tensor
+// cores).
 //
 // The adjoint of narrowband_attention.cu for a cotangent g of o, at the
 // Pallas kernel's rounding points. With the forward's row max m and
@@ -19,8 +22,8 @@
 // _bwd_kernel_nomask) in nbss_tpu/ops/attention.py.
 //
 // What bounds it on an H100: at the training shape (M = 1032, T = 251,
-// nh = 4, dh = dv = 24, bf16) the function reads q, k, v, g and writes dq,
-// dk, dv, 348 MB (0.10 ms at 3.35 TB/s), and does five [T, T] products, 62
+// nh = 4, dh = dv = 24, float32) the function reads q, k, v, g and writes
+// dq, dk, dv, 696 MB (0.21 ms at 3.35 TB/s), and does five [T, T] products, 62
 // GFLOP (63 us at the tensor-core rate). These kernels run on the CUDA
 // cores in float32 and recompute e where they need it, about 110 GFLOP of
 // float32 FMA, a 1.7 ms floor at 67 TFLOP/s. Two launches, no atomics, so
@@ -437,7 +440,8 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 // (dq, dk, dv) of the attention for the cotangent g, on `stream`. stats: the
 // [2, M, nh, T] row max and 1 / row sum that nbss_narrowband_attention_fwd
 // wrote for the same q, k and mask; delta: a [M, nh, T] float32 workspace.
-// q, k, v, g, dq, dk, dv are bfloat16 when is_bf16, else float32; q, k, v
+// q, k, v, g, dq, dk, dv are float32 (bf16 inputs take
+// narrowband_attention_bwd_tc.cu); q, k, v
 // rows lie ldq, ldk, ldv elements apart, g, dq, dk, dv are contiguous.
 // Returns the CUDA error of the launches (0 on success).
 extern "C" int nbss_narrowband_attention_bwd(const void* q, const void* k, const void* v,
@@ -446,7 +450,7 @@ extern "C" int nbss_narrowband_attention_bwd(const void* q, const void* k, const
                                              void* delta, long long ldq, long long ldk,
                                              long long ldv, int M, int T, int nh, int dh,
                                              int dvw, int mask_heads, float scale,
-                                             int is_bf16, void* stream) {
+                                             void* stream) {
   if (M < 1 || T < 1 || nh < 1 || dh < 1 || dvw < 1 || dh > DKMAX || dvw > DMAX ||
       (mask != nullptr && mask_heads != 1 && mask_heads != nh))
     return int(cudaErrorInvalidValue);
@@ -454,5 +458,5 @@ extern "C" int nbss_narrowband_attention_bwd(const void* q, const void* k, const
                   static_cast<const float*>(stats), dq, dk, dv, static_cast<float*>(delta),
                   ldq, ldk, ldv, M, T, nh, dh, dvw, mask_heads, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  return launch<float>(a, s);
 }

@@ -59,21 +59,14 @@
 // the K/V load of each (sequence, head) is not overlapped with compute.
 
 #include <climits>
-#include <cmath>
 
-#include "mma_bf16.cuh"
+#include "narrowband_attention_tc.cuh"
 
 namespace {
 
-using namespace nbss_mma;
-using bf16 = __nv_bfloat16;
+using namespace nbss_attn_tc;
 
-constexpr int KC = 256;             // keys a chunk holds (all of them when T <= KC)
 constexpr int KPAIRS = KC / 16;     // 16-key blocks of a chunk
-constexpr int DKMAX = 256;          // largest q/k head width
-constexpr int DVMAX = 64;           // largest v head width
-constexpr int SMEM_MAX = 232448;    // shared memory a block may use
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const bf16* q;
@@ -88,98 +81,6 @@ struct Args {
   int vq, vk, vv;     // rows of q, k, v may be copied 16 bytes at a time
   float scale;
 };
-
-// Row stride (elements) of a staged tile whose rows hold d values (a
-// multiple of 8): an odd number of 16-byte units, so that the 8 rows an
-// ldmatrix reads fall on 8 different bank groups.
-__host__ __device__ constexpr int row_stride(int d) { return d + ((d / 8) % 2 == 0 ? 8 : 0); }
-
-// Rows r0 .. r0 + n - 1 of a head slice into dst (stride ld, D columns):
-// element c of row r is src[(grow0 + r) * lds + c0 + c] for r < nvalid and
-// c < width, else 0. With vec, rows go 16 bytes at a time by cp.async.
-__device__ __forceinline__ void stage(bf16* dst, int ld, int D, const bf16* src, long long lds,
-                                      size_t grow0, int r0, int n, int nvalid, int c0,
-                                      int width, bool vec, int tid, int nthreads) {
-  const int chunks = D / 8;
-  for (int idx = tid; idx < n * chunks; idx += nthreads) {
-    const int r = idx / chunks, c = (idx - r * chunks) * 8;
-    bf16* d = dst + r * ld + c;
-    const int row = r0 + r;
-    const bf16* s = src + (grow0 + row) * size_t(lds) + c0 + c;
-    if (vec && row < nvalid && c < width) {
-      cp_async16(d, s);
-    } else {
-      __align__(16) bf16 tmp[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        tmp[e] = (row < nvalid && c + e < width) ? s[e] : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(tmp);
-    }
-  }
-}
-
-// How a kernel reads the mask: none, the tile's rows staged in shared
-// memory, or global memory at each score's position.
-constexpr int MASK_NONE = 0, MASK_STAGED = 1, MASK_GLOBAL = 2;
-
-// The scores of one warp's 16 query rows (Qw, staged) against NP 16-key
-// blocks of the staged keys Ks, of which the first np hold keys (np = NP
-// when FULL): S[n][*] is the C fragment of keys j0 + 8n .. j0 + 8n + 7.
-// s = (q k) * scale (+ mask); keys >= T get -inf. MASK_STAGED reads the
-// tile's mask rows at Mw (row r at Mw + r * T; rows past T are not read in
-// effect: their scores are never written out).
-template <int NP, bool FULL, int MM>
-__device__ __forceinline__ void scores(float (&S)[2 * NP][4], const Args& a, const bf16* Qw,
-                                       const bf16* Ks, int KS, int np, const float* mask,
-                                       const float* Mw, int i0, int j0, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 2 * NP; ++n) S[n][0] = S[n][1] = S[n][2] = S[n][3] = 0.f;
-#pragma unroll 1
-  for (int kk = 0; kk < a.dp; kk += 16) {
-    uint32_t A[4];
-    ldsm_x4(A, Qw + (lane & 15) * KS + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      if (FULL || p < np) {
-        uint32_t B[4];
-        ldsm_x4(B, Ks + (p * 16 + (lane & 7) + (lane >> 4) * 8) * KS + kk + ((lane >> 3) & 1) * 8);
-        mma(S[2 * p], A, B[0], B[1]);
-        mma(S[2 * p + 1], A, B[2], B[3]);
-      }
-    }
-  }
-  if constexpr (MM == MASK_STAGED) {
-#pragma unroll
-    for (int n = 0; n < 2 * NP; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + n * 8 + 2 * t4 + (e & 1);
-        const float mv = Mw[(g + (e >> 1) * 8) * a.T + min(j, a.T - 1)];
-        S[n][e] = j < a.T ? S[n][e] * a.scale + mv : -INFINITY;
-      }
-    }
-  } else if constexpr (MM == MASK_GLOBAL) {
-#pragma unroll
-    for (int n = 0; n < 2 * NP; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + n * 8 + 2 * t4 + (e & 1);
-        const float mv = __ldg(mask + size_t(min(i0 + g + (e >> 1) * 8, a.T - 1)) * a.T + min(j, a.T - 1));
-        S[n][e] = j < a.T ? S[n][e] * a.scale + mv : -INFINITY;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < 2 * NP; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + n * 8 + 2 * t4 + (e & 1);
-        S[n][e] = j < a.T ? S[n][e] * a.scale : -INFINITY;
-      }
-    }
-  }
-}
 
 // The row max of S for rows g (mx[0]) and g + 8 (mx[1]) over the quad.
 template <int NP>
@@ -207,7 +108,7 @@ __device__ __forceinline__ void weights_times_v(float (&S)[2 * NP][4], const flo
       for (int n = 2 * p; n < 2 * p + 2; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float x = ex2((S[n][e] - mx[e >> 1]) * LOG2E);
+          const float x = exp_shifted(S[n][e], mx[e >> 1]);
           S[n][e] = x;
           l[e >> 1] += x;
         }
@@ -255,21 +156,6 @@ __device__ __forceinline__ void finish(const Args& a, float (&O)[DVP / 8][4], co
   }
 }
 
-// The mask rows i0 .. i0 + 15 (those < T) of one head into dst, row r at
-// dst + r * T: one contiguous run of floats, copied 16 bytes at a time where
-// aligned. Part `part` of `nparts` warps' share.
-__device__ __forceinline__ void stage_mask_rows(float* dst, const float* mask, int T, int i0,
-                                                int part, int nparts, int lane) {
-  const size_t n = size_t(min(16, T - i0)) * T;
-  const float* src = mask + size_t(i0) * T;
-  size_t c = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const size_t n4 = n / 4;
-    for (size_t v = lane + 32 * part; v < n4; v += 32 * nparts) cp_async16(dst + 4 * v, src + 4 * v);
-    c = 4 * n4;
-  }
-  for (c += lane + 32 * part; c < n; c += 32 * nparts) cp_async4(dst + c, src + c);
-}
 
 // Named barrier of the KSPLIT warps that share a query tile.
 template <int KSPLIT>
@@ -358,9 +244,11 @@ __global__ void __launch_bounds__(NW * 32) narrowband_attention_tc_kernel(const 
         group_sync<KSPLIT>(grp);
       }
       if (full)
-        scores<NP, true, MM>(S, a, Qg, Ks + j0 * KS, KS, np, mask, Mg, i0, j0, lane);
+        scores<NP, true, MM>(S, Qg, Ks + j0 * KS, KS, np, a.dp, a.T, a.scale, mask, Mg, a.T, 0, i0,
+                             j0, lane);
       else
-        scores<NP, false, MM>(S, a, Qg, Ks + j0 * KS, KS, np, mask, Mg, i0, j0, lane);
+        scores<NP, false, MM>(S, Qg, Ks + j0 * KS, KS, np, a.dp, a.T, a.scale, mask, Mg, a.T, 0, i0,
+                              j0, lane);
       float mx[2] = {-INFINITY, -INFINITY};
       row_max<NP>(S, mx);
       if constexpr (KSPLIT > 1) {
@@ -432,7 +320,8 @@ __global__ void __launch_bounds__(NW * 32) narrowband_attention_tc_kernel(const 
         cp_async_wait_all();
         __syncthreads();
         if (active) {
-          scores<NP, false, MM>(S, a, Qg, Ks, KS, np, mask, nullptr, i0, c * KC, lane);
+          scores<NP, false, MM>(S, Qg, Ks, KS, np, a.dp, a.T, a.scale, mask, nullptr, a.T, 0, i0,
+                                c * KC, lane);
           row_max<NP>(S, mx);
         }
       }
@@ -443,7 +332,8 @@ __global__ void __launch_bounds__(NW * 32) narrowband_attention_tc_kernel(const 
         cp_async_wait_all();
         __syncthreads();
         if (active) {
-          scores<NP, false, MM>(S, a, Qg, Ks, KS, np, mask, nullptr, i0, c * KC, lane);
+          scores<NP, false, MM>(S, Qg, Ks, KS, np, a.dp, a.T, a.scale, mask, nullptr, a.T, 0, i0,
+                                c * KC, lane);
           weights_times_v<NP, false, DVP>(S, mx, l, O, Vs, VS, np, lane);
         }
       }

@@ -93,8 +93,12 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nbss_attention_block_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                                 ctypes.c_float, i, p]
+                                                 ctypes.c_float, p]
         lib.nbss_attention_block_fwd.restype = i
+        lib.nbss_attention_block_tc_fwd.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, p]
+        lib.nbss_attention_block_tc_fwd.restype = i
+        lib.nbss_attention_block_tc_workspace_bytes.argtypes = [i, i]
+        lib.nbss_attention_block_tc_workspace_bytes.restype = ctypes.c_longlong
         lib.nbss_attention_block_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                                  ctypes.c_float, p]
         lib.nbss_attention_block_bwd.restype = i
@@ -117,8 +121,10 @@ def library() -> ctypes.CDLL:
         lib.nbss_narrowband_attention_fwd.restype = i
         lib.nbss_narrowband_attention_tc_fwd.argtypes = [p] * 6 + [ll] * 3 + [i] * 6 + [f, p]
         lib.nbss_narrowband_attention_tc_fwd.restype = i
-        lib.nbss_narrowband_attention_bwd.argtypes = [p] * 10 + [ll] * 3 + [i] * 6 + [f, i, p]
+        lib.nbss_narrowband_attention_bwd.argtypes = [p] * 10 + [ll] * 3 + [i] * 6 + [f, p]
         lib.nbss_narrowband_attention_bwd.restype = i
+        lib.nbss_narrowband_attention_bwd_tc.argtypes = [p] * 10 + [ll] * 3 + [i] * 6 + [f, p]
+        lib.nbss_narrowband_attention_bwd_tc.restype = i
         lib.nbss_narrowband_attention_max_width.argtypes = []
         lib.nbss_narrowband_attention_max_width.restype = i
         lib.nbss_narrowband_attention_max_v_width.argtypes = []

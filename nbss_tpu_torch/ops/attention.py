@@ -13,9 +13,10 @@ The mask is none, additive [T, T] for every head, or [nh, T, T].
 its forward runs a hand-written kernel chosen by dtype: bfloat16 inputs take
 ``csrc/narrowband_attention_tc.cu`` (bf16 tensor cores, ``mma.sync``),
 float32 inputs ``csrc/narrowband_attention.cu`` (float32 FMA on the CUDA
-cores: no tensor-core product keeps float32's digits). Its backward runs
-``csrc/narrowband_attention_bwd.cu`` for both. For a CPU tensor they run the
-plain PyTorch versions ``reference`` and ``reference_bwd``. The
+cores: no tensor-core product keeps float32's digits); its backward likewise
+``csrc/narrowband_attention_bwd_tc.cu`` and ``csrc/narrowband_attention_bwd.cu``.
+For a CPU tensor they run the plain PyTorch versions ``reference`` and
+``reference_bwd``. The
 kernels replace the Pallas TPU kernels ``narrowband_attention`` /
 ``_fused_forward`` and ``_fused_backward`` of the JAX package and keep their
 rounding points: the unnormalized weights e = exp(s - rowmax) are rounded to
@@ -47,6 +48,7 @@ NARROW_DMAX = 64  # q/k head widths above this take the wide kernels (32-row til
 launches = 0  # forward kernel launches made by narrowband_attention since import
 tc_launches = 0  # of which on the bf16 tensor-core kernel
 bwd_launches = 0  # backward kernel launches made by narrowband_attention since import
+bwd_tc_launches = 0  # of which on the bf16 tensor-core backward
 
 
 def _up(t):
@@ -127,8 +129,8 @@ def _shape(name, q, k, v, mask, nh):
     if T < 1 or not 1 <= dh <= KERNEL_DHMAX or not 1 <= dv <= KERNEL_DVMAX:
         raise ValueError(f"{name}: the kernels take T >= 1 and head widths dh 1..{KERNEL_DHMAX}"
                          f", dv 1..{KERNEL_DVMAX}, got T = {T}, dh = {dh}, dv = {dv}")
-    if q.dtype == torch.bfloat16 and name == "narrowband_attention":
-        blocks = M * nh  # the tensor-core forward runs a block per (sequence, head)
+    if q.dtype == torch.bfloat16:
+        blocks = M * nh  # the tensor-core kernels run a block per (sequence, head)
     else:
         blocks = M * nh * -(-T // (64 if dh <= NARROW_DMAX else 32))
     if blocks >= 2 ** 31:
@@ -210,7 +212,7 @@ def backward(q, k, v, mask, g, nh: int, stats):
     CUDA kernels for a CUDA tensor, which read the row statistics that
     ``forward(..., stats=True)`` wrote on the same q, k and mask. Returns
     (dq, dk, dv) as ``reference_bwd`` does."""
-    global bwd_launches
+    global bwd_launches, bwd_tc_launches
     if q.device.type == "cpu":
         return reference_bwd(q, k, v, mask, g, nh)
     if q.device.type != "cuda":
@@ -233,15 +235,18 @@ def backward(q, k, v, mask, g, nh: int, stats):
 
     lib = _build.library()
     delta = torch.empty(M, nh, T, dtype=torch.float32, device=q.device)
-    err = lib.nbss_narrowband_attention_bwd(
+    tc = q.dtype == torch.bfloat16
+    kernel = lib.nbss_narrowband_attention_bwd_tc if tc else lib.nbss_narrowband_attention_bwd
+    err = kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvals.data_ptr(),
         delta.data_ptr(), ldq, ldk, ldv, M, T, nh, dh, dv, mask_heads, 1.0 / math.sqrt(dh),
-        int(q.dtype == torch.bfloat16), _stream(q))
+        _stream(q))
     if err != 0:
-        raise RuntimeError(f"narrowband_attention backward kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"narrowband_attention backward {'tensor-core ' if tc else ''}kernel "
+                           f"launch failed with CUDA error {err}")
     bwd_launches += 1
+    bwd_tc_launches += tc
     return dq, dk, dvals
 
 

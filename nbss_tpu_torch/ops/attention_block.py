@@ -11,11 +11,12 @@ so that ``y = x + sum_h softmax(xa A_h xa^T) (xa Wvo_h)[:, :H] + c`` with
 ``xa = [LN(x), 1, 0]``.
 
 ``attention_block`` is a ``torch.autograd.Function``. For a CUDA tensor its
-forward runs the hand-written CUDA kernel ``csrc/attention_block.cu``; its
-backward runs ``csrc/attention_block_bwd_tc.cu`` (bf16 tensor cores,
-``mma.sync``) on bfloat16 inputs and ``csrc/attention_block_bwd.cu``
+forward and backward run hand-written CUDA kernels chosen by dtype:
+bfloat16 inputs take ``csrc/attention_block_tc.cu`` and
+``csrc/attention_block_bwd_tc.cu`` (bf16 tensor cores, ``mma.sync``),
+float32 inputs ``csrc/attention_block.cu`` and ``csrc/attention_block_bwd.cu``
 (float32 FMA on the CUDA cores: no tensor-core product keeps float32's
-digits) on float32 ones. For a CPU tensor they run the plain
+digits). For a CPU tensor they run the plain
 PyTorch versions ``reference`` and ``reference_bwd``. The kernels replace the
 Pallas TPU kernels ``_fused_block`` (``_kernel``) and ``_fused_block_bwd``
 (``_bwd_kernel``) of the JAX package, and the backward returns what the JAX
@@ -26,13 +27,12 @@ attention parameters; the constant slots of A and Wvo (``A[:, H, H+1]``,
 are dropped, as the JAX fold's ``.at[].set`` drops them. On an H100 it is bound by
 arithmetic, not by memory: at the flagship shape (M = B*F = 2064 sequences of
 T = 251 frames, H = 96, 4 heads) a call moves about 199 MB in bf16 but the
-folded function is about 283 GFLOP. The kernel keeps every intermediate (LN
-rows, scores, probabilities) in shared memory and sums the heads in
-registers, so it reads x once and writes y once; its arithmetic runs as fp32
-FMA in this first version (see the source for the layout). The backward
-recomputes the forward from (x, ln, A, Wvo) and keeps its cross-sequence
-sums in per-block float32 partials that a second kernel adds in a fixed
-order, so its result is deterministic.
+folded function is about 277 GFLOP. The forward kernels keep every
+intermediate (LN rows, t, vo, scores, weights) in shared memory or
+registers; no [T, T] matrix reaches device memory (see the sources for the
+layouts). The backward recomputes the forward from (x, ln, A, Wvo) and
+keeps its cross-sequence sums in per-block float32 partials that a second
+kernel adds in a fixed order, so its result is deterministic.
 
 NBC's block adds Transformer-XL relative positions (``fold_weights_nbc``,
 ``reference_relpos``, ``attention_block_relpos``): per head also Gs_h, Gc_h
@@ -48,6 +48,7 @@ autodiff of ``reference_relpos`` on every device, as the JAX package's
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -57,6 +58,7 @@ KERNEL_H = 96  # channels the kernel is compiled for
 KERNEL_TMAX = 256  # longest sequence the kernel holds in shared memory
 
 launches = 0  # forward kernel launches made by attention_block since import
+tc_launches = 0  # of which on the bf16 tensor-core forward
 bwd_launches = 0  # backward kernel launches made by attention_block since import
 bwd_tc_launches = 0  # of which on the bf16 tensor-core backward
 BWD_SLICE_ROWS = 1024  # frames per slice of the tensor-core backward's weight products
@@ -97,23 +99,34 @@ def fold_weights(ln_weight, ln_bias, in_proj_weight, in_proj_bias,
 
 
 def reference(x, ln, A, Wvo, c, eps: float, nh: int):
-    """Plain PyTorch version of the folded block, with the JAX reference's
-    rounding points (``_reference``): xa, A, Wvo, t, p and vo are rounded to
-    x's dtype, every product accumulates in float32. x: [M, T, H]."""
+    """Plain PyTorch version of the folded block, with the rounding points of
+    the JAX package's Pallas kernel (``_kernel``): xa, A, Wvo, t, vo and the
+    unnormalised weights e = exp(s - rowmax(s)) are rounded to x's dtype;
+    each head's pv = e vo is summed in float32 and divided by the float32
+    sum of the rounded e (the kernel's lane H of pv: vo's ones lane, which
+    ``fold_weights`` sets to 1 as the JAX fold does); the heads are summed
+    in float32 in head order and y is rounded once. Every product
+    accumulates in float32. x: [M, T, H]."""
     dt, f32 = x.dtype, torch.float32
+
+    def rnd(t):
+        return t.to(dt).to(f32)
+
+    H = x.shape[-1]
     xf = x.to(f32)
     xc = xf - xf.mean(-1, keepdim=True)
     var = (xc * xc).mean(-1, keepdim=True)
     xln = xc * torch.rsqrt(var + eps) * ln[0] + ln[1]
     ones = torch.ones_like(xln[..., :1])
-    xa = torch.cat([xln, ones, 0 * ones], -1).to(dt).to(f32)
-    t = torch.einsum("mqh,nhk->nmqk", xa, A.to(dt).to(f32)).to(dt).to(f32)
-    s = torch.einsum("nmqk,mjk->nmqj", t, xa)
-    p = torch.softmax(s, dim=-1).to(dt).to(f32)
-    vo = torch.einsum("mjh,nhk->nmjk", xa, Wvo.to(dt).to(f32)).to(dt).to(f32)
-    o = torch.einsum("nmqj,nmjk->mqk", p, vo)
-    H = x.shape[-1]
-    return (o[..., :H] + c[0] + xf).to(dt)
+    xa = rnd(torch.cat([xln, ones, 0 * ones], -1))
+    acc = torch.zeros_like(xf)
+    for h in range(nh):
+        t = rnd(xa @ rnd(A[h]))
+        s = t @ xa.transpose(1, 2)
+        e = rnd(torch.exp(s - s.amax(-1, keepdim=True)))
+        pv = e @ rnd(xa @ rnd(Wvo[h, :, :H]))
+        acc = acc + pv / e.sum(-1, keepdim=True)
+    return (acc + c[0] + xf).to(dt)
 
 
 def reference_bwd(x, ln, A, Wvo, g, eps: float, nh: int):
@@ -188,8 +201,18 @@ def _check(name, x, ln, A, Wvo, nh, extra=()):
         raise ValueError(f"{name}: x must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the persistent
+    kernels' grid, asked of the driver once a device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
-    global launches
+    """The block: ``reference`` for a CPU tensor; for a CUDA tensor the
+    tensor-core kernel on bfloat16 inputs and the CUDA-core kernel on float32
+    ones (or ValueError if it does not take the inputs)."""
+    global launches, tc_launches
     if x.device.type == "cpu":
         return reference(x, ln, A, Wvo, c, eps, nh)
     _check("attention_block", x, ln, A, Wvo, nh, {"c": (c, (1, x.shape[-1]))})
@@ -199,13 +222,25 @@ def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
         return y
     from nbss_tpu_torch.ops import _build
 
-    err = _build.library().nbss_attention_block_fwd(
-        x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), c.data_ptr(),
-        y.data_ptr(), M, T, H, nh, ctypes.c_float(eps), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tc = x.dtype == torch.bfloat16
+    if tc:
+        nblocks = min(M, _sm_count(x.device.index))
+        ws = torch.empty(lib.nbss_attention_block_tc_workspace_bytes(nh, nblocks),
+                         dtype=torch.uint8, device=x.device)
+        err = lib.nbss_attention_block_tc_fwd(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), c.data_ptr(),
+            y.data_ptr(), ws.data_ptr(), nblocks, M, T, H, nh, ctypes.c_float(eps), stream)
+    else:
+        err = lib.nbss_attention_block_fwd(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), c.data_ptr(),
+            y.data_ptr(), M, T, H, nh, ctypes.c_float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"attention_block kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"attention_block {'tensor-core ' if tc else ''}kernel launch failed "
+                           f"with CUDA error {err}")
     launches += 1
+    tc_launches += tc
     return y
 
 
@@ -232,7 +267,7 @@ def backward(x, ln, A, Wvo, g, eps: float, nh: int):
         from nbss_tpu_torch.ops import _build
 
         lib = _build.library()
-        nblocks = min(M, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        nblocks = min(M, _sm_count(x.device.index))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         tc = x.dtype == torch.bfloat16
         if tc:

@@ -60,8 +60,11 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
     if arch == "spatialnet":
         net = SpatialNet(**WIDTHS, dtype=dtype, fused_ffn=fused_ffn, generator=generator,
                          device="cuda")
+        # the forward: attention_block_tc_kernel in bf16, attention_block_kernel in fp32;
+        # the backward: attention_block_bwd_tc_* in bf16, attention_block_bwd_* in fp32
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), counts(attention_block),
-                LAYERS, (("attention_block_kernel",), ("attention_block_bwd",)))
+                LAYERS, (("attention_block_tc_kernel", "attention_block_kernel"),
+                         ("attention_block_bwd",)))
     if arch == "nbc":  # the relative-position block has no backward kernel
         net = NBC(**NBC_WIDTHS, dtype=dtype, generator=generator, device="cuda")
         module = TrainModule(arch=net, channels=tuple(range(NBC_C)),
@@ -74,10 +77,13 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
                          loss=Loss(name="neg_snr", pit=True))
     kind, cfg = parse_attention(attention)
     if kind == "mhsa":
-        # the forward: narrowband_attention_tc_kernel in bf16, the CUDA-core kernels in fp32
+        # the forward: narrowband_attention_tc_kernel in bf16, the CUDA-core kernels in fp32;
+        # the backward: narrowband_attention_bwd_tc_dq / _dkdv in bf16,
+        # narrowband_attention_bwd_dq / _dkdv (and _wide) in fp32
         return (module, counts(narrowband), LAYERS,
                 (("narrowband_attention_tc_kernel", "narrowband_attention_kernel",
-                  "narrowband_attention_wide_kernel"), ("narrowband_attention_bwd",)))
+                  "narrowband_attention_wide_kernel"),
+                 ("narrowband_attention_bwd_tc_", "narrowband_attention_bwd_")))
     blocks = 2 if cfg["replace_ffn"] else 1  # Mamba blocks a layer
     return (module, counts(ssm), blocks * LAYERS,
             (("selective_scan_kernel",), ("selective_scan_bwd",)))

@@ -76,3 +76,31 @@ def test_no_plain_fallback_for_other_devices(rng):
     x = torch.empty(2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ab.attention_block(x, *tfold[:4], 1e-5, 2)
+
+
+def _bf16_steps(got, want, x):
+    """|got - want| in units of one bf16 step (2**-7 of the binade) of the
+    largest term of y = x + o + c: the output, the residual x or o + c."""
+    mag = np.maximum(np.maximum(np.abs(want), np.abs(x)), np.abs(want - x))
+    mag = np.maximum(mag, np.finfo(np.float32).tiny)
+    step = np.exp2(np.floor(np.log2(mag)) - 7)
+    return np.abs(got - want) / step
+
+
+@pytest.mark.parametrize("M, T, H, nh", [(6, 40, 16, 4), (4, 100, 96, 4)])
+def test_plain_block_bf16_rounds_like_pallas_kernel(rng, M, T, H, nh):
+    """In bf16 the plain version takes the Pallas kernel's rounding points
+    (e rounded unnormalised, vo rounded, pv divided by the float32 sum of the
+    rounded e, heads summed in float32): against the interpreted Pallas
+    attention_block every element is within one bf16 step of the largest
+    term of its sum (float32 sums in another order can move the final
+    rounding by one step), and fewer than 1% of them differ at all (0% and
+    0.07% measured; 12% and 38% with the JAX _reference's rounding points)."""
+    x, jfold, tfold = _operands(rng, M, T, H, nh)
+    y = ab.reference(torch.from_numpy(x).to(torch.bfloat16), *tfold[:4], 1e-5, nh)
+    assert y.dtype == torch.bfloat16
+    y_kernel = jab.attention_block(jnp.asarray(x, jnp.bfloat16), *jfold[:4], 1e-5, nh)
+    got, want = y.float().numpy(), np.asarray(y_kernel.astype(jnp.float32))
+    xb = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    assert _bf16_steps(got, want, xb).max() <= 1.0
+    assert np.mean(got != want) < 0.01

@@ -24,12 +24,13 @@ training count 1032; channel counts below, at and above a block's 64; state
 sizes 4 and 16. A 2-layer OnlineSpatialNet's gradients through the scan
 kernels are held against its plain path's.
 
-The tensor-core kernels, which bf16 inputs reach (the attention forward and
-the attention-block backward), are held at the edges of their tiles (T = 1,
-13, 16, 17, 64, 65, 256, and 257, 300 for the forward's two-pass path; one
-sequence; both masks; q/k heads of 24, 64, 216) with bit-identical
-relaunches; the counters show that float32 reaches the CUDA-core kernels and
-bf16 the tensor-core ones; they refuse dh > 256, dv > 64 and H != 96; and a
+The tensor-core kernels, which bf16 inputs reach (the attention-block
+forward and backward, the attention forward and backward), are held at the
+edges of their tiles (T = 1, 13, 15, 16, 17, 64, 65, 250, 251, 256, and 257,
+300 for the attention's 256-row chunks; one sequence; both masks and none;
+q/k heads of 24, 64, 216) with bit-identical relaunches; the counters show
+that float32 reaches the CUDA-core kernels and bf16 the tensor-core ones;
+they refuse dh > 256, dv > 64, H != 96 and T > 256 (the block); and a
 2-layer bf16 SpatialNet's and mhsa model's gradients through them lie within
 the bf16 rule of the plain path's.
 
@@ -112,6 +113,52 @@ def test_attention_block_kernel_refuses_what_it_does_not_take(card):
         ab.attention_block(x[:, :8].half(), *ops, eps, 4)
     with pytest.raises(ValueError, match="contiguous"):
         ab.attention_block(x[:, :8].transpose(0, 1), *ops, eps, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh", [(1, 1, 4), (5, 15, 4), (5, 16, 4), (5, 17, 4), (3, 64, 4),
+                                    (3, 65, 4), (2, 250, 4), (1, 251, 4), (2, 256, 4),
+                                    (4, 40, 3)])
+def test_attention_block_tensor_core_kernel_at_tile_edges(card, M, T, nh):
+    """bf16 through the tensor-core forward at the edges of its 16-frame
+    tiles and 128-key halves: no farther from the fp32 plain result than
+    twice the plain bf16 version, a relaunch bit-identical, one tensor-core
+    launch each."""
+    x, ops, eps = _operands(M * 100 + T + 7, M, T, nh)
+    x = x.bfloat16()
+    before = ab.tc_launches
+    y = ab.attention_block(x, *ops, eps, nh)
+    y2 = ab.attention_block(x, *ops, eps, nh)
+    torch.cuda.synchronize()
+    assert ab.tc_launches == before + 2
+    assert torch.equal(y, y2)
+    want = ab.reference(x.float(), *ops, eps, nh)
+    err = (y.float() - want).abs().max().item()
+    plain = (ab.reference(x, *ops, eps, nh).float() - want).abs().max().item()
+    assert np.isfinite(err) and err <= max(2 * plain, 2e-4 + 1e-4 * want.abs().max().item()), (
+        err, plain)
+
+
+@pytest.mark.gpu
+def test_dtype_picks_the_attention_block_forward_kernel(card):
+    """float32 reaches the CUDA-core forward and bfloat16 the tensor-core
+    one, as the counters show."""
+    x, ops, eps = _operands(4, 2, 40, 4)
+    for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+        f0, t0 = ab.launches, ab.tc_launches
+        ab.attention_block(x.to(dtype), *ops, eps, 4)
+        assert (ab.launches - f0, ab.tc_launches - t0) == (1, tc)
+
+
+@pytest.mark.gpu
+def test_tensor_core_attention_block_refuses_what_it_does_not_take(card):
+    x, ops, eps = _operands(0, 2, 257, 4)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="T <= 256"):
+        ab.attention_block(x, *ops, eps, 4)
+    x64 = x[:, :8, :64].contiguous()
+    with pytest.raises(ValueError, match="H = 96"):
+        ab.attention_block(x64, ops[0][:, :64].contiguous(), *ops[1:], eps, 4)
 
 
 BWD_NAMES = ("dx", "dln", "dA", "dWvo", "dc")
@@ -226,8 +273,8 @@ def _gradients(net, x, w):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["spatialnet", "mhsa"])
 def test_bf16_gradients_through_tensor_core_kernels_within_bf16_rule(card, arch):
-    """A 2-layer bf16 SpatialNet (the tensor-core backward) and a 2-layer bf16
-    OnlineSpatialNet mhsa(16) (the tensor-core forward) at H=96: the kernel
+    """A 2-layer bf16 SpatialNet and a 2-layer bf16 OnlineSpatialNet mhsa(16)
+    at H=96, each through its tensor-core forward and backward: the kernel
     path's gradients against the plain path's under the bf16 rule, both held
     to the fp32 plain path."""
     from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
@@ -237,12 +284,12 @@ def test_bf16_gradients_through_tensor_core_kernels_within_bf16_rule(card, arch)
               num_heads=4, dim_squeeze=8, num_freqs=9)
     if arch == "spatialnet":
         make, off = (lambda **k: SpatialNet(**kw, **k, device="cuda")), {"fused_block": False}
-        counter = (ab, "bwd_tc_launches")
+        kernels = ab
     else:
         from nbss_tpu_torch.ops import attention as att
 
         make = lambda **k: OnlineSpatialNet(**kw, attention="mhsa(16)", **k, device="cuda")
-        off, counter = {"fused_attention": False}, (att, "tc_launches")
+        off, kernels = {"fused_attention": False}, att
     gen = torch.Generator().manual_seed(0)
     kernel = make(dtype=torch.bfloat16, generator=gen)
     plain, ref = make(dtype=torch.bfloat16, **off), make(**off)
@@ -250,9 +297,10 @@ def test_bf16_gradients_through_tensor_core_kernels_within_bf16_rule(card, arch)
     ref.load_state_dict(kernel.state_dict())
     x = torch.randn(2, 9, 40, 12, generator=gen).cuda()
     w = torch.randn(2, 9, 40, 4, generator=gen).cuda()
-    before = getattr(*counter)
+    before = (kernels.tc_launches, kernels.bwd_tc_launches)
     grads_kernel = _gradients(kernel, x, w)
-    assert getattr(*counter) - before == 2  # one launch a layer
+    # one launch a layer of each
+    assert (kernels.tc_launches - before[0], kernels.bwd_tc_launches - before[1]) == (2, 2)
     _bf16_rule_on_gradients(grads_kernel, _gradients(plain, x, w), _gradients(ref, x, w))
 
 
@@ -562,17 +610,45 @@ def test_narrowband_attention_tensor_core_kernel_at_tile_edges(card, M, T, nh, d
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh,dh,dv", TC_ATTN_SHAPES + [(1, 15, 4, 24, 24), (1, 1, 4, 24, 24)])
+@pytest.mark.parametrize("mask", ["causal", "alibi", "none"])
+def test_narrowband_attention_backward_tensor_core_kernel_at_tile_edges(card, M, T, nh, dh, dv,
+                                                                      mask):
+    """bf16 through the tensor-core backward at the edges of its 16-row tiles
+    and 256-row chunks: each of dq, dk, dv no farther from the fp32 plain
+    result than twice the plain bf16 version (or the fp32 bound where that
+    is exact), a relaunch bit-identical, one tensor-core launch each."""
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), m, g = _attn_inputs(M * T + dh + 5, M, T, nh, dh, dv, mask, torch.bfloat16)
+    _, st = att.forward(q, k, v, m, nh, stats=True)
+    before = att.bwd_tc_launches
+    got = att.backward(q, k, v, m, g, nh, st)
+    again = att.backward(q, k, v, m, g, nh, st)
+    torch.cuda.synchronize()
+    assert att.bwd_tc_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = att.reference_bwd(q.float(), k.float(), v.float(), m, g.float(), nh)
+    plain = att.reference_bwd(q, k, v, m, g, nh)
+    for name, a, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        e = (a.float() - w).abs().max().item()
+        ep = (p.float() - w).abs().max().item()
+        assert np.isfinite(e) and e <= max(2 * ep, 5e-3 * w.abs().max().item()), (name, e, ep)
+
+
+@pytest.mark.gpu
 def test_dtype_picks_the_attention_kernels(card):
     """float32 reaches the CUDA-core kernels and bfloat16 the tensor-core
-    forward, as the counters show; the backward kernel is the same for both."""
+    forward and backward, as the counters show."""
     from nbss_tpu_torch.ops import attention as att
 
     for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
         (q, k, v), m, g = _attn_inputs(1, 3, 40, 4, 24, 24, "causal", dtype)
-        f0, t0, b0 = att.launches, att.tc_launches, att.bwd_launches
+        f0, t0, b0, bt0 = att.launches, att.tc_launches, att.bwd_launches, att.bwd_tc_launches
         _, st = att.forward(q, k, v, m, 4, stats=True)
         att.backward(q, k, v, m, g, 4, st)
-        assert (att.launches - f0, att.tc_launches - t0, att.bwd_launches - b0) == (1, tc, 1)
+        assert (att.launches - f0, att.tc_launches - t0, att.bwd_launches - b0,
+                att.bwd_tc_launches - bt0) == (1, tc, 1, tc)
 
 
 @pytest.mark.gpu
@@ -586,6 +662,20 @@ def test_tensor_core_attention_refuses_what_it_does_not_take(card):
     vwide = torch.zeros(2, 9, 2 * 65, dtype=torch.bfloat16, device="cuda")  # dv 65 > 64
     with pytest.raises(ValueError, match="head widths"):
         att.forward(q, k, vwide, None, 2)
+
+
+@pytest.mark.gpu
+def test_tensor_core_attention_backward_refuses_what_it_does_not_take(card):
+    from nbss_tpu_torch.ops import attention as att
+
+    (q, k, v), _, g = _attn_inputs(0, 2, 9, 2, 24, 24, "none", torch.bfloat16)
+    st = torch.zeros(2, 2, 2, 9, device="cuda")
+    wide = torch.zeros(2, 9, 2 * 257, dtype=torch.bfloat16, device="cuda")  # dh 257 > 256
+    with pytest.raises(ValueError, match="head widths"):
+        att.backward(wide, wide, v, None, g, 2, st)
+    vwide = torch.zeros(2, 9, 2 * 65, dtype=torch.bfloat16, device="cuda")  # dv 65 > 64
+    with pytest.raises(ValueError, match="head widths"):
+        att.backward(q, k, vwide, None, vwide, 2, st)
 
 
 @pytest.mark.gpu
