@@ -109,12 +109,17 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
     and in fp32 on the CUDA cores), their plain versions, one
     ``scaled_dot_product_attention`` call (and its backward) with the same
     float mask, and bounds; serving, streaming and training rates;
-22. NBC's relative-position block kernel vs ``attention_block.reference_relpos``
-    at the serving shape (M = 16*257, T = 248, H = 192, nh = 8): fp32 at atol
-    2e-4, rtol 1e-4, a second launch bit-identical; bf16 under the rule of
-    phase 3; ragged shapes (T = 1, T = 13, M = 1) in fp32; the fp32 gradient
-    through the kernel's Function against the plain path's at M = 2*257, x
-    and every operand within 5e-3 x max|plain|;
+22. NBC's relative-position block kernels vs ``attention_block.reference_relpos``
+    at the serving shape (M = 16*257, T = 248, H = 192, nh = 8): fp32 on the
+    CUDA-core kernel at atol 2e-4, rtol 1e-4, a second launch bit-identical;
+    bf16 on the tensor-core kernel (``attention_block_relpos_tc.cu``) within
+    one bf16 step of the plain bf16 version, which rounds where it does (the
+    step of the largest term entering each element's sum, the share of
+    differing elements printed), no farther from the fp32 plain result than
+    twice the plain bf16 version, two launches bit-identical; ragged shapes
+    (T = 1, 13, 256, 300; M = 1) in fp32 and bf16; the fp32 gradient through
+    the kernel's Function against the plain path's at M = 2*257, x and every
+    operand within 5e-3 x max|plain|;
 23. the narrow-band attention kernels at NBC's widths (nh = 8, q/k heads of
     dh + d_model = 216, dv = 24, no mask, M = 2*257): forward at atol 2e-4,
     rtol 1e-4, dq, dk, dv within 5e-3 x max|plain|, bf16 under the rules of
@@ -123,11 +128,13 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 24. NBC serving (``configs/NBC.yaml``: 4 layers, H=192, 8 heads; 8 channels
     x 4 s at 16 kHz, STFT 512/256, frequency norm) through ``forward`` and
     ``predict_step`` at B=16 in bf16: 4 relative-position launches per
-    forward and no narrow-band attention launch; fp32 kernel path vs the
+    forward, all on the tensor-core kernel, and no narrow-band attention
+    launch; fp32 kernel path vs the
     plain module composition at B=4, SI-SDR >= 50 dB; post-LN NBC
     (``norm_first=False``) at B=2 through the widened narrow-band kernel (4
     launches a forward) vs its plain path, SI-SDR >= 50 dB;
-25. times: the relative-position kernel (bf16 and fp32), its plain version,
+25. times: the relative-position kernels (bf16 on the tensor cores, fp32 on
+    the CUDA cores), its plain version,
     a PyTorch library composition of the same function (LN, the projections,
     ``scaled_dot_product_attention`` over the 216-wide augmented heads, the
     out projection) and its bound; rows 4-5 at dh = 216 (the forward in
@@ -882,7 +889,8 @@ def online_phases(dev):
     fwd_ops = 7 * elems + 3 * M_serve * T * Dm  # counted in csrc/selective_scan.cu
     fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops, FP32_FLOP_PER_S)
     elems_t = M_train * T * Dm * N
-    bwd_bytes = 2 * nbytes(insbt) + nbytes([gybt])  # inputs and gy read, one gradient each
+    # the inputs, gy and the saved states hb read, one gradient each written
+    bwd_bytes = 2 * nbytes(insbt) + nbytes([gybt, hbbt])
     bwd_ops = 22 * elems_t + 6 * M_train * T * Dm  # counted in csrc/selective_scan_bwd.cu
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops, FP32_FLOP_PER_S)
     log(f"selective_scan bf16 M={M_serve}: kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, "
@@ -1386,6 +1394,7 @@ def nbc_phases(dev):
 
     # 22. row 8 vs plain
     log(f"phase 22/29 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
@@ -1398,22 +1407,53 @@ def nbc_phases(dev):
     if not deterministic:
         raise AssertionError("two launches of the relative-position kernel differ")
     del y, again
+    if ab.relpos_tc_launches != 0:
+        raise AssertionError(f"float32 attention_block_relpos reached the tensor-core kernel "
+                             f"({ab.relpos_tc_launches} launches)")
     xb = x32.to(torch.bfloat16)
     del x32
+
+    def tc_check(x, ops_, label):
+        """bf16 through the tensor-core kernel: a relaunch bit-identical; against
+        the plain bf16 version, which rounds where it does, every element within
+        one bf16 step of the largest term entering its sum. Returns (kernel
+        output, plain output, steps, share of elements that differ)."""
+        with torch.no_grad():
+            y_ = ab.attention_block_relpos(x, *ops_, eps, nh)
+            relaunched(label, [y_], [ab.attention_block_relpos(x, *ops_, eps, nh)])
+            plain_ = ab.reference_relpos(x, *ops_, eps, nh)
+            scale = torch.maximum(ab.relpos_term_scale(x, ops_[0], ops_[4], ops_[5], eps, nh),
+                                  plain_.float().abs())
+            step = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
+            steps_ = ((y_.float() - plain_.float()).abs() / step).max().item()
+            share_ = (y_ != plain_).float().mean().item()
+        if not steps_ <= 1.0:
+            raise AssertionError(f"{label}: the tensor-core kernel is {steps_:.2f} bf16 steps "
+                                 "from the plain bf16 version")
+        return y_, plain_, steps_, share_
+
+    ybf, plainbf_y, relpos_steps, relpos_share = tc_check(xb, ops, "bf16 attention_block_relpos")
+    if ab.relpos_tc_launches != 2:
+        raise AssertionError(f"bf16 attention_block_relpos: {ab.relpos_tc_launches} tensor-core "
+                             "launches, expected 2")
     with torch.no_grad():
         want = ab.reference_relpos(xb.float(), *ops, eps, nh)
-        relpos_errbf = (ab.attention_block_relpos(xb, *ops, eps, nh).float() - want).abs().max().item()
-        plainbf = (ab.reference_relpos(xb, *ops, eps, nh).float() - want).abs().max().item()
-    del want
-    log(f"bf16: max |kernel - fp32 plain| = {relpos_errbf:.4f}, plain bf16 version's = "
-        f"{plainbf:.4f} (bound: 2x the plain version's)")
+        relpos_errbf = (ybf.float() - want).abs().max().item()
+        plainbf = (plainbf_y.float() - want).abs().max().item()
+    del want, ybf, plainbf_y
+    log(f"bf16 (tensor-core kernel): {100 * relpos_share:.3f}% of elements differ from the plain "
+        f"bf16 version, at most {relpos_steps:.2f} bf16 steps of the largest term (bound 1); "
+        f"max |kernel - fp32 plain| = {relpos_errbf:.4f}, plain bf16 version's = {plainbf:.4f} "
+        "(bound: 2x the plain version's); two launches bit-identical")
     if not relpos_errbf <= 2 * plainbf:
         raise AssertionError(f"bf16 relative-position error {relpos_errbf} exceeds 2 x {plainbf}")
-    for Mr, Tr in ((5, 1), (7, 13), (1, T)):
+    for Mr, Tr in ((5, 1), (7, 13), (1, T), (3, 256), (2, 300)):
         ops_r, _ = operands(layer, Tr)
-        _, e = fwd_check(torch.randn(Mr, Tr, H, generator=gen).to(dev), ops_r, eps,
-                         f"ragged {(Mr, Tr)}")
-        log(f"ragged (M, T) = {(Mr, Tr)}: {e:.2e}: ok")
+        xr = torch.randn(Mr, Tr, H, generator=gen).to(dev)
+        _, e = fwd_check(xr, ops_r, eps, f"ragged {(Mr, Tr)}")
+        *_, st, sh = tc_check(xr.to(torch.bfloat16), ops_r, f"bf16 ragged {(Mr, Tr)}")
+        log(f"ragged (M, T) = {(Mr, Tr)}: fp32 {e:.2e}; bf16 tensor-core kernel {st:.2f} steps, "
+            f"{100 * sh:.3f}% differ: ok")
     Mg = 2 * n_freq
     xg = torch.randn(Mg, T, H, generator=gen).to(dev)
     gy = torch.randn(Mg, T, H, generator=gen).to(dev)
@@ -1503,21 +1543,24 @@ def nbc_phases(dev):
                          norm=Norm(mode="frequency"), loss=Loss(name="neg_si_sdr", pit=True))
     wave = (0.1 * torch.randn(B, NBC_CHANNELS, samples, generator=gen)).to(dev)
     target = (0.1 * torch.randn(B, 2, samples, generator=gen)).to(dev)
-    ab.relpos_launches = att.launches = att.bwd_launches = 0
+    ab.relpos_launches = ab.relpos_tc_launches = att.launches = att.bwd_launches = 0
     yr_hat, _ = module.forward(wave)
     pred = module.predict_step(wave, target)
     torch.cuda.synchronize()
     serve_relpos, serve_att = ab.relpos_launches, att.launches + att.bwd_launches
+    serve_relpos_tc = ab.relpos_tc_launches
     for name, out in (("forward", yr_hat), ("predict_step", pred)):
         if out.shape != (B, 2, samples) or not torch.isfinite(out).all():
             raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
                                  f"{bool(torch.isfinite(out).all())}")
-    if serve_relpos != 2 * n_layers or serve_att != 0:
-        raise AssertionError(f"attention_block_relpos launched {serve_relpos} times and the "
-                             f"narrow-band attention {serve_att} in two forwards, expected "
-                             f"{2 * n_layers} and 0")
+    if serve_relpos != 2 * n_layers or serve_relpos_tc != serve_relpos or serve_att != 0:
+        raise AssertionError(f"attention_block_relpos launched {serve_relpos} times "
+                             f"({serve_relpos_tc} on the tensor-core kernel) and the narrow-band "
+                             f"attention {serve_att} in two forwards, expected {2 * n_layers} "
+                             "(all on the tensor-core kernel) and 0")
     log(f"forward and predict_step: finite [{B}, 2, {samples}]; attention_block_relpos launched "
-        f"{serve_relpos} times ({n_layers} per forward), the narrow-band attention {serve_att}")
+        f"{serve_relpos} times ({n_layers} per forward), {serve_relpos_tc} on the tensor-core "
+        f"kernel; the narrow-band attention {serve_att}")
     sdrs = {}
     for label, kw, bsz in (("pre-LN", {}, NBC_B_CHECK), ("post-LN", {"norm_first": False}, 2)):
         kernel32 = NBC(**NBC_CFG, **kw, device=dev).eval()
@@ -1545,7 +1588,7 @@ def nbc_phases(dev):
     log("phase 25/29 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
-        relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=3,
+        relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
                             warmup=1)
         x32 = xb.float()
         relpos_ms_fp32 = cuda_ms(lambda: ab.attention_block_relpos(x32, *ops, eps, nh), iters=2,
@@ -1585,9 +1628,10 @@ def nbc_phases(dev):
     relpos_ops = (2 * M * T * nh * Ha * (2 * Ha + 2 * d2)  # t, gs, gc, vo
                   + 2 * M * nh * T * T * (2 * H + (H + 1)))  # scores over [xa, cos, sin]; e vo
     relpos_bound, relpos_by = bound(relpos_bytes, relpos_ops)
-    log(f"attention_block_relpos bf16 M={M}: kernel {relpos_ms:.3f} ms (fp32 "
-        f"{relpos_ms_fp32:.3f} ms), plain {relpos_plain_ms:.3f} ms, library (LN + projections "
-        f"+ SDPA over the {dh + H}-wide heads + out projection) {relpos_library_ms:.3f} ms, bound "
+    log(f"attention_block_relpos bf16 M={M}: tensor-core kernel {relpos_ms:.3f} ms (fp32, "
+        f"CUDA-core kernel {relpos_ms_fp32:.3f} ms), plain {relpos_plain_ms:.3f} ms, library "
+        f"(LN + projections + SDPA over the {dh + H}-wide heads + out projection) "
+        f"{relpos_library_ms:.3f} ms, bound "
         f"{relpos_bound:.4f} ms ({relpos_by}: {relpos_bytes / 1e6:.0f} MB, "
         f"{relpos_ops / 1e12:.2f} TFLOP folded)")
     del xb
@@ -1648,9 +1692,13 @@ def nbc_phases(dev):
         f"{B * SECONDS / serve_s:.1f} audio-s/s")
     check_budget("nbc times")
     row8 = {"name": "attention_block_relpos", "route": "cuda",
-            "source": "nbss_tpu_torch/csrc/attention_block_relpos.cu",
+            "source": "nbss_tpu_torch/csrc/attention_block_relpos_tc.cu",
+            "source_fp32": "nbss_tpu_torch/csrc/attention_block_relpos.cu",
+            "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"},
             "replaces": "nbss_tpu/ops/attention_block.py:517", "launches": serve_relpos,
-            "max_abs_err": relpos_err32, "max_err_bf16": relpos_errbf, "ms": relpos_ms,
+            "tc_launches": serve_relpos_tc, "max_abs_err": relpos_err32,
+            "max_err_bf16": relpos_errbf, "bf16_steps_vs_plain": relpos_steps,
+            "bf16_share_differing": relpos_share, "ms": relpos_ms,
             "ms_fp32": relpos_ms_fp32, "plain_ms": relpos_plain_ms, "bound_ms": relpos_bound,
             "bound_by": relpos_by, "library_ms": relpos_library_ms,
             "serve_audio_s_per_s": B * SECONDS / serve_s, "serve_step_ms": serve_s * 1e3,

@@ -1,10 +1,13 @@
 // NBC's attention block with Transformer-XL relative positions, forward, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), float32: fp32 FMA on the CUDA cores, since no tensor-core
+// product keeps float32's digits. bf16 inputs take attention_block_relpos_tc.cu
+// (bf16 tensor cores).
 //
 // For each of M sequences x[m] of T frames by H = 192 channels, with the
 // folded operands of fold_weights_nbc (per head h: A_h, Wvo_h [H+2, H+2],
 // Gs_h, Gc_h [H+2, H/2]; c [H]) and the absolute-position tables sin, cos
-// [T, H/2], and rnd() rounding to x's type:
+// [T, H/2], and rnd() rounding to x's type (the identity in float32, the
+// only type this kernel now takes; the points name the Pallas kernel's):
 //
 //     xa = rnd([LayerNorm(x), 1, 0])
 //     t  = rnd(xa rnd(A_h)),  gs = rnd(xa rnd(Gs_h)),  gc = rnd(xa rnd(Gc_h))
@@ -25,8 +28,8 @@
 // What bounds it on an H100: arithmetic. At NBC's serving shape (M = 16 *
 // 257 = 4112, T = 248, 8 heads) the folded function does about 4.2 TFLOP
 // (4.2 ms at the 989 TFLOP/s bf16 tensor-core rate) and moves 0.78 GB in
-// bf16 (0.23 ms at 3.35 TB/s). This first version runs it as float32 FMA on
-// the CUDA cores, in four kernels per chunk of sequences:
+// bf16 (0.23 ms at 3.35 TB/s). This kernel runs it as float32 FMA on the
+// CUDA cores, in four kernels per chunk of sequences:
 //
 //   1. relpos_ln: the key rows [xa_j[:H], rnd(cos_j), rnd(sin_j)] of the
 //      chunk into a workspace of x's type (exact, since each value is rounded
@@ -88,11 +91,6 @@ template <> struct Elem<float> {
   static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 };
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -136,14 +134,8 @@ __global__ void __launch_bounds__(256) relpos_ln(const E* __restrict__ x,
   }
 }
 
-// Four values of a row at p (16-byte aligned for float, 8 for bfloat16) as float4.
+// Four values of a row at p (16-byte aligned) as float4.
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
 
 // W[k][col] = rnd(the folded weight) for the nh * PW columns of P: column
 // h * PW + cc is A_h[k, cc], Gs_h, Gc_h or Wvo_h by the offsets above, and 0 in
@@ -449,40 +441,30 @@ int launch(const E* x, const float* ln, const float* A, const float* Gs, const f
 
 }  // namespace
 
-// y = the folded NBC attention block of x, on `stream`. x, y [M, T, H] and
-// the workspaces xk [chunk * T, 2H] and P [chunk * T, nh * 584] are
-// bfloat16 when is_bf16, else float32; ln [2, H], A, Wvo [nh, H+2, H+2], Gs,
-// Gc [nh, H+2, H/2], c [H], sin, cos [T, H/2] and the workspaces acc
-// [chunk * T, H], S [chunk * T, T] and W [H+2, nh * 584] float32, all
-// contiguous.
+// y = the folded NBC attention block of x, on `stream`. x, y [M, T, H], the
+// workspaces xk [chunk * T, 2H], P [chunk * T, nh * 584], acc [chunk * T,
+// H], S [chunk * T, T] and W [H+2, nh * 584], ln [2, H], A, Wvo [nh, H+2,
+// H+2], Gs, Gc [nh, H+2, H/2], c [H], sin, cos [T, H/2]: float32,
+// contiguous (bf16 inputs take attention_block_relpos_tc.cu).
 // Sequences are processed `chunk` at a time. Returns the CUDA error of the
 // launches (0 on success).
 extern "C" int nbss_attention_block_relpos_fwd(const void* x, const void* ln, const void* A,
                                                const void* Gs, const void* Gc, const void* Wvo,
                                                const void* c, const void* sin, const void* cos,
                                                void* y, void* xk, void* P, void* acc, void* S,
-                                               void* W, int M,
-                                               int T, int Hx,
-                                               int nh, int chunk, float eps, int is_bf16,
-                                               void* stream) {
+                                               void* W, int M, int T, int Hx, int nh, int chunk,
+                                               float eps, void* stream) {
   if (M < 1 || T < 1 || Hx != H || nh < 1 || H % nh != 0 || chunk < 1 ||
       (long long)chunk * T * nh * PW > (1LL << 62) || (long long)chunk * ((T + QR - 1) / QR) > 2147483647LL)
     return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *f_ln = static_cast<const float*>(ln), *f_A = static_cast<const float*>(A),
-              *f_Gs = static_cast<const float*>(Gs), *f_Gc = static_cast<const float*>(Gc),
-              *f_W = static_cast<const float*>(Wvo), *f_c = static_cast<const float*>(c),
-              *f_s = static_cast<const float*>(sin), *f_co = static_cast<const float*>(cos);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), f_ln, f_A, f_Gs, f_Gc,
-                                 f_W, f_c, f_s, f_co, static_cast<__nv_bfloat16*>(y),
-                                 static_cast<__nv_bfloat16*>(xk), static_cast<__nv_bfloat16*>(P),
-                                 static_cast<float*>(acc), static_cast<float*>(S),
-                                 static_cast<float*>(W), M, T, nh, chunk, eps, s);
-  return launch<float>(static_cast<const float*>(x), f_ln, f_A, f_Gs, f_Gc, f_W, f_c, f_s, f_co,
-                       static_cast<float*>(y), static_cast<float*>(xk), static_cast<float*>(P),
-                       static_cast<float*>(acc), static_cast<float*>(S), static_cast<float*>(W), M,
-                       T, nh, chunk, eps, s);
+  return launch<float>(static_cast<const float*>(x), static_cast<const float*>(ln),
+                       static_cast<const float*>(A), static_cast<const float*>(Gs),
+                       static_cast<const float*>(Gc), static_cast<const float*>(Wvo),
+                       static_cast<const float*>(c), static_cast<const float*>(sin),
+                       static_cast<const float*>(cos), static_cast<float*>(y),
+                       static_cast<float*>(xk), static_cast<float*>(P), static_cast<float*>(acc),
+                       static_cast<float*>(S), static_cast<float*>(W), M, T, nh, chunk, eps,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Columns of one head in the projection workspace P.

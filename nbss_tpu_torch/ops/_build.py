@@ -129,8 +129,12 @@ def library() -> ctypes.CDLL:
         lib.nbss_narrowband_attention_max_width.restype = i
         lib.nbss_narrowband_attention_max_v_width.argtypes = []
         lib.nbss_narrowband_attention_max_v_width.restype = i
-        lib.nbss_attention_block_relpos_fwd.argtypes = [p] * 15 + [i] * 5 + [f, i, p]
+        lib.nbss_attention_block_relpos_fwd.argtypes = [p] * 15 + [i] * 5 + [f, p]
         lib.nbss_attention_block_relpos_fwd.restype = i
+        lib.nbss_attention_block_relpos_tc_fwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
+        lib.nbss_attention_block_relpos_tc_fwd.restype = i
+        lib.nbss_attention_block_relpos_tc_workspace_bytes.argtypes = [i] * 4
+        lib.nbss_attention_block_relpos_tc_workspace_bytes.restype = ctypes.c_longlong
         lib.nbss_attention_block_relpos_head_cols.argtypes = []
         lib.nbss_attention_block_relpos_head_cols.restype = i
         lib.nbss_attention_block_relpos_key_cols.argtypes = []

@@ -39,10 +39,13 @@ NBC's block adds Transformer-XL relative positions (``fold_weights_nbc``,
 [H+2, H/2], so that the position score is (gs sin_i + gc cos_i) . cos_j +
 (gc sin_i - gs cos_i) . sin_j with gs = xa Gs_h, gc = xa Gc_h and the
 absolute-position tables sin, cos [T, H/2]. For a CUDA tensor its forward
-runs ``csrc/attention_block_relpos.cu`` (H = 192), which replaces the Pallas
-kernel ``_fused_block_relpos`` (``_kernel_relpos``); its gradient is the
-autodiff of ``reference_relpos`` on every device, as the JAX package's
-``custom_vjp`` differentiates ``_reference_relpos``.
+runs a kernel chosen by dtype, both for H = 192 and replacing the Pallas
+kernel ``_fused_block_relpos`` (``_kernel_relpos``): bfloat16 inputs take
+``csrc/attention_block_relpos_tc.cu`` (bf16 tensor cores), float32 inputs
+``csrc/attention_block_relpos.cu`` (float32 FMA). ``reference_relpos`` is
+its plain version, with the Pallas kernel's rounding points; its gradient is
+the autodiff of ``reference_relpos_xla`` on every device, as the JAX
+package's ``custom_vjp`` differentiates ``_reference_relpos``.
 """
 
 from __future__ import annotations
@@ -325,10 +328,15 @@ def attention_block(x, ln, A, Wvo, c, eps: float, nh: int):
 # NBC's block: + Transformer-XL relative positions, trig-factorized
 # ---------------------------------------------------------------------------
 
-KERNEL_RELPOS_H = 192  # channels the relative-position kernel is compiled for (NBC)
-RELPOS_WORKSPACE_BYTES = 1 << 30  # the kernel's workspaces hold this many bytes of sequences
+KERNEL_RELPOS_H = 192  # channels the relative-position kernels are compiled for (NBC)
+RELPOS_WORKSPACE_BYTES = 1 << 30  # the CUDA-core kernel's workspaces hold this many bytes
+# and the tensor-core kernel's: at NBC's serving shape (16 x 257 sequences of 248
+# frames, 2.4 MB each) three chunks; more, smaller chunks were slower on an H100,
+# from the partial last waves of each chunk's launches
+RELPOS_TC_WORKSPACE_BYTES = 4 << 30
 
 relpos_launches = 0  # kernel launches made by attention_block_relpos since import
+relpos_tc_launches = 0  # of which on the bf16 tensor-core kernel
 
 
 def fold_weights_nbc(ln_weight, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, wpos, u_bias, v_bias,
@@ -380,25 +388,71 @@ def fold_weights_nbc(ln_weight, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, wpos, u
     return ln, A, Gs, Gc, Wvo, c[None], eps
 
 
+def _relpos_xa(x, ln, eps: float):
+    """(x, xa = [LN(x), 1, 0] rounded to x's dtype), both float32."""
+    xf = x.to(torch.float32)
+    xc = xf - xf.mean(-1, keepdim=True)
+    xln = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps) * ln[0] + ln[1]
+    ones = torch.ones_like(xln[..., :1])
+    return xf, torch.cat([xln, ones, 0 * ones], -1).to(x.dtype).to(torch.float32)
+
+
 def reference_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int):
-    """Plain PyTorch version of the folded NBC block, with the JAX
-    reference's rounding points (``_reference_relpos``): xa, the operands, t,
-    gs, gc, Aq, Bq (each elementwise step), the tables, p and vo are rounded
-    to x's dtype; every product accumulates in float32. One head at a time,
-    as the Pallas kernel walks them, so that no [nh, M, T, T] tensor exists.
-    x: [M, T, H]; sin_t, cos_t: [T, H/2]."""
+    """Plain PyTorch version of the folded NBC block, with the rounding points
+    of the JAX package's Pallas kernel (``_kernel_relpos``): xa, the
+    operands, the tables, t, gs and gc are rounded to x's dtype; Aq =
+    rnd(rnd(gs sin) + rnd(gc cos)) and Bq = rnd(rnd(gc sin) - rnd(gs cos));
+    the scores s = t xa^T + Aq cos^T + Bq sin^T are float32; the unnormalised
+    weights e = exp(s - rowmax(s)) and vo = xa Wvo_h are rounded; pv = e vo
+    is summed in float32 and divided by the float32 sum of the rounded e
+    (the Pallas kernel's lane H of pv: vo's ones lane, which
+    ``fold_weights_nbc`` sets to 1 as the JAX fold does, so it does not
+    depend on Wvo's constant column H); the heads are summed in float32 in
+    head order and y = rnd((acc + c) + x) is rounded once. Every product
+    accumulates in float32. One head at a time, as the Pallas kernel walks
+    them, so that no [nh, M, T, T] tensor exists. x: [M, T, H]; sin_t,
+    cos_t: [T, H/2]. This is the forward a CPU tensor takes and the yardstick
+    of the CUDA kernels; ``reference_relpos_xla`` is what the gradient
+    differentiates."""
     dt, f32 = x.dtype, torch.float32
 
     def rnd(t):
         return t.to(dt).to(f32)
 
     H = x.shape[-1]
-    xf = x.to(f32)
-    xc = xf - xf.mean(-1, keepdim=True)
-    var = (xc * xc).mean(-1, keepdim=True)
-    xln = xc * torch.rsqrt(var + eps) * ln[0] + ln[1]
-    ones = torch.ones_like(xln[..., :1])
-    xa = rnd(torch.cat([xln, ones, 0 * ones], -1))
+    xf, xa = _relpos_xa(x, ln, eps)
+    sin_b, cos_b = rnd(sin_t.to(x.device)), rnd(cos_t.to(x.device))
+    acc = None
+    for h in range(nh):
+        t = rnd(xa @ rnd(A[h]))
+        gs, gc = rnd(xa @ rnd(Gs[h])), rnd(xa @ rnd(Gc[h]))
+        Aq = rnd(rnd(gs * sin_b) + rnd(gc * cos_b))
+        Bq = rnd(rnd(gc * sin_b) - rnd(gs * cos_b))
+        s = t @ xa.transpose(1, 2)
+        s = s + Aq @ cos_b.t()
+        s = s + Bq @ sin_b.t()
+        e = rnd(torch.exp(s - s.amax(-1, keepdim=True)))
+        o = (e @ rnd(xa @ rnd(Wvo[h, :, :H]))) / e.sum(-1, keepdim=True)
+        acc = o if acc is None else acc + o
+    return ((acc + c[0]) + xf).to(dt)
+
+
+def reference_relpos_xla(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int):
+    """Counterpart of the JAX package's ``_reference_relpos``, with its
+    rounding points: xa, the operands, t, gs, gc, Aq, Bq (each elementwise
+    step), the tables, p = softmax(s) and vo are rounded to x's dtype; every
+    product accumulates in float32. One head at a time. Differentiable in
+    every operand; the gradient of ``attention_block_relpos`` is its
+    autodiff, as the JAX ``custom_vjp`` differentiates ``_reference_relpos``.
+    In float32 it differs from ``reference_relpos`` only in the order of
+    sums."""
+    dt, f32 = x.dtype, torch.float32
+
+    def rnd(t):
+        return t.to(dt).to(f32)
+
+    H = x.shape[-1]
+    xf, xa = _relpos_xa(x, ln, eps)
     sin_b, cos_b = rnd(sin_t.to(x.device)), rnd(cos_t.to(x.device))
     o = None
     for h in range(nh):
@@ -411,6 +465,28 @@ def reference_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int
         vo = rnd(xa @ rnd(Wvo[h]))
         o = p @ vo if o is None else o + p @ vo
     return (o[..., :H] + c[0] + xf).to(dt)
+
+
+def relpos_term_scale(x, ln, Wvo, c, eps: float, nh: int):
+    """Per element of y, the largest magnitude among the terms that the folded
+    NBC block adds into it: |x|, |c| and, for every head, the largest |vo_h|
+    of that channel over the sequence's frames (o_h is a weighted mean of
+    them, formed from bf16 values). A bf16 step of it is the resolution at
+    which two versions that round at the same points but sum in another
+    order can be told apart. float32 [M, T, H]; no gradient."""
+    dt, f32 = x.dtype, torch.float32
+
+    def rnd(t):
+        return t.to(dt).to(f32)
+
+    with torch.no_grad():
+        H = x.shape[-1]
+        xf, xa = _relpos_xa(x, ln, eps)
+        scale = torch.maximum(xf.abs(), c[0].abs())
+        for h in range(nh):
+            vo = rnd(xa @ rnd(Wvo[h, :, :H]))
+            scale = torch.maximum(scale, vo.abs().amax(1, keepdim=True))
+    return scale
 
 
 def _check_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, nh):
@@ -441,7 +517,10 @@ def _check_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, nh):
 
 
 def _forward_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int):
-    global relpos_launches
+    """The block: ``reference_relpos`` for a CPU tensor; for a CUDA tensor the
+    tensor-core kernel on bfloat16 inputs and the CUDA-core kernel on float32
+    ones (or ValueError if they do not take the inputs)."""
+    global relpos_launches, relpos_tc_launches
     if x.device.type == "cpu":
         return reference_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps, nh)
     _check_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, nh)
@@ -452,23 +531,40 @@ def _forward_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int)
     from nbss_tpu_torch.ops import _build
 
     lib = _build.library()
-    head_cols, key_cols = (lib.nbss_attention_block_relpos_head_cols(),
-                           lib.nbss_attention_block_relpos_key_cols())
-    per_seq = T * ((nh * head_cols + key_cols) * x.element_size() + (H + T) * 4)
-    chunk = max(1, min(M, RELPOS_WORKSPACE_BYTES // per_seq))
-    xk = torch.empty(chunk * T, key_cols, dtype=x.dtype, device=x.device)
-    P = torch.empty(chunk * T, nh * head_cols, dtype=x.dtype, device=x.device)
-    acc = torch.empty(chunk * T, H, dtype=torch.float32, device=x.device)
-    scores = torch.empty(chunk * T, T, dtype=torch.float32, device=x.device)
-    wcat = torch.empty(H + 2, nh * head_cols, dtype=torch.float32, device=x.device)
-    err = lib.nbss_attention_block_relpos_fwd(
-        x.data_ptr(), ln.data_ptr(), A.data_ptr(), Gs.data_ptr(), Gc.data_ptr(), Wvo.data_ptr(),
-        c.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(), y.data_ptr(), xk.data_ptr(),
-        P.data_ptr(), acc.data_ptr(), scores.data_ptr(), wcat.data_ptr(), M, T, H, nh, chunk, ctypes.c_float(eps), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tc = x.dtype == torch.bfloat16
+    if tc:
+        nblocks = _sm_count(x.device.index)
+        one, two = (lib.nbss_attention_block_relpos_tc_workspace_bytes(k, T, nh, nblocks)
+                    for k in (1, 2))
+        most = max(1, (RELPOS_TC_WORKSPACE_BYTES - (2 * one - two)) // (two - one))
+        chunk = -(-M // -(-M // most))  # the fewest chunks the budget allows, of equal size
+        ws = torch.empty(lib.nbss_attention_block_relpos_tc_workspace_bytes(chunk, T, nh, nblocks),
+                         dtype=torch.uint8, device=x.device)
+        err = lib.nbss_attention_block_relpos_tc_fwd(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Gs.data_ptr(), Gc.data_ptr(),
+            Wvo.data_ptr(), c.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), M, T, H, nh, chunk, nblocks, ctypes.c_float(eps), stream)
+    else:
+        head_cols, key_cols = (lib.nbss_attention_block_relpos_head_cols(),
+                               lib.nbss_attention_block_relpos_key_cols())
+        per_seq = T * ((nh * head_cols + key_cols) * x.element_size() + (H + T) * 4)
+        chunk = max(1, min(M, RELPOS_WORKSPACE_BYTES // per_seq))
+        xk = torch.empty(chunk * T, key_cols, dtype=x.dtype, device=x.device)
+        P = torch.empty(chunk * T, nh * head_cols, dtype=x.dtype, device=x.device)
+        acc = torch.empty(chunk * T, H, dtype=torch.float32, device=x.device)
+        scores = torch.empty(chunk * T, T, dtype=torch.float32, device=x.device)
+        wcat = torch.empty(H + 2, nh * head_cols, dtype=torch.float32, device=x.device)
+        err = lib.nbss_attention_block_relpos_fwd(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Gs.data_ptr(), Gc.data_ptr(),
+            Wvo.data_ptr(), c.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(), y.data_ptr(),
+            xk.data_ptr(), P.data_ptr(), acc.data_ptr(), scores.data_ptr(), wcat.data_ptr(), M,
+            T, H, nh, chunk, ctypes.c_float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"attention_block_relpos kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"attention_block_relpos {'tensor-core ' if tc else ''}kernel launch "
+                           f"failed with CUDA error {err}")
     relpos_launches += 1
+    relpos_tc_launches += tc
     return y
 
 
@@ -485,7 +581,7 @@ class _AttentionBlockRelpos(torch.autograd.Function):
         x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (x, ln, A, Gs, Gc, Wvo, c)]
-            y = reference_relpos(*leaves, sin_t, cos_t, ctx.eps, ctx.nh)
+            y = reference_relpos_xla(*leaves, sin_t, cos_t, ctx.eps, ctx.nh)
             grads = torch.autograd.grad(y, leaves, g)
         return (*grads, None, None, None, None, None)
 
@@ -498,10 +594,11 @@ def attention_block_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, n
     Gc, Wvo and c.
 
     A CPU tensor takes ``reference_relpos``; a CUDA tensor launches the
-    kernel ``csrc/attention_block_relpos.cu``, or raises if it does not take
-    these inputs. The gradient is the autodiff of ``reference_relpos`` on
-    every device, as the JAX package's ``custom_vjp`` takes the autodiff of
-    its ``_reference_relpos``: the Pallas kernel has no backward."""
+    tensor-core kernel (bfloat16) or the CUDA-core kernel (float32), or
+    raises if it does not take these inputs. The gradient is the autodiff of
+    ``reference_relpos_xla`` on every device, as the JAX package's
+    ``custom_vjp`` takes the autodiff of its ``_reference_relpos``: the
+    Pallas kernel has no backward."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_block_relpos: no kernel for device {x.device}")
     save = torch.is_grad_enabled() and any(

@@ -66,6 +66,7 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
                 LAYERS, (("attention_block_tc_kernel", "attention_block_kernel"),
                          ("attention_block_bwd",)))
     if arch == "nbc":  # the relative-position block has no backward kernel
+        # relpos_tc_keys / _proj / _attn in bf16, relpos_ln / _proj / _qpos / _attn in fp32
         net = NBC(**NBC_WIDTHS, dtype=dtype, generator=generator, device="cuda")
         module = TrainModule(arch=net, channels=tuple(range(NBC_C)),
                              stft=STFT(n_fft=512, n_hop=256), norm=Norm(mode="frequency"))

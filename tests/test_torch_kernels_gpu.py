@@ -21,8 +21,8 @@ The selective-scan kernels are held against ``ssm.reference`` and
 below, at and above the saved-state chunk of 8 frames, the serving length
 251 and a long stream of 1000 frames; one sequence, a ragged count and the
 training count 1032; channel counts below, at and above a block's 64; state
-sizes 4 and 16. A 2-layer OnlineSpatialNet's gradients through the scan
-kernels are held against its plain path's.
+sizes 4, 8 and 16; two launches bit-identical. A 2-layer OnlineSpatialNet's
+gradients through the scan kernels are held against its plain path's.
 
 The tensor-core kernels, which bf16 inputs reach (the attention-block
 forward and backward, the attention forward and backward), are held at the
@@ -42,11 +42,15 @@ sequence and the training count 1032, and the wide kernels' q/k heads (NBC's
 216, a ragged 100, the widest 256); row-strided q, k, v slices; and a
 2-layer OnlineSpatialNet mhsa model's gradients against its plain path's.
 
-NBC's relative-position block kernel is held against
+NBC's relative-position block kernels are held against
 ``attention_block.reference_relpos`` at the forward bounds (one frame,
 ragged lengths, NBC's 248 frames, 1, 2, 4 and 8 heads, a run over several
-workspace chunks), with bit-identical relaunches; a 2-layer NBC's gradients
-through it against the plain module composition's.
+workspace chunks), with bit-identical relaunches; bf16 reaches the
+tensor-core kernel, which is held within one bf16 step of the plain bf16
+version (of the largest term entering each element's sum: ``x``, ``c`` or a
+head's ``vo``; T = 1, 13, 248, 256, 257 and 400, whose kept scores leave
+shared memory; M = 1, 7 and several chunks) and refuses H != 192; a 2-layer
+NBC's gradients through the kernels against the plain module composition's.
 
 The T-ConvFFN kernel is held against ``tconvffn.reference`` at the forward
 bounds (one and two frames, ragged and whole 32-frame tiles, 251 and 1000
@@ -338,10 +342,11 @@ def test_spatialnet_gradients_through_kernels_match_plain_path(card, dtype):
                                        msg=name)
 
 
-# (M, T, D, N): T = 1, 7, 8, 9 around the 8-frame chunk, 251, 1000; M = 1, 31, 1032;
-# D = 192 (3 blocks), 64, 100 and 33 (ragged), 40 (one partial block); N = 4, 16
+# (M, T, D, N): T = 1, 7, 8, 9, 13 around the 8-frame chunk, 251, 1000; M = 1, 31, 1032;
+# D = 192 (3 blocks), 64, 100, 70 and 33 (ragged), 40 (one partial block); N = 4, 8, 16
 SCAN_SHAPES = [(1, 1, 192, 16), (31, 7, 192, 4), (31, 8, 64, 16), (1, 9, 100, 16),
-               (1032, 251, 192, 16), (31, 1000, 192, 4), (1032, 9, 40, 4), (5, 251, 33, 16)]
+               (1032, 251, 192, 16), (31, 1000, 192, 4), (1032, 9, 40, 4), (5, 251, 33, 16),
+               (7, 251, 192, 8), (3, 13, 70, 8)]
 
 
 def _scan_inputs(seed, M, T, D, N, dtype):
@@ -766,19 +771,94 @@ def test_attention_block_relpos_kernel_matches_plain(card, M, T, nh, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_block_relpos_chunks_give_the_same_bits(card, dtype, monkeypatch):
     """Sequences go through the workspaces a chunk at a time: workspaces of
-    one sequence (ten chunks) give the bits of one chunk of ten."""
+    one sequence (ten chunks) give the bits of one chunk of ten, on the
+    CUDA-core kernel (float32) and the tensor-core kernel (bfloat16)."""
     x, ops, eps = _relpos_operands(5, 10, 29, 8)
     x = x.to(dtype)
     whole = ab.attention_block_relpos(x, *ops, eps, 8)
     monkeypatch.setattr(ab, "RELPOS_WORKSPACE_BYTES", 1)
+    monkeypatch.setattr(ab, "RELPOS_TC_WORKSPACE_BYTES", 1)
     assert torch.equal(whole, ab.attention_block_relpos(x, *ops, eps, 8))
+
+
+def _relpos_bf16_steps(got, want, x, ops, eps, nh):
+    """|got - want| in bf16 steps (2**-7 of the binade) of the largest term
+    that the block adds into each element (``relpos_term_scale``: |x|, |c|,
+    each head's largest |vo| of that channel) or of the output."""
+    ln, _, _, _, Wvo, c = ops[:6]
+    mag = torch.maximum(ab.relpos_term_scale(x, ln, Wvo, c, eps, nh), want.float().abs())
+    step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+    return (got.float() - want.float()).abs() / step
+
+
+# (M, T, nh): one frame, ragged lengths, NBC's 248 frames, 256 and 257 around the
+# 256-frame query groups, 400 (its kept scores in a global workspace), 1, 2, 4, 8 heads
+RELPOS_TC_SHAPES = [(1, 1, 8), (7, 1, 8), (1, 13, 8), (7, 13, 8), (1, 248, 8), (7, 248, 8),
+                    (1, 256, 8), (7, 256, 8), (3, 257, 4), (2, 400, 8), (4, 33, 1), (5, 40, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh", RELPOS_TC_SHAPES)
+def test_attention_block_relpos_tensor_core_kernel_within_one_bf16_step(card, M, T, nh):
+    """bf16 through the tensor-core kernel against the plain bf16 version,
+    which rounds where it does: every element within one bf16 step of the
+    largest term that enters its sum (float32 sums in another order, and the
+    special-function exp, can move an intermediate rounding by one step), at
+    most 1% of elements differing at all (the share is printed; 0-0.4%
+    measured on an H100), two tensor-core launches bit-identical."""
+    x, ops, eps = _relpos_operands(M * 1000 + T + nh + 1, M, T, nh)
+    x = x.bfloat16()
+    before = ab.relpos_tc_launches
+    y = ab.attention_block_relpos(x, *ops, eps, nh)
+    y2 = ab.attention_block_relpos(x, *ops, eps, nh)
+    torch.cuda.synchronize()
+    assert ab.relpos_tc_launches == before + 2
+    assert torch.equal(y, y2)
+    want = ab.reference_relpos(x, *ops, eps, nh)
+    steps = _relpos_bf16_steps(y, want, x, ops, eps, nh)
+    share = (y != want).float().mean().item()
+    print(f"relpos tensor-core kernel (M, T, nh) = {(M, T, nh)}: {share:.4%} of elements differ "
+          f"from the plain bf16 version, at most {steps.max().item():.2f} bf16 steps")
+    assert torch.isfinite(y.float()).all() and steps.max().item() <= 1.0
+    assert share <= 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [13, 248])
+def test_attention_block_relpos_tensor_core_chunks_give_the_same_bits(card, T, monkeypatch):
+    """Sequences go through the tensor-core kernel's workspace a chunk at a
+    time: chunks of one sequence, and a budget of four that splits M = 5 in
+    two, give the bits of one chunk of five."""
+    from nbss_tpu_torch.ops import _build
+
+    M, nh = 5, 8
+    x, ops, eps = _relpos_operands(T + 3, M, T, nh)
+    x = x.bfloat16()
+    whole = ab.attention_block_relpos(x, *ops, eps, nh)
+    four = _build.library().nbss_attention_block_relpos_tc_workspace_bytes(
+        4, T, nh, ab._sm_count(0))
+    for budget in (1, four):
+        monkeypatch.setattr(ab, "RELPOS_TC_WORKSPACE_BYTES", budget)
+        assert torch.equal(whole, ab.attention_block_relpos(x, *ops, eps, nh)), budget
+
+
+@pytest.mark.gpu
+def test_dtype_picks_the_relpos_kernel(card):
+    """float32 reaches the CUDA-core kernel and bfloat16 the tensor-core one,
+    as the counters show."""
+    x, ops, eps = _relpos_operands(4, 2, 20, 8)
+    for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+        f0, t0 = ab.relpos_launches, ab.relpos_tc_launches
+        ab.attention_block_relpos(x.to(dtype), *ops, eps, 8)
+        assert (ab.relpos_launches - f0, ab.relpos_tc_launches - t0) == (1, tc)
 
 
 @pytest.mark.gpu
 def test_attention_block_relpos_kernel_refuses_what_it_does_not_take(card):
     x, ops, eps = _relpos_operands(0, 2, 9, 8)
-    with pytest.raises(ValueError, match="H = 192"):
-        ab.attention_block_relpos(x[..., :96].contiguous(), *ops, eps, 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="H = 192"):
+            ab.attention_block_relpos(x[..., :96].contiguous().to(dtype), *ops, eps, 8)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ab.attention_block_relpos(x.half(), *ops, eps, 8)
     with pytest.raises(ValueError, match="sin must be"):
