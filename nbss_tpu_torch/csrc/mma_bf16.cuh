@@ -1,8 +1,8 @@
 // Fragment helpers for the tensor-core kernels (narrowband_attention_tc.cu,
 // narrowband_attention_bwd_tc.cu, attention_block_tc.cu,
-// attention_block_bwd_tc.cu): mma.sync m16n8k16 with bf16 operands and a
-// float32 accumulator, ldmatrix from shared memory, movmatrix, cp.async
-// staging.
+// attention_block_bwd_tc.cu, attention_block_relpos_tc.cu, tconvffn_tc.cu):
+// mma.sync m16n8k16 (and m16n8k8) with bf16 operands and a float32
+// accumulator, ldmatrix from shared memory, movmatrix, cp.async staging.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4), as the PTX ISA
 // gives it:
@@ -10,6 +10,8 @@
 //                           a[2] = (g, 2t+8..2t+9), a[3] = (g+8, 2t+8..2t+9)
 //   B (16 x 8, k x n):      b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8..2t+9, n g)
 //   C (16 x 8, float32):    c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1)
+// and of m16n8k8: A (16 x 8) a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..2t+1);
+// B (8 x 8) b = (k 2t..2t+1, n g); C as above.
 // so the C fragments of two neighbouring n-tiles, rounded to bf16 and packed
 // in pairs, are the A fragment of a product over those 16 columns
 // (pack_a): a score tile becomes the weights of the next product without
@@ -51,6 +53,14 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
                : "r"(smem_u32(p)));
 }
 
+// Two 8x8 bf16 matrices; lanes 0-15 give the row addresses (lane l: row l % 8
+// of matrix l / 8): the A fragment of an m16n8k8 product.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 // d += a b on the tensor cores: bf16 operands, float32 accumulator.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
@@ -58,6 +68,14 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b over a depth of 8 (m16n8k8): bf16 operands, float32 accumulator.
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // An 8x8 bf16 matrix held as one register a lane (lane l: row l / 4, columns

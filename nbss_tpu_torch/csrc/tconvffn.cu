@@ -1,4 +1,7 @@
-// Temporal conv-FFN of the offline SpatialNet layer, forward, for Hopper (sm_90a).
+// Temporal conv-FFN of the offline SpatialNet layer, forward, for Hopper
+// (sm_90a), on float32 inputs: float32 products on the CUDA cores keep the
+// digits the float32 bound needs. bf16 inputs take tconvffn_tc.cu (bf16
+// tensor cores).
 //
 // Computes, for each of M independent sequences x[m] of T frames by H channels,
 //
@@ -10,14 +13,12 @@
 // The caller adds the residual.
 //
 // Replaces the Pallas TPU kernel fused_tconvffn -> _fused_forward / _kernel in
-// nbss_tpu/ops/tconvffn.py, with its rounding points: every parameter comes
-// rounded to the input type (the wrapper does it, into one float32 buffer);
-// every product accumulates in float32 and is rounded before its bias is
-// added; a conv is rnd(rnd(rnd(m0 + m1) + m2) + b) over its taps; SiLU is
-// a / (1 + exp(-a)) in float32 of the rounded value, rounded once; LN and GN
-// take float32 statistics with var = E[y^2] - E[y]^2, round the normalized
-// value, then scale and shift in the input type; frames outside [0, T) are
-// zero after every SiLU.
+// nbss_tpu/ops/tconvffn.py on float32 inputs, where each of its rounding
+// points (to the input type) is exact: every product accumulates in float32
+// before its bias is added; a conv is ((m0 + m1) + m2) + b over its taps;
+// SiLU is a / (1 + exp(-a)); LN and GN take statistics with var = E[y^2] -
+// E[y]^2, normalize, then scale and shift; frames outside [0, T) are zero
+// after every SiLU.
 //
 // What bounds it on an H100: arithmetic. At the flagship's serving shape
 // (M = 2064, T = 251, H = 96, FF = 192) it moves about 199 MB of x and y in
@@ -25,17 +26,15 @@
 // about 81 GFLOP (up and down 19 each, three grouped convs 43). The Pallas
 // kernel multiplies by block-diagonal dense [FF, FF] matrices, eight times
 // that arithmetic; this kernel does each grouped conv directly (FF/8 inputs x
-// 3 taps an output). This first version runs it as float32 FMA on the CUDA
-// cores; tensor-core tiles are later work.
+// 3 taps an output), as float32 FMA on the CUDA cores.
 //
 // Design. The GroupNorm's statistics span the whole sequence and sit between
 // conv2 and everything after it, so the chain runs as two launches over
 // (sequence, 32-frame tile) blocks:
 //   front: LN -> up -> SiLU -> conv1 -> SiLU -> conv2 over the tile and a
 //          2-frame halo each side, all in shared memory; writes conv2's
-//          output (rounded to the input type, where the Pallas kernel rounds
-//          it) to a workspace and per-(sequence, tile, group) float32 sums
-//          of y and y^2 over the tile's valid frames;
+//          output to a workspace and per-(sequence, tile, group) sums of y
+//          and y^2 over the tile's valid frames;
 //   back:  adds a sequence's tile sums in tile order, then GN -> SiLU ->
 //          conv3 (1-frame halo) -> SiLU -> down, and writes y.
 // Every sum is taken in a fixed order (no atomics), so a relaunch gives the
@@ -44,7 +43,6 @@
 // broadcast). In a conv each thread owns one output channel and 8
 // consecutive frames, so its three taps share each loaded input row.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -81,28 +79,10 @@ struct Cfg {
   static_assert((TT / RM) * FF * 2 <= RU * FF, "conv2 sums fit in the up rows");
 };
 
-template <typename E> struct Elem;
-template <> struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-};
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-};
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
-template <typename X>  // Elem<input type>
-__device__ __forceinline__ float silu(float v) {  // v already rounded
-  return X::round(v / (1.0f + expf(-v)));
-}
-
-template <typename X>
 __device__ __forceinline__ float conv_out(float m0, float m1, float m2, float b) {
-  float v = X::round(X::round(m0) + X::round(m1));
-  v = X::round(v + X::round(m2));
-  return X::round(v + b);
+  return ((m0 + m1) + m2) + b;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -184,12 +164,11 @@ __device__ __forceinline__ void conv_task(const float* In, const float* __restri
   }
 }
 
-template <typename E, int H, int FF>
+template <int H, int FF>
 __global__ void __launch_bounds__(NT, 2)
-tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restrict__ ws,
+tconvffn_front(const float* __restrict__ x, const float* __restrict__ P, float* __restrict__ ws,
                float* __restrict__ partials, int T, int ntiles, float eps) {
   using C = Cfg<H, FF>;
-  using X = Elem<E>;
   constexpr int CPG = C::CPG;
   extern __shared__ float4 smem4[];
   float* U = reinterpret_cast<float*>(smem4);  // up rows r <-> frame t0 - 2 + r, ld FF
@@ -197,7 +176,7 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
   float* WS = R + C::R_FLOATS;
   const int m = blockIdx.x / ntiles, tile = blockIdx.x - m * ntiles, t0 = tile * TT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const E* xm = x + size_t(m) * T * H;
+  const float* xm = x + size_t(m) * T * H;
 
   // LayerNorm of frames t0-2 .. t0+RU-3 (zero rows outside the sequence)
   for (int r = warp; r < RU; r += NW) {
@@ -206,7 +185,7 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
       float v[H / 32], s = 0.0f, sq = 0.0f;
 #pragma unroll
       for (int c = 0; c < H / 32; ++c) {
-        v[c] = X::load(xm + size_t(f) * H + lane + 32 * c);
+        v[c] = xm[size_t(f) * H + lane + 32 * c];
         s += v[c];
         sq += v[c] * v[c];
       }
@@ -217,9 +196,8 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
 #pragma unroll
       for (int c = 0; c < H / 32; ++c) {
         const int h = lane + 32 * c;
-        float y = X::round((v[c] - mu) * rs);
-        y = X::round(y * P[C::LN_S + h]);
-        R[r * H + h] = X::round(y + P[C::LN_B + h]);
+        const float y = (v[c] - mu) * rs * P[C::LN_S + h];
+        R[r * H + h] = y + P[C::LN_B + h];
       }
     } else {
 #pragma unroll
@@ -240,7 +218,7 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
 #pragma unroll
       for (int j = 0; j < C::NC_UP; ++j) {
         const int c = c0 + lane + 32 * j;
-        const float v = silu<X>(X::round(X::round(acc[i][j]) + P[C::B_UP + c]));
+        const float v = silu(acc[i][j] + P[C::B_UP + c]);
         U[r * FF + c] = valid ? v : 0.0f;
       }
     }
@@ -256,7 +234,7 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
 #pragma unroll
     for (int j = 0; j < RM; ++j) {
       const int f = t0 - 1 + r0 + j;
-      const float v = silu<X>(conv_out<X>(acc[0][j], acc[1][j], acc[2][j], b));
+      const float v = silu(conv_out(acc[0][j], acc[1][j], acc[2][j], b));
       R[(r0 + j) * FF + o] = (f >= 0 && f < T) ? v : 0.0f;
     }
   }
@@ -273,9 +251,9 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
 #pragma unroll
     for (int j = 0; j < RM; ++j) {
       const int f = t0 + r0 + j;
-      const float v = conv_out<X>(acc[0][j], acc[1][j], acc[2][j], b);
+      const float v = conv_out(acc[0][j], acc[1][j], acc[2][j], b);
       if (f < T) {
-        X::store(ws + (size_t(m) * T + f) * FF + o, v);
+        ws[(size_t(m) * T + f) * FF + o] = v;
         s1 += v;
         s2 += v * v;
       }
@@ -293,12 +271,11 @@ tconvffn_front(const E* __restrict__ x, const float* __restrict__ P, E* __restri
   }
 }
 
-template <typename E, int H, int FF>
+template <int H, int FF>
 __global__ void __launch_bounds__(NT, 2)
-tconvffn_back(const E* __restrict__ ws, const float* __restrict__ partials,
-              const float* __restrict__ P, E* __restrict__ y, int T, int ntiles, float eps) {
+tconvffn_back(const float* __restrict__ ws, const float* __restrict__ partials,
+              const float* __restrict__ P, float* __restrict__ y, int T, int ntiles, float eps) {
   using C = Cfg<H, FF>;
-  using X = Elem<E>;
   constexpr int CPG = C::CPG;
   extern __shared__ float4 smem4[];
   float* A = reinterpret_cast<float*>(smem4);  // GN -> SiLU rows r <-> frame t0 - 1 + r
@@ -327,10 +304,8 @@ tconvffn_back(const E* __restrict__ ws, const float* __restrict__ partials,
     float a = 0.0f;
     if (f >= 0 && f < T) {
       const int g = o / CPG;
-      const float v = X::load(ws + (size_t(m) * T + f) * FF + o);
-      a = X::round((v - stat[g]) * stat[G + g]);
-      a = X::round(a * P[C::GN_S + o]);
-      a = silu<X>(X::round(a + P[C::GN_B + o]));
+      const float v = ws[(size_t(m) * T + f) * FF + o];
+      a = silu((v - stat[g]) * stat[G + g] * P[C::GN_S + o] + P[C::GN_B + o]);
     }
     A[e] = a;
   }
@@ -343,7 +318,7 @@ tconvffn_back(const E* __restrict__ ws, const float* __restrict__ partials,
     const float b = P[C::B_C3 + o];
 #pragma unroll
     for (int j = 0; j < RM; ++j)
-      C3[(r0 + j) * FF + o] = silu<X>(conv_out<X>(acc[0][j], acc[1][j], acc[2][j], b));
+      C3[(r0 + j) * FF + o] = silu(conv_out(acc[0][j], acc[1][j], acc[2][j], b));
   }
   __syncthreads();
 
@@ -356,13 +331,12 @@ tconvffn_back(const E* __restrict__ ws, const float* __restrict__ partials,
 #pragma unroll
     for (int j = 0; j < C::NC_DOWN; ++j) {
       const int h = lane + 32 * j;
-      X::store(y + (size_t(m) * T + f) * H + h,
-               X::round(X::round(acc[i][j]) + P[C::B_DOWN + h]));
+      y[(size_t(m) * T + f) * H + h] = acc[i][j] + P[C::B_DOWN + h];
     }
   }
 }
 
-template <typename E, int H, int FF>
+template <int H, int FF>
 cudaError_t launch(const void* x, const void* params, void* y, void* ws, void* partials, int M,
                    int T, float eps, cudaStream_t s) {
   using C = Cfg<H, FF>;
@@ -371,45 +345,44 @@ cudaError_t launch(const void* x, const void* params, void* y, void* ws, void* p
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
   const size_t front_bytes = size_t(C::FRONT_FLOATS) * sizeof(float);
   const size_t back_bytes = size_t(C::BACK_FLOATS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tconvffn_front<E, H, FF>,
+  cudaError_t err = cudaFuncSetAttribute(tconvffn_front<H, FF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(front_bytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(tconvffn_back<E, H, FF>,
+  err = cudaFuncSetAttribute(tconvffn_back<H, FF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(back_bytes));
   if (err != cudaSuccess) return err;
   const float* P = static_cast<const float*>(params);
-  tconvffn_front<E, H, FF><<<unsigned(blocks), NT, front_bytes, s>>>(
-      static_cast<const E*>(x), P, static_cast<E*>(ws), static_cast<float*>(partials), T,
+  tconvffn_front<H, FF><<<unsigned(blocks), NT, front_bytes, s>>>(
+      static_cast<const float*>(x), P, static_cast<float*>(ws), static_cast<float*>(partials), T,
       ntiles, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tconvffn_back<E, H, FF><<<unsigned(blocks), NT, back_bytes, s>>>(
-      static_cast<const E*>(ws), static_cast<const float*>(partials), P, static_cast<E*>(y), T,
-      ntiles, eps);
+  tconvffn_back<H, FF><<<unsigned(blocks), NT, back_bytes, s>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(partials), P,
+      static_cast<float*>(y), T, ntiles, eps);
   return cudaGetLastError();
 }
 
-template <typename E>
 cudaError_t dispatch(const void* x, const void* params, void* y, void* ws, void* partials,
                      int M, int T, int H, int FF, float eps, cudaStream_t s) {
-  if (H == 96 && FF == 192) return launch<E, 96, 192>(x, params, y, ws, partials, M, T, eps, s);
-  if (H == 192 && FF == 384) return launch<E, 192, 384>(x, params, y, ws, partials, M, T, eps, s);
+  if (H == 96 && FF == 192) return launch<96, 192>(x, params, y, ws, partials, M, T, eps, s);
+  if (H == 192 && FF == 384) return launch<192, 384>(x, params, y, ws, partials, M, T, eps, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x, y [M, T, H] and the workspace [M, T, FF] in the input type (float32 or
-// bf16); params the float32 buffer of ops/tconvffn.py _kernel_operands();
-// partials [M, ceil(T / tile frames), 8, 2] float32. Two launches on stream.
+// x, y [M, T, H] and the workspace [M, T, FF] in float32 (bf16 inputs take
+// tconvffn_tc.cu); params the float32 buffer of ops/tconvffn.py
+// _kernel_operands(); partials [M, ceil(T / tile frames), 8, 2] float32.
+// Two launches on stream.
 extern "C" int nbss_tconvffn_fwd(const void* x, const void* params, void* y, void* ws,
                                  void* partials, int M, int T, int H, int FF, int groups,
-                                 float eps, int is_bf16, void* stream) {
+                                 float eps, void* stream) {
   if (M < 1 || T < 1 || groups != G) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(is_bf16 ? dispatch<__nv_bfloat16>(x, params, y, ws, partials, M, T, H, FF, eps, s)
-                     : dispatch<float>(x, params, y, ws, partials, M, T, H, FF, eps, s));
+  return int(dispatch(x, params, y, ws, partials, M, T, H, FF, eps, s));
 }
 
 // Frames of output per block: the partial sums hold ceil(T / this) tiles.

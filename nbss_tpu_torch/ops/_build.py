@@ -139,8 +139,12 @@ def library() -> ctypes.CDLL:
         lib.nbss_attention_block_relpos_head_cols.restype = i
         lib.nbss_attention_block_relpos_key_cols.argtypes = []
         lib.nbss_attention_block_relpos_key_cols.restype = i
-        lib.nbss_tconvffn_fwd.argtypes = [p] * 5 + [i] * 5 + [f, i, p]
+        lib.nbss_tconvffn_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
         lib.nbss_tconvffn_fwd.restype = i
+        lib.nbss_tconvffn_tc_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
+        lib.nbss_tconvffn_tc_fwd.restype = i
+        lib.nbss_tconvffn_tc_words.argtypes = [i, i]
+        lib.nbss_tconvffn_tc_words.restype = i
         lib.nbss_tconvffn_tile_frames.argtypes = []
         lib.nbss_tconvffn_tile_frames.restype = i
         _lib = lib

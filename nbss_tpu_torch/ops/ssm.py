@@ -21,8 +21,9 @@ When a gradient is wanted the forward kernel also writes the state at the
 start of every ``CHUNK`` frames ([n_chunks, M, N, D] float32, 1/CHUNK of the
 [M, T, D, N] states), and the backward kernel recomputes each chunk's states
 from it before it runs the adjoint backwards through the chunk. Under
-``no_grad`` nothing but y is written. On an H100 both kernels are bound by
-memory traffic at the model's shapes (see the sources).
+``no_grad`` nothing but y is written. On an H100 the forward is bound by the
+instructions of its state updates (one exponential each) rather than by its
+bytes, the backward by memory traffic (see the sources).
 
 ``step`` is one frame of the recurrence for streaming, plain code as in the
 JAX package.

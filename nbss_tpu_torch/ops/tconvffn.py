@@ -23,20 +23,24 @@ dtype with PyTorch's own ops; the gradient is its autodiff, as the JAX
 ``custom_vjp`` differentiates ``_ref_tconvffn``.
 
 ``tconvffn`` is a ``torch.autograd.Function``. For a CUDA tensor its forward
-launches the hand-written kernel ``csrc/tconvffn.cu`` (which replaces the
-Pallas TPU kernel ``fused_tconvffn`` -> ``_fused_forward`` / ``_kernel``);
-for a CPU tensor, or with ``kernel=False``, it runs ``reference``. It saves
-only x and the parameters; its backward recomputes ``reference_xla`` under
-autograd at x's dtype and launches no kernel. The kernel does each grouped
-conv directly (FF/groups inputs x 3 taps an output), not as the Pallas
-kernel's block-diagonal dense product, so it does an eighth of that
-arithmetic: at the flagship's serving shape (M = 2064, T = 251, H = 96,
-FF = 192) about 81 GFLOP and 199 MB of x and y in bf16.
+launches a hand-written kernel that replaces the Pallas TPU kernel
+``fused_tconvffn`` -> ``_fused_forward`` / ``_kernel``: bf16 inputs the
+tensor-core kernel ``csrc/tconvffn_tc.cu`` (mma.sync on bf16, float32
+accumulators; its weight fragments laid out by ``_tc_operands`` on every
+call), float32 inputs the CUDA-core kernel ``csrc/tconvffn.cu``; for a CPU
+tensor, or with ``kernel=False``, it runs ``reference``. It saves only x and
+the parameters; its backward recomputes ``reference_xla`` under autograd at
+x's dtype and launches no kernel. The kernels do each grouped conv directly
+(FF/groups inputs x 3 taps an output), not as the Pallas kernel's
+block-diagonal dense product, so they do an eighth of that arithmetic: at
+the flagship's serving shape (M = 2064, T = 251, H = 96, FF = 192) about 81
+GFLOP and 199 MB of x and y in bf16.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +50,10 @@ PARAM_NAMES = ("ln_scale", "ln_bias", "w_up", "b_up", "w_c1", "b_c1", "w_c2", "b
 KERNEL_WIDTHS = ((96, 192), (192, 384))  # (H, FF) the kernel is compiled for
 KERNEL_GROUPS = 8
 
+VECTOR_NAMES = tuple(k for k in PARAM_NAMES if not k.startswith("w_"))
+
 launches = 0  # kernel launches made by tconvffn / forward since import
+tc_launches = 0  # of those, launches of the bf16 tensor-core kernel
 
 
 def params_from_sequential(seq) -> dict:
@@ -145,6 +152,15 @@ def reference_xla(x, params: dict, groups: int = KERNEL_GROUPS, eps: float = 1e-
     return y @ p["w_down"].t() + p["b_down"]
 
 
+def _param_shapes(H: int, FF: int, groups: int) -> dict:
+    """Each parameter's shape in the torch layout."""
+    cpg = FF // groups
+    return {"ln_scale": (H,), "ln_bias": (H,), "w_up": (FF, H), "b_up": (FF,),
+            "w_c1": (FF, cpg, 3), "b_c1": (FF,), "w_c2": (FF, cpg, 3), "b_c2": (FF,),
+            "gn_scale": (FF,), "gn_bias": (FF,), "w_c3": (FF, cpg, 3), "b_c3": (FF,),
+            "w_down": (H, FF), "b_down": (H,)}
+
+
 def _check(x, params: dict, groups: int):
     """Raise ValueError unless the CUDA kernel takes these inputs."""
     name = "tconvffn"
@@ -162,11 +178,7 @@ def _check(x, params: dict, groups: int):
         raise ValueError(f"{name}: the kernel takes (H, FF) in {KERNEL_WIDTHS}, "
                          f"{KERNEL_GROUPS} groups and T >= 1, got H = {H}, FF = {FF}, "
                          f"groups = {groups}, T = {T}")
-    cpg = FF // groups
-    expect = {"ln_scale": (H,), "ln_bias": (H,), "w_up": (FF, H), "b_up": (FF,),
-              "gn_scale": (FF,), "gn_bias": (FF,), "w_down": (H, FF), "b_down": (H,),
-              **{f"w_c{i}": (FF, cpg, 3) for i in (1, 2, 3)},
-              **{f"b_c{i}": (FF,) for i in (1, 2, 3)}}
+    expect = _param_shapes(H, FF, groups)
     if set(params) != set(expect):
         raise ValueError(f"{name}: params must hold {sorted(expect)}, got {sorted(params)}")
     for key, shape in expect.items():
@@ -176,26 +188,71 @@ def _check(x, params: dict, groups: int):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _kernel_operands(params: dict, dtype) -> torch.Tensor:
-    """The kernel's one float32 parameter buffer: every parameter rounded to
-    the compute dtype, the 1x1 weights as [in, out] and the conv weights as
-    [tap, input of the group, output], in the order of ``PARAM_NAMES``."""
-    f32 = torch.float32
+def _kernel_operands(params: dict) -> torch.Tensor:
+    """The CUDA-core kernel's one float32 parameter buffer: the 1x1 weights
+    as [in, out] and the conv weights as [tap, input of the group, output],
+    in the order of ``PARAM_NAMES``."""
 
     def lay(key, t):
         if key in ("w_up", "w_down"):
             t = t.t()
         elif key.startswith("w_c"):
             t = t.permute(2, 1, 0)
-        return t.to(dtype).to(f32).reshape(-1)
+        return t.to(torch.float32).reshape(-1)
 
     return torch.cat([lay(k, params[k]) for k in PARAM_NAMES])
 
 
+def _fragments(w):
+    """Matrices w [..., K, N] (input, output) as the B fragments of mma.sync
+    [..., N/8, K/8, 32, 2]: entry (n, kb, lane, e) is
+    w[8 kb + 2 (lane % 4) + e, 8 n + lane // 4], so that lane's 32-bit word
+    (n, kb) is its register for n-tile n and the 8-deep k block kb."""
+    *lead, K, N = w.shape
+    nd = len(lead)
+    v = w.reshape(*lead, K // 8, 4, 2, N // 8, 8)  # [kb, t, e, n, g]
+    v = v.permute(*range(nd), nd + 3, nd, nd + 4, nd + 1, nd + 2)  # [n, kb, g, t, e]
+    return v.reshape(*lead, N // 8, K // 8, 32, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_index(H: int, FF: int, groups: int, device: torch.device):
+    """Indices into the concatenated parameters (``PARAM_NAMES`` order, each
+    flattened) of the tensor-core kernel's two buffers: its bf16 weight
+    fragments (w_up, w_c1, w_c2, w_c3, w_down; a conv's per tap and group)
+    and its vectors (``VECTOR_NAMES``)."""
+    cpg = FF // groups
+    shapes = _param_shapes(H, FF, groups)
+    idx, off = {}, 0
+    for k in PARAM_NAMES:
+        n = torch.Size(shapes[k]).numel()
+        idx[k] = torch.arange(off, off + n).reshape(shapes[k])
+        off += n
+
+    def conv(w):  # [FF, cpg, 3] -> [tap, group, input, output]
+        return w.reshape(groups, cpg, cpg, 3).permute(3, 0, 2, 1)
+
+    mats = [idx["w_up"].t(), *(conv(idx[f"w_c{i}"]) for i in (1, 2, 3)), idx["w_down"].t()]
+    frags = torch.cat([_fragments(w).reshape(-1) for w in mats])
+    vecs = torch.cat([idx[k] for k in VECTOR_NAMES])
+    return frags.to(device), vecs.to(device)
+
+
+def _tc_operands(params: dict, groups: int = KERNEL_GROUPS):
+    """The tensor-core kernel's operands: every parameter rounded to bf16,
+    the weights as mma.sync B fragments (``_fragments``) in one bf16 buffer,
+    the vectors as one float32 buffer. Three small gathers a call."""
+    FF, H = params["w_up"].shape
+    flat = torch.cat([params[k].detach().reshape(-1) for k in PARAM_NAMES]).to(torch.bfloat16)
+    widx, vidx = _tc_index(H, FF, groups, flat.device)
+    return flat[widx], flat[vidx].to(torch.float32)
+
+
 def forward(x, params: dict, groups: int = KERNEL_GROUPS, eps: float = 1e-5):
-    """Launch the CUDA kernel on x [M, T, H] (float32 or bfloat16, on the
-    card), or raise ValueError if it does not take the inputs. No gradient."""
-    global launches
+    """Launch the CUDA kernel on x [M, T, H] (on the card: bfloat16 on the
+    tensor-core kernel, float32 on the CUDA-core one), or raise ValueError if
+    it does not take the inputs. No gradient."""
+    global launches, tc_launches
     _check(x, params, groups)
     M, T, H = x.shape
     FF = params["w_up"].shape[0]
@@ -205,18 +262,28 @@ def forward(x, params: dict, groups: int = KERNEL_GROUPS, eps: float = 1e-5):
     from nbss_tpu_torch.ops import _build
 
     lib = _build.library()
-    with torch.no_grad():
-        ops = _kernel_operands(params, x.dtype)
-    tiles = -(-T // lib.nbss_tconvffn_tile_frames())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     ws = torch.empty(M, T, FF, dtype=x.dtype, device=x.device)
-    partials = torch.empty(M, tiles, groups, 2, dtype=torch.float32, device=x.device)
-    err = lib.nbss_tconvffn_fwd(
-        x.data_ptr(), ops.data_ptr(), y.data_ptr(), ws.data_ptr(), partials.data_ptr(),
-        M, T, H, FF, groups, ctypes.c_float(eps), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    tc = x.dtype == torch.bfloat16
+    if tc:
+        with torch.no_grad():
+            frags, vecs = _tc_operands(params, groups)
+        err = lib.nbss_tconvffn_tc_fwd(
+            x.data_ptr(), frags.data_ptr(), vecs.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            M, T, H, FF, groups, ctypes.c_float(eps), stream)
+    else:
+        with torch.no_grad():
+            ops = _kernel_operands(params)
+        tiles = -(-T // lib.nbss_tconvffn_tile_frames())
+        partials = torch.empty(M, tiles, groups, 2, dtype=torch.float32, device=x.device)
+        err = lib.nbss_tconvffn_fwd(
+            x.data_ptr(), ops.data_ptr(), y.data_ptr(), ws.data_ptr(), partials.data_ptr(),
+            M, T, H, FF, groups, ctypes.c_float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"tconvffn kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"tconvffn {'tensor-core ' if tc else ''}kernel launch failed with "
+                           f"CUDA error {err}")
     launches += 1
+    tc_launches += tc
     return y
 
 

@@ -52,11 +52,14 @@ head's ``vo``; T = 1, 13, 248, 256, 257 and 400, whose kept scores leave
 shared memory; M = 1, 7 and several chunks) and refuses H != 192; a 2-layer
 NBC's gradients through the kernels against the plain module composition's.
 
-The T-ConvFFN kernel is held against ``tconvffn.reference`` at the forward
-bounds (one and two frames, ragged and whole 32-frame tiles, 251 and 1000
-frames, SpatialNet-small's and -large's widths), with bit-identical
-relaunches; a 2-layer SpatialNet(fused_ffn=True)'s gradients against the
-plain module composition's.
+The T-ConvFFN kernels are held against ``tconvffn.reference`` at the
+forward bounds (one and two frames, ragged and whole 32-frame tiles, 251 and
+1000 frames, SpatialNet-small's and -large's widths), with bit-identical
+relaunches; bf16 reaches the tensor-core kernel, which is held at the same
+shapes and at the edges of its 16-frame tiles and 64-frame steps (T = 15,
+16, 17, 62-65, 127, 128, 256, 300), and refuses what the CUDA-core kernel
+refuses; a 2-layer SpatialNet(fused_ffn=True)'s
+gradients against the plain module composition's.
 """
 
 import numpy as np
@@ -342,11 +345,13 @@ def test_spatialnet_gradients_through_kernels_match_plain_path(card, dtype):
                                        msg=name)
 
 
-# (M, T, D, N): T = 1, 7, 8, 9, 13 around the 8-frame chunk, 251, 1000; M = 1, 31, 1032;
-# D = 192 (3 blocks), 64, 100, 70 and 33 (ragged), 40 (one partial block); N = 4, 8, 16
+# (M, T, D, N): T = 1, 7, 8, 9, 13 around the 8-frame chunk, 15, 16, 17 around half
+# the forward's 32-frame span, 31, 33 around the span, 251, 1000; M = 1, 31, 1032; D = 192 (3 blocks), 64, 100,
+# 70 and 33 (ragged), 40 (one partial block); N = 4, 8, 16
 SCAN_SHAPES = [(1, 1, 192, 16), (31, 7, 192, 4), (31, 8, 64, 16), (1, 9, 100, 16),
                (1032, 251, 192, 16), (31, 1000, 192, 4), (1032, 9, 40, 4), (5, 251, 33, 16),
-               (7, 251, 192, 8), (3, 13, 70, 8)]
+               (7, 251, 192, 8), (3, 13, 70, 8), (2, 15, 192, 16), (3, 16, 100, 16),
+               (4, 17, 192, 4), (2, 31, 33, 8), (1, 33, 64, 16)]
 
 
 def _scan_inputs(seed, M, T, D, N, dtype):
@@ -411,6 +416,27 @@ def test_selective_scan_backward_kernel_matches_plain(card, M, T, D, N, dtype):
             assert err <= max(2 * perr, 5e-3 * w.abs().max().item()), (name, err, perr)
     again = ssm.backward(*ins, hb, gy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_takes_views_off_16_bytes(card, dtype):
+    """x, dt, B and C that start one element past a 16-byte boundary (contiguous
+    views into a larger buffer) at D, N multiples of 8: the kernel stages them by
+    plain loads and gives what it gives on aligned copies."""
+    from nbss_tpu_torch.ops import ssm
+
+    ins, _ = _scan_inputs(3, 3, 40, 192, 16, dtype)
+    shifted = list(ins)
+    for i in (0, 1, 3, 4):
+        buf = torch.empty(ins[i].numel() + 1, dtype=ins[i].dtype, device="cuda")
+        shifted[i] = buf[1:].view(ins[i].shape)
+        shifted[i].copy_(ins[i])
+        assert shifted[i].is_contiguous() and shifted[i].data_ptr() % 16 != 0
+    y, hb = ssm.forward(*ins, boundaries=True)
+    ys, hbs = ssm.forward(*shifted, boundaries=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ys) and torch.equal(hb, hbs)
 
 
 @pytest.mark.gpu
@@ -906,12 +932,17 @@ def test_nbc_gradients_through_relpos_kernel_match_plain_path(card, dtype):
                                        msg=name)
 
 
-# (M, T, H, FF): one frame, two frames, ragged and whole 32-frame tiles, the
-# serving length 251, a long stream; SpatialNet-small's and -large's widths
+# (M, T, H, FF): one frame, two frames, ragged and whole 32-frame tiles of the
+# CUDA-core kernel, the edges of the tensor-core kernel's 16-frame tiles and
+# 64-frame steps (15, 16, 17, 62-65, 127, 128, 256, 300), the serving length
+# 251, a long stream; SpatialNet-small's and -large's widths
 TCONVFFN_SHAPES = [(5, 1, 96, 192), (3, 2, 96, 192), (7, 13, 96, 192), (2, 32, 96, 192),
                    (3, 33, 96, 192), (1, 251, 96, 192), (129, 251, 96, 192),
                    (2, 1000, 96, 192), (4, 1, 192, 384), (3, 45, 192, 384),
-                   (2, 251, 192, 384)]
+                   (2, 251, 192, 384), (2, 15, 96, 192), (2, 16, 96, 192), (2, 17, 96, 192),
+                   (1, 62, 96, 192), (1, 63, 96, 192), (2, 64, 96, 192), (1, 65, 96, 192),
+                   (1, 127, 96, 192), (1, 128, 96, 192), (1, 256, 96, 192), (2, 300, 96, 192),
+                   (2, 65, 192, 384)]
 
 
 def _tconvffn_operands(seed, M, T, H, FF):
@@ -938,10 +969,11 @@ def test_tconvffn_kernel_matches_plain(card, M, T, H, FF, dtype):
 
     x, p = _tconvffn_operands(M * 1000 + T + H, M, T, H, FF)
     x = x.to(dtype)
-    before = tc.launches
+    before, before_tc = tc.launches, tc.tc_launches
     y = tc.tconvffn(x, p)
     torch.cuda.synchronize()
     assert tc.launches == before + 1
+    assert tc.tc_launches == before_tc + (dtype == torch.bfloat16)
     assert y.dtype == dtype and y.shape == x.shape
     want = tc.reference(x.float(), p)
     if dtype == torch.float32:
@@ -951,6 +983,32 @@ def test_tconvffn_kernel_matches_plain(card, M, T, H, FF, dtype):
         err = (y.float() - want).abs().max().item()
         assert np.isfinite(err) and err <= 2 * plain_err, (err, plain_err)
     assert torch.equal(y, tc.tconvffn(x, p))  # no atomics
+
+
+@pytest.mark.gpu
+def test_dtype_picks_the_tconvffn_kernel(card):
+    """float32 reaches the CUDA-core T-ConvFFN and bfloat16 the tensor-core
+    one, as the counters show."""
+    from nbss_tpu_torch.ops import tconvffn as tc
+
+    x, p = _tconvffn_operands(4, 2, 40, 96, 192)
+    for dtype, on_tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+        f0, t0 = tc.launches, tc.tc_launches
+        tc.tconvffn(x.to(dtype), p)
+        assert (tc.launches - f0, tc.tc_launches - t0) == (1, on_tc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,FF", [(96, 192), (192, 384)])
+def test_tconvffn_tc_fragments_fill_the_kernels_buffer(card, H, FF):
+    """The wrapper lays out as many bf16 fragment values as the tensor-core
+    kernel reads, two a 32-bit word."""
+    from nbss_tpu_torch.ops import _build, tconvffn as tc
+
+    _, p = _tconvffn_operands(5, 1, 1, H, FF)
+    frags, vecs = tc._tc_operands(p)
+    assert frags.dtype == torch.bfloat16 and vecs.dtype == torch.float32
+    assert frags.numel() == 2 * _build.library().nbss_tconvffn_tc_words(H, FF)
 
 
 @pytest.mark.gpu
@@ -965,10 +1023,14 @@ def test_tconvffn_plain_on_the_card_launches_nothing(card):
 
 
 @pytest.mark.gpu
-def test_tconvffn_kernel_refuses_what_it_does_not_take(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tconvffn_kernel_refuses_what_it_does_not_take(card, dtype):
+    """Both kernels meet the same refusals, and nothing is launched for them."""
     from nbss_tpu_torch.ops import tconvffn as tc
 
     x, p = _tconvffn_operands(0, 2, 9, 96, 192)
+    x = x.to(dtype)
+    before = tc.launches
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tc.tconvffn(x.half(), p)
     with pytest.raises(ValueError, match="contiguous"):
@@ -977,11 +1039,12 @@ def test_tconvffn_kernel_refuses_what_it_does_not_take(card):
         tc.tconvffn(x, p, groups=4)
     x64, p64 = _tconvffn_operands(0, 2, 9, 64, 128)
     with pytest.raises(ValueError, match="H = 64"):
-        tc.tconvffn(x64, p64)
+        tc.tconvffn(x64.to(dtype), p64)
     with pytest.raises(ValueError, match="w_c2 must be"):
         tc.tconvffn(x, {**p, "w_c2": p["w_c2"][..., :1]})
     with pytest.raises(ValueError, match="b_down must be"):
         tc.tconvffn(x, {**p, "b_down": p["b_down"].cpu()})
+    assert tc.launches == before
 
 
 @pytest.mark.gpu

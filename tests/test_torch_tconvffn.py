@@ -17,8 +17,9 @@ gradients against ``jax.vjp`` of the JAX op at atol and rtol 5e-3 (its
 gradient bound), the grouped weights' against the block diagonal of the
 dense ones. The model: arch outputs at atol 2e-4, rtol 1e-4; waveforms at
 SI-SDR >= 60 dB; ``training_step``'s loss at rtol 1e-4 and its gradients at
-5e-3. The CUDA kernel itself is held against ``reference`` in
-test_torch_kernels_gpu.py, which needs a card.
+5e-3. The tensor-core kernel's operand layout (``_tc_operands``) is held
+against the rounded parameters. The CUDA kernels themselves are held against
+``reference`` in test_torch_kernels_gpu.py, which needs a card.
 """
 
 import jax
@@ -172,6 +173,55 @@ def test_no_plain_fallback_for_other_devices():
         tc.tconvffn(torch.empty(2, 8, H, device="meta"), p, G)
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         tc.forward(torch.zeros(2, 8, H), p, G)
+
+
+def _unfragment(frags, K, N):
+    """[N/8, K/8, 32, 2] -> [K, N] by the layout the tensor-core kernel reads:
+    entry (n, kb, lane, e) is w[8 kb + 2 (lane % 4) + e, 8 n + lane // 4]."""
+    w = np.full((K, N), np.nan, np.float32)
+    n, kb, lane, e = np.meshgrid(*(np.arange(d) for d in frags.shape), indexing="ij")
+    w[8 * kb + 2 * (lane % 4) + e, 8 * n + lane // 4] = frags
+    return w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,ff", [(H, FF), (96, 192)])
+def test_tc_operands_lay_out_the_rounded_parameters(h, ff, dtype):
+    """The bf16 kernel's operands: every weight rounded to bf16 as mma.sync B
+    fragments (w_up, then each conv per tap and group, then w_down, each
+    [input, output]), every vector rounded to bf16 and held as float32."""
+    rng = np.random.default_rng(h)
+    cpg = ff // G
+    shapes = {"ln_scale": (h,), "ln_bias": (h,), "w_up": (ff, h), "b_up": (ff,),
+              "gn_scale": (ff,), "gn_bias": (ff,), "w_down": (h, ff), "b_down": (h,),
+              **{f"w_c{i}": (ff, cpg, 3) for i in (1, 2, 3)},
+              **{f"b_c{i}": (ff,) for i in (1, 2, 3)}}
+    p = {k: torch.from_numpy(rng.standard_normal(shapes[k]).astype(np.float32)).to(dtype)
+         for k in tc.PARAM_NAMES}
+    frags, vecs = tc._tc_operands(p)
+    assert frags.dtype == torch.bfloat16 and vecs.dtype == torch.float32
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float().numpy()
+
+    flat, off = frags.float().numpy(), 0
+
+    def take(K, N):
+        nonlocal off
+        block = flat[off:off + K * N].reshape(N // 8, K // 8, 32, 2)
+        off += K * N
+        return _unfragment(block, K, N)
+
+    np.testing.assert_array_equal(take(h, ff), rnd(p["w_up"]).T)
+    for i in (1, 2, 3):
+        w = rnd(p[f"w_c{i}"])
+        for tap in range(3):
+            for g in range(G):
+                np.testing.assert_array_equal(take(cpg, cpg), w[g * cpg:(g + 1) * cpg, :, tap].T)
+    np.testing.assert_array_equal(take(ff, h), rnd(p["w_down"]).T)
+    assert off == flat.size
+    np.testing.assert_array_equal(vecs.numpy(),
+                                  np.concatenate([rnd(p[k]) for k in tc.VECTOR_NAMES]))
 
 
 # --- the model: SpatialNet(fused_ffn=True) against the JAX model ---------------
