@@ -12,7 +12,9 @@ H=96, online utterance norm, neg-SNR with PIT), which also streams, and for
 OnlineSpatialNet ``mhsa(251)`` (the same widths with masked attention, 4
 heads, and the causal T-ConvFFN); then NBC serving at the full width of
 ``configs/NBC.yaml``; then SpatialNet-small again with ``fused_ffn=True``,
-whose T-ConvFFN runs through its kernel. Twenty-nine phases:
+whose T-ConvFFN runs through its kernel; then NBC2-small (``configs/NBC2.yaml``)
+through the attention-block kernels at two heads, NB-BLSTM, the NBSS
+wrapper, and NBC training. Thirty-nine phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -168,7 +170,50 @@ whose T-ConvFFN runs through its kernel. Twenty-nine phases:
 29. times: the T-ConvFFN kernels (bf16 on the tensor cores, fp32 on the
     CUDA cores), the bf16 operand layout, its plain version, a PyTorch
     library composition of the same function and its bound; serving and
-    training rates with ``fused_ffn`` on and off, in turns.
+    training rates with ``fused_ffn`` on and off, in turns;
+30. the attention-block kernels at NBC2-small's shape (nh = 2, heads of 48;
+    the forward at M = 16*129, the backward at M = 8*129, T = 251, H = 96):
+    fp32 on the CUDA-core kernels (forward at atol 2e-4, rtol 1e-4; each
+    cotangent within 5e-3 x max|plain|, rtol 5e-3), bf16 on the tensor-core
+    kernels under the bf16 rule of phases 3 and 6 with bit-identical
+    relaunches, also at T = 1, 17, 65, 256; times of both, their plain
+    versions, the library composition (LN + linear + SDPA at two heads +
+    linear + residual) and its backward, and bounds;
+31. the narrow-band attention kernels at NBC2's heads (nh = 2, dh = dv = 48;
+    M = 2*129, no mask and a causal one), which an NBC2 whose first norm is
+    not LN runs: forward and backward under the bounds of phase 30, fp32 and
+    bf16, relaunches bit-identical; times at M = 16*129 (forward) and 8*129
+    (backward) against SDPA and its backward, and bounds;
+32. NBC2-small serving (``configs/NBC2.yaml``: 8 layers, H=96, ffn 192, 2
+    heads, LN/GBN/GBN; 6 ch x 4 s at 8 kHz, frequency norm, neg-SA-SDR with
+    PIT): ``forward`` and ``predict_step`` at B=16 in bf16, 8 attention-block
+    launches a forward, all on the tensor-core kernel, and no other kernel;
+    fp32 kernel path vs the plain module composition, SI-SDR >= 50 dB; and
+    with GBN first norms at B=2 through rows 4-5 (8 launches), >= 50 dB;
+33. training: ``Trainer`` fits 8 SyntheticDataset items for 20 steps at B=8
+    (Adam 1e-3, clip 5, bf16): falling loss, 8 + 8 attention-block launches
+    a step, all on the tensor-core kernels; the fp32 kernel path's gradients
+    held by ``check_gradients.hold`` against the plain composition in fp32
+    and float64;
+34. NBC2-small's serving and training rates;
+35. NB-BLSTM serving (``configs/NB-BLSTM.yaml``: BLSTM 256, 128; 6 ch x 4 s
+    at 8 kHz): ``forward`` and ``predict_step`` at B=16 in bf16 and fp32,
+    finite, no kernel of the port (its LSTMs are cuDNN's; the first BLSTM's
+    time in bf16 and fp32); the serving rates;
+36. training: 20 steps at B=8 (Adam 1e-3, clip 5, bf16), falling loss; the
+    training rate;
+37. the NBSS wrapper (STFT 512/256, 8 ch x 4 s at 16 kHz, B=2): one forward
+    for NB_BLSTM, NBC and NBC2 in fp32 and bf16, finite [2, 2, T], with NBC's
+    4 relative-position and NBC2's 8 attention-block launches;
+38. NBC training (``configs/NBC.yaml``, dropout 0.1) for 20 steps at B=8
+    (M = 8*257, T = 248; Adam 1e-3, clip 5, bf16): falling loss, no kernel
+    launch (the block and the fused attention are off while dropout is
+    active, as in the JAX package), the peak device memory and the rate;
+39. the same at dropout 0: 4 relative-position launches a step, all on the
+    tensor-core kernel (the gradient is autograd's of the plain version, as
+    the JAX package's); the fp32 kernel path's gradients held by
+    ``check_gradients.hold`` (the key biases left out: the fold drops them);
+    the peak device memory and the rate.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -208,6 +253,17 @@ NBC_CFG = dict(dim_input=16, dim_output=4, n_layers=4, encoder_kernel_size=4, n_
                inner_conv_layers=3, dropout=0.1)
 NBC_CHANNELS, NBC_FS, NBC_NFFT = 8, 16000, 512
 NBC_B_CHECK = 4  # batch of the fp32 kernel-vs-plain comparison (the plain attention's [M, nh, T, T])
+# NBC's training batches: M = B*257 sequences of T = 248 frames in the blocks. At dropout 0.1
+# every layer keeps [M, 8, 248, 248] float32 scores for the backward: B = 8 and B = 7 ran out
+# of the card's 80 GB, B = 6 peaks near 70 GiB. At dropout 0 B = 8 fits.
+NBC_B_TRAIN = {0.1: 6, 0.0: 8}
+# configs/NBC2.yaml, NBC2-small: 8 layers, H=96, ffn 192, 2 heads, k=5 encoder, 8 conv groups,
+# norms LN/GBN/GBN; 6 channels, STFT 256/128 at 8 kHz, frequency norm, neg-SA-SDR with PIT
+NBC2_CFG = dict(dim_input=12, dim_output=4, n_layers=8, encoder_kernel_size=5, dim_hidden=96,
+                dim_ffn=192, num_freqs=129, n_heads=2, conv_kernel_size=3, n_conv_groups=8,
+                norms=("LN", "GBN", "GBN"))
+# configs/NB-BLSTM.yaml: BLSTM 256 then 128; 6 channels at 8 kHz, neg-SI-SDR with PIT
+BLSTM_CFG = dict(dim_input=12, dim_output=4, hidden_size=(256, 128))
 
 
 def log(msg: str) -> None:
@@ -260,7 +316,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/29 device")
+    log("phase 1/39 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -268,7 +324,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/29 build (plain nvcc, sm_90a)")
+    log("phase 2/39 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -278,7 +334,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/29 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/39 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -330,7 +386,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/29 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/39 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -369,7 +425,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/29 times (CUDA events, after warm-up)")
+    log("phase 5/39 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -422,8 +478,17 @@ def main() -> int:
     row8, wide4, wide5 = nbc_phases(dev)
     fresh_start()
     row3 = tconvffn_phases(dev)
-    rows45[0].update(wide4)
-    rows45[1].update(wide5)
+    fresh_start()
+    nbc2_row1, nbc2_row2, nbc2_row4, nbc2_row5 = nbc2_phases(dev)
+    fresh_start()
+    blstm_phases(dev)
+    fresh_start()
+    nbss_phase(dev)
+    fresh_start()
+    row8["training"] = nbc_training_phases(dev)
+    rows45[0].update(wide4, **nbc2_row4)
+    rows45[1].update(wide5, **nbc2_row5)
+    row2.update(nbc2_row2)
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
@@ -434,7 +499,7 @@ def main() -> int:
         "launches": launches, "tc_launches": serve_tc, "launches_training": train_launches,
         "max_abs_err": err32, "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms,
         "ms_fp32": ms_fp32, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms},
+        "library_ms": library_ms, **nbc2_row1},
         row2, row3, *rows67, *rows45, row8]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -501,7 +566,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/29 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/39 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -565,7 +630,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/29 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/39 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     module, trainer, batch, losses = check_gradients.fit(dev)  # data and init launch nothing
@@ -593,7 +658,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/29 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/39 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -602,7 +667,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/29 times (CUDA events, after warm-up)")
+    log("phase 9/39 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -713,7 +778,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/29 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/39 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -748,7 +813,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/29 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/39 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -779,7 +844,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/29 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/39 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -816,7 +881,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/29 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/39 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -837,7 +902,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/29 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/39 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -896,7 +961,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/29 times (CUDA events, after warm-up)")
+    log("phase 15/39 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1035,7 +1100,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/29 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/39 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1093,7 +1158,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/29 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/39 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1151,7 +1216,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/29 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/39 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1190,7 +1255,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/29 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/39 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1212,7 +1277,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/29 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/39 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1276,7 +1341,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/29 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/39 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1423,7 +1488,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/29 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/39 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1505,7 +1570,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/29 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/39 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1566,7 +1631,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/29 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/39 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1615,7 +1680,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/29 times (CUDA events, after warm-up)")
+    log("phase 25/39 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -1804,7 +1869,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/29 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/39 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -1885,7 +1950,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/29 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/39 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -1930,7 +1995,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/29 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/39 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1992,7 +2057,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/29 times (CUDA events, after warm-up)")
+    log("phase 29/39 times (CUDA events, after warm-up)")
     with torch.no_grad():
         ffn_ms = cuda_ms(lambda: tc.tconvffn(xb, p, G), iters=10)
         x32 = xb.float()
@@ -2098,6 +2163,577 @@ def tconvffn_phases(dev):
             "serve_step_ms": {"fused_ffn": serve_ms["on"], "plain_ffn": serve_ms["off"],
                               "fused_ffn_operands_once": serve_ms["cached"]},
             "train_step_ms": {"fused_ffn": train_ms[True], "plain_ffn": train_ms[False]}}
+
+
+def fixed_batch(n: int, channels: int, rate: int):
+    """n fixed ``SyntheticDataset`` items of ``channels`` x SECONDS at
+    ``rate``, stacked as a batch (x, ys)."""
+    import numpy as np
+
+    from nbss_tpu_torch.data.synthetic import SyntheticDataset
+
+    data = SyntheticDataset(num_items=n, num_channels=channels, sample_rate=rate,
+                            audio_time_len=SECONDS)
+    items = [data[(i, 1000 + i)] for i in range(n)]
+    return np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
+
+
+def trainer_of(module, dev, losses):
+    """A ``Trainer`` (Adam 1e-3, clip 5, seed 2) that appends each step's
+    loss to ``losses``, its parameters drawn."""
+    from nbss_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(module, optimizer=("Adam", {"lr": 1e-3}), gradient_clip_val=5.0, seed=2,
+                      device=dev, logger=lambda k, v, _: losses.append(v)
+                      if k.startswith("train/") else None)
+    trainer.init()
+    return trainer
+
+
+def check_losses(losses) -> None:
+    """Every loss finite and the mean of the last 5 below the first 5's."""
+    import numpy as np
+
+    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+
+
+def seconds_per_call(fn, reps: int) -> float:
+    """Host seconds a call of ``fn`` takes, after one warm-up call, ending in
+    a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t1) / reps
+
+
+def check_outputs(outputs, shape) -> None:
+    """Raise unless each named output is finite with ``shape``."""
+    import torch
+
+    for name, out in outputs:
+        if tuple(out.shape) != tuple(shape) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}, expected {tuple(shape)}")
+
+
+def nbc2_phases(dev):
+    """Phases 30-34: rows 1-2 at NBC2-small's two heads, rows 4-5 at its
+    48-wide heads, NBC2-small serving and training. Returns the keys that
+    rows 1, 2, 4 and 5 gain in the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbss_tpu_torch import check_gradients
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.nbc2 import NBC2
+    from nbss_tpu_torch.models.online_spatialnet import local_causal_mask
+    from nbss_tpu_torch.ops import attention as att
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.module import TrainModule
+
+    H, nh, n_layers = NBC2_CFG["dim_hidden"], NBC2_CFG["n_heads"], NBC2_CFG["n_layers"]
+    dh = H // nh
+    n_freq = NBC2_CFG["num_freqs"]
+    T = int(SECONDS * FS) // 128 + 1
+    M, Mt = B * n_freq, B_TRAIN * n_freq
+    gen = torch.Generator().manual_seed(7)
+    net = NBC2(**NBC2_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    blk = net.sa_layers[0]
+    sa = blk.self_attn
+    with torch.no_grad():
+        ln, A, Wvo, c, eps = ab.fold_weights(blk.norm1.weight, blk.norm1.bias, sa.in_proj_weight,
+                                             sa.in_proj_bias, sa.out_proj.weight,
+                                             sa.out_proj.bias, nh)
+    ops = (ln, A, Wvo)
+
+    # 30. rows 1-2 at nh 2
+    log(f"phase 30/39 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+        f"T={T} H={H} nh={nh} (dh {dh})")
+    tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
+    xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
+    x32 = xb.float()  # the fp32 checks on the bf16 inputs' values
+    with torch.no_grad():
+        y = ab.attention_block(x32, *ops, c, eps, nh)
+        torch.cuda.synchronize()
+        want = ab.reference(x32, *ops, c, eps, nh)
+    fwd_err32 = (y - want).abs().max().item()
+    torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+    del x32, y
+    with torch.no_grad():
+        ybf = ab.attention_block(xb, *ops, c, eps, nh)
+        relaunched("bf16 attention_block nh 2", [ybf], [ab.attention_block(xb, *ops, c, eps, nh)])
+        fwd_errbf, = bf16_rule("bf16 attention_block nh 2", [ybf], [want],
+                               [ab.reference(xb, *ops, c, eps, nh)], 2e-4, 1e-4)
+    del ybf, want
+    log(f"forward: fp32 (CUDA-core kernel) max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, "
+        f"rtol 1e-4); bf16 (tensor-core kernel) {fwd_errbf:.4f}, within the bf16 rule; two "
+        "launches bit-identical")
+    names = ("dx", "dln", "dA", "dWvo", "dc")
+    xtb = xb[:Mt]
+    gtb = torch.randn(Mt, T, H, generator=gen).to(dev).to(torch.bfloat16)
+    xt32, g32 = xtb.float(), gtb.float()
+    got = ab.backward(xt32, *ops, g32, eps, nh)
+    torch.cuda.synchronize()
+    want = ab.reference_bwd(xt32, *ops, g32, eps, nh)
+    bwd_errs32 = [(a - w).abs().max().item() for a, w in zip(got, want)]
+    for name, a, w in zip(names, got, want):
+        torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3, msg=name)
+    del xt32, g32, got
+    gotb = ab.backward(xtb, *ops, gtb, eps, nh)
+    relaunched("bf16 attention_block backward nh 2", gotb, ab.backward(xtb, *ops, gtb, eps, nh))
+    bwd_errsbf = bf16_rule("bf16 attention_block backward nh 2", gotb, want,
+                           ab.reference_bwd(xtb, *ops, gtb, eps, nh), 0.0, 5e-3)
+    del gotb, want
+    log("backward: fp32 (CUDA-core kernel) max |kernel - plain| " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(names, bwd_errs32)) + " (atol 5e-3 x max|plain|); bf16 "
+        "(tensor-core kernel) " + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, bwd_errsbf))
+        + ", within the bf16 rule; two launches bit-identical, weight cotangents included")
+    for Te in (1, 17, 65, 256):  # the edges of the tensor-core kernels' tiles, at nh 2
+        xe, ge = (torch.randn(3, Te, H, generator=gen).to(dev).to(torch.bfloat16)
+                  for _ in range(2))
+        label = f"bf16 attention_block nh 2 at (M, T) = (3, {Te})"
+        with torch.no_grad():
+            ye = ab.attention_block(xe, *ops, c, eps, nh)
+            relaunched(label, [ye], [ab.attention_block(xe, *ops, c, eps, nh)])
+            bf16_rule(label, [ye], [ab.reference(xe.float(), *ops, c, eps, nh)],
+                      [ab.reference(xe, *ops, c, eps, nh)], 2e-4, 1e-4)
+        got = ab.backward(xe, *ops, ge, eps, nh)
+        relaunched(label + " backward", got, ab.backward(xe, *ops, ge, eps, nh))
+        bf16_rule(label + " backward", got,
+                  ab.reference_bwd(xe.float(), *ops, ge.float(), eps, nh),
+                  ab.reference_bwd(xe, *ops, ge, eps, nh), 0.0, 5e-3)
+    log("bf16 at T = 1, 17, 65, 256 (M = 3), forward and backward: within the bf16 rule, "
+        "relaunches bit-identical")
+    if (ab.tc_launches - tc0, ab.bwd_tc_launches - btc0) != (10, 10):
+        raise AssertionError(f"{ab.tc_launches - tc0} forward and {ab.bwd_tc_launches - btc0} "
+                             "backward tensor-core launches, expected 10 and 10")
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: ab.attention_block(xb, *ops, c, eps, nh), iters=20)
+        x32 = xb.float()
+        fwd_ms_fp32 = cuda_ms(lambda: ab.attention_block(x32, *ops, c, eps, nh), iters=5)
+        del x32
+        fwd_plain_ms = cuda_ms(lambda: ab.reference(xb, *ops, c, eps, nh), iters=3, warmup=1)
+    bf = torch.bfloat16
+    w_in, b_in = sa.in_proj_weight.to(bf), sa.in_proj_bias.to(bf)
+    w_out, b_out = sa.out_proj.weight.to(bf), sa.out_proj.bias.to(bf)
+    ln_w, ln_b = blk.norm1.weight.to(bf), blk.norm1.bias.to(bf)
+
+    def library(x, ln_w, ln_b, w_in, b_in, w_out, b_out):  # the port never calls this
+        M_ = x.shape[0]
+        q, k, v = F.linear(F.layer_norm(x, (H,), ln_w, ln_b), w_in, b_in).chunk(3, -1)
+        q, k, v = (t.reshape(M_, T, nh, dh).transpose(1, 2) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(M_, T, H)
+        return x + F.linear(o, w_out, b_out)
+
+    with torch.no_grad():
+        fwd_library_ms = cuda_ms(lambda: library(xb, ln_w, ln_b, w_in, b_in, w_out, b_out),
+                                 iters=20)
+    bwd_ms = cuda_ms(lambda: ab.backward(xtb, *ops, gtb, eps, nh), iters=10)
+    xt32, gt32 = xtb.float(), gtb.float()
+    bwd_ms_fp32 = cuda_ms(lambda: ab.backward(xt32, *ops, gt32, eps, nh), iters=3, warmup=1)
+    del xt32, gt32
+    bwd_plain_ms = cuda_ms(lambda: ab.reference_bwd(xtb, *ops, gtb, eps, nh), iters=3, warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (xtb, ln_w, ln_b, w_in, b_in, w_out,
+                                                            b_out)]
+    yl = library(*leaves)  # graph built once
+    bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(yl, leaves, gtb, retain_graph=True),
+                             iters=10)
+    del yl, leaves
+    op_bytes = sum(t.numel() * t.element_size() for t in (ln, A, Wvo, c))
+    flops = T * H * 3 * H * 2 + 2 * 2 * T * T * H + 2 * T * H * H  # a sequence, unfolded
+    fwd_bound, fwd_by = bound(2 * xb.numel() * 2 + op_bytes, M * flops)
+    bwd_bound, bwd_by = bound(3 * xtb.numel() * 2 + 2 * op_bytes, 2 * Mt * flops)
+    log(f"attention_block nh 2, bf16: forward M={M} tensor-core kernel {fwd_ms:.3f} ms (fp32, "
+        f"CUDA-core kernel {fwd_ms_fp32:.3f} ms), plain {fwd_plain_ms:.3f} ms, library (LN + "
+        f"linear + SDPA at nh 2 + linear + residual) {fwd_library_ms:.3f} ms, bound "
+        f"{fwd_bound:.4f} ms ({fwd_by}); backward M={Mt} tensor-core kernel {bwd_ms:.3f} ms "
+        f"(fp32, CUDA-core kernel {bwd_ms_fp32:.3f} ms), plain {bwd_plain_ms:.3f} ms, library "
+        f"backward {bwd_library_ms:.3f} ms, bound {bwd_bound:.4f} ms ({bwd_by})")
+    del xb, xtb, gtb
+    check_budget("attention block at nh 2")
+
+    # 31. rows 4-5 at dh = dv = 48
+    Ma = 2 * n_freq
+    causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
+    log(f"phase 31/39 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+        f"dh=dv={dh}, no mask and causal")
+    tc0, btc0 = att.tc_launches, att.bwd_tc_launches
+    att_errs = {}
+    for label, mask in (("none", None), ("causal", causal)):
+        insb, gb = attention_inputs(gen, Ma, T, nh, dh, dh, torch.bfloat16, dev)
+        ins32, g32 = [t.float() for t in insb], gb.float()  # the bf16 inputs' values
+        o, st = att.forward(*ins32, mask, nh, stats=True)
+        torch.cuda.synchronize()
+        want = att.reference(*ins32, mask, nh)
+        e_fwd = (o - want).abs().max().item()
+        torch.testing.assert_close(o, want, atol=2e-4, rtol=1e-4, msg=label)
+        got = att.backward(*ins32, mask, g32, nh, st)
+        want = att.reference_bwd(*ins32, mask, g32, nh)
+        e_bwd = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            e_bwd.append((a - w).abs().max().item())
+            torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=f"{label} {name}")
+        ob, stb = att.forward(*insb, mask, nh, stats=True)
+        relaunched(f"bf16 attention dh 48 {label}", (ob, stb),
+                   att.forward(*insb, mask, nh, stats=True))
+        e_fwdbf, = bf16_rule(f"bf16 attention dh 48 {label}", [ob],
+                             [att.reference(*ins32, mask, nh)],
+                             [att.reference(*insb, mask, nh)], 2e-4, 1e-4)
+        gotb = att.backward(*insb, mask, gb, nh, stb)
+        relaunched(f"bf16 attention backward dh 48 {label}", gotb,
+                   att.backward(*insb, mask, gb, nh, stb))
+        e_bwdbf = bf16_rule(f"bf16 attention backward dh 48 {label}", gotb, want,
+                            att.reference_bwd(*insb, mask, gb, nh), 0.0, 5e-3)
+        att_errs[label] = {"fwd_fp32": e_fwd, "fwd_bf16": e_fwdbf,
+                           "bwd_fp32": dict(zip(("dq", "dk", "dv"), e_bwd)),
+                           "bwd_bf16": dict(zip(("dq", "dk", "dv"), e_bwdbf))}
+        log(f"{label} mask: forward fp32 {e_fwd:.3e} (atol 2e-4, rtol 1e-4), bf16 "
+            f"{e_fwdbf:.4f}; backward fp32 " + ", ".join(f"{e:.3e}" for e in e_bwd)
+            + " (atol 5e-3 x max|plain|), bf16 " + ", ".join(f"{e:.3e}" for e in e_bwdbf)
+            + "; bf16 within the bf16 rule, relaunches bit-identical")
+        del ins32, g32, o, st, got, want, ob, stb, gotb
+    if (att.tc_launches - tc0, att.bwd_tc_launches - btc0) != (4, 4):
+        raise AssertionError(f"{att.tc_launches - tc0} forward and "
+                             f"{att.bwd_tc_launches - btc0} backward tensor-core launches, "
+                             "expected 4 and 4")
+    # times: the forward at the serving count, the backward at the training count, no mask
+    q, k, v = (torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16) for _ in range(3))
+    a_fwd_ms = cuda_ms(lambda: att.forward(q, k, v, None, nh), iters=10)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    a_fwd_ms_fp32 = cuda_ms(lambda: att.forward(q32, k32, v32, None, nh), iters=3, warmup=1)
+    del q32, k32, v32
+    a_fwd_plain_ms = cuda_ms(lambda: att.reference(q, k, v, None, nh), iters=2, warmup=1)
+
+    def heads(t):  # [M, T, nh*d] -> [M, nh, T, d], a view
+        M_, T_, W = t.shape
+        return t.view(M_, T_, nh, W // nh).transpose(1, 2)
+
+    a_fwd_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v)), iters=10)
+    a_fwd_bound, a_fwd_by = bound(4 * q.numel() * 2, 2 * M * nh * T * T * 2 * dh)
+    qt, kt, vt = (t[:Mt] for t in (q, k, v))
+    gt = torch.randn(Mt, T, H, generator=gen).to(dev).to(torch.bfloat16)
+    _, stt = att.forward(qt, kt, vt, None, nh, stats=True)
+    a_bwd_ms = cuda_ms(lambda: att.backward(qt, kt, vt, None, gt, nh, stt), iters=10)
+    ins32, g32 = [t.float() for t in (qt, kt, vt)], gt.float()
+    _, st32 = att.forward(*ins32, None, nh, stats=True)
+    a_bwd_ms_fp32 = cuda_ms(lambda: att.backward(*ins32, None, g32, nh, st32), iters=3, warmup=1)
+    del ins32, g32, st32
+    a_bwd_plain_ms = cuda_ms(lambda: att.reference_bwd(qt, kt, vt, None, gt, nh), iters=2,
+                             warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (qt, kt, vt)]
+    o = F.scaled_dot_product_attention(*(heads(t) for t in leaves))  # graph built once
+    a_bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, heads(gt),
+                                                           retain_graph=True), iters=10)
+    del o, leaves
+    a_bwd_bound, a_bwd_by = bound(7 * qt.numel() * 2, 2 * Mt * nh * T * T * 5 * dh)
+    log(f"narrowband_attention dh 48, bf16, no mask: forward M={M} tensor-core kernel "
+        f"{a_fwd_ms:.3f} ms (fp32, CUDA-core kernel {a_fwd_ms_fp32:.3f} ms), plain "
+        f"{a_fwd_plain_ms:.3f} ms, library (SDPA) {a_fwd_library_ms:.3f} ms, bound "
+        f"{a_fwd_bound:.4f} ms ({a_fwd_by}); backward M={Mt} tensor-core kernels "
+        f"{a_bwd_ms:.3f} ms (fp32 {a_bwd_ms_fp32:.3f} ms), plain {a_bwd_plain_ms:.3f} ms, "
+        f"library (SDPA backward) {a_bwd_library_ms:.3f} ms, bound {a_bwd_bound:.4f} ms "
+        f"({a_bwd_by})")
+    del q, k, v, qt, kt, vt, gt, stt
+    check_budget("attention at dh 48")
+
+    # 32. serving
+    log(f"phase 32/39 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+        f"{CHANNELS} ch, {SECONDS:g} s, bf16")
+    module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
+                         loss=Loss(name="neg_sa_sdr", pit=True))
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
+    ab.launches = ab.tc_launches = ab.bwd_launches = att.launches = 0
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave, target)
+    torch.cuda.synchronize()
+    served = (ab.launches, ab.tc_launches, ab.bwd_launches, att.launches)
+    check_outputs((("forward", yr_hat), ("predict_step", pred)), (B, 2, wave.shape[-1]))
+    log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; attention_block "
+        f"launched {served[0]} times ({served[1]} on the tensor-core kernel), its backward "
+        f"{served[2]}, the narrow-band attention {served[3]}")
+    if served != (2 * n_layers, 2 * n_layers, 0, 0):
+        raise AssertionError(f"expected {n_layers} attention-block launches a forward, all on "
+                             "the tensor-core kernel, and no other")
+    sdrs = {}
+    for label, kw, bsz in (("LN/GBN/GBN", {}, B), ("GBN/GBN/GBN", {"norms": ("GBN",) * 3}, 2)):
+        cfg = dict(NBC2_CFG, **kw)
+        kernel32 = NBC2(**cfg, device=dev).eval()
+        kernel32.load_state_dict(net.state_dict())
+        plain32 = NBC2(**cfg, fused_block=False, attention_kernel=False, device=dev).eval()
+        plain32.load_state_dict(net.state_dict())
+        ab.launches = att.launches = 0
+        y_kernel, _ = TrainModule(**{**module.__dict__, "arch": kernel32}).forward(wave[:bsz])
+        launched = (ab.launches, att.launches)
+        y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(wave[:bsz])
+        sdrs[label] = si_sdr(y_kernel, y_plain).min().item()
+        want = (n_layers, 0) if not kw else (0, n_layers)
+        log(f"fp32 {label} kernel path vs plain composition at B={bsz}: min SI-SDR "
+            f"{sdrs[label]:.1f} dB (bound >= 50); launches (attention block, narrow-band "
+            f"attention) {launched}")
+        if launched != want or not sdrs[label] >= 50.0:
+            raise AssertionError(f"{label}: launches {launched} (expected {want}), SI-SDR "
+                                 f"{sdrs[label]:.1f} dB")
+        del kernel32, plain32, y_kernel, y_plain
+    torch.cuda.empty_cache()
+    check_budget("nbc2 serving")
+
+    # 33. training
+    log(f"phase 33/39 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+        f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
+    batch = fixed_batch(B_TRAIN, CHANNELS, FS)
+    losses = []
+    trainer = trainer_of(TrainModule(**{**module.__dict__, "arch": NBC2(
+        **NBC2_CFG, dtype=torch.bfloat16, device=dev)}), dev, losses)
+    ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = att.launches = 0
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit = (ab.launches, ab.tc_launches, ab.bwd_launches, ab.bwd_tc_launches, att.launches)
+    check_losses(losses)
+    log(f"launches in {TRAIN_STEPS} steps: {fit[0]} forward ({fit[1]} tensor-core) + {fit[2]} "
+        f"backward ({fit[3]} tensor-core); the narrow-band attention {fit[4]}")
+    if fit != (TRAIN_STEPS * n_layers,) * 4 + (0,):
+        raise AssertionError(f"expected {n_layers} forward and {n_layers} backward launches a "
+                             "step, all on the tensor-core kernels")
+    log("fp32 gradients: kernel path vs plain composition (fp32 and float64 arch), one batch")
+    grads = check_gradients.gradients(trainer.module, trainer.to_device(batch), NBC2_CFG, dev,
+                                      arch_cls=NBC2,
+                                      plain=dict(fused_block=False, attention_kernel=False))
+    log(check_gradients.hold(grads))
+    del grads
+    torch.cuda.empty_cache()
+    check_budget("nbc2 training")
+
+    # 34. rates
+    log("phase 34/39 NBC2-small rates")
+    serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
+    torch.cuda.reset_peak_memory_stats()
+    train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"serving: predict_step on {B} x {SECONDS:g} s in {serve_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve_s:.1f} audio-s/s; training: train_step on {B_TRAIN} x "
+        f"{SECONDS:g} s in {train_s * 1e3:.1f} ms = {B_TRAIN * SECONDS / train_s:.1f} "
+        f"audio-s/s trained; peak memory {peak:.1f} GiB")
+    check_budget("nbc2 rates")
+    row1 = {"nbc2_nh2": {"M": M, "nh": nh, "launches": served[0], "tc_launches": served[1],
+                         "launches_training": fit[0], "max_err_fp32": fwd_err32,
+                         "max_err_bf16": fwd_errbf, "ms": fwd_ms, "ms_fp32": fwd_ms_fp32,
+                         "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+                         "library_ms": fwd_library_ms,
+                         "serve_sdr_db_fp32": sdrs["LN/GBN/GBN"],
+                         "serve_audio_s_per_s": B * SECONDS / serve_s,
+                         "train_audio_s_per_s": B_TRAIN * SECONDS / train_s}}
+    row2 = {"nbc2_nh2": {"M": Mt, "nh": nh, "launches": fit[2], "tc_launches": fit[3],
+                         "max_err_fp32": dict(zip(names, bwd_errs32)),
+                         "max_err_bf16": dict(zip(names, bwd_errsbf)), "ms": bwd_ms,
+                         "ms_fp32": bwd_ms_fp32, "plain_ms": bwd_plain_ms,
+                         "bound_ms": bwd_bound, "bound_by": bwd_by,
+                         "library_ms": bwd_library_ms}}
+    row4 = {"nbc2_dh48": {"M": M, "nh": nh, "max_err": att_errs, "ms": a_fwd_ms,
+                          "ms_fp32": a_fwd_ms_fp32, "plain_ms": a_fwd_plain_ms,
+                          "bound_ms": a_fwd_bound, "bound_by": a_fwd_by,
+                          "library_ms": a_fwd_library_ms,
+                          "gbn_first_norm_sdr_db_fp32": sdrs["GBN/GBN/GBN"]}}
+    row5 = {"nbc2_dh48": {"M": Mt, "nh": nh, "ms": a_bwd_ms, "ms_fp32": a_bwd_ms_fp32,
+                          "plain_ms": a_bwd_plain_ms, "bound_ms": a_bwd_bound,
+                          "bound_by": a_bwd_by, "library_ms": a_bwd_library_ms}}
+    return row1, row2, row4, row5
+
+
+def blstm_phases(dev):
+    """Phases 35-36: NB-BLSTM serving and training (no kernel of the port:
+    its LSTMs are cuDNN's)."""
+    import torch
+
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.nb_blstm import BLSTM2_FC1
+    from nbss_tpu_torch.ops import attention as att
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops import ssm, tconvffn
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.module import TrainModule
+
+    def port_launches():
+        return (ab.launches + ab.bwd_launches + ab.relpos_launches + att.launches
+                + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
+
+    # 35. serving
+    log(f"phase 35/39 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+        f"ch, {SECONDS:g} s, bf16 and fp32")
+    gen = torch.Generator().manual_seed(8)
+    net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
+                         loss=Loss(name="neg_si_sdr", pit=True))
+    net32 = BLSTM2_FC1(**BLSTM_CFG, device=dev).eval()
+    net32.load_state_dict(net.state_dict())
+    module32 = TrainModule(**{**module.__dict__, "arch": net32})
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    before = port_launches()
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave)
+    y32, _ = module32.forward(wave)
+    torch.cuda.synchronize()
+    check_outputs((("forward", yr_hat), ("predict_step", pred), ("fp32 forward", y32)),
+                  (B, 2, wave.shape[-1]))
+    if port_launches() != before:
+        raise AssertionError("NB-BLSTM launched a kernel of the port")
+    sdr_bf16 = si_sdr(yr_hat, y32).min().item()
+    x = torch.randn(B * 129, int(SECONDS * FS) // 128 + 1, 12, generator=gen).to(dev)
+    with torch.no_grad():
+        lstm_ms = {str(dt).split(".")[1]: cuda_ms(lambda: net.blstm1(x.to(dt)), iters=3)
+                   for dt in (torch.bfloat16, torch.float32)}
+    log(f"forward and predict_step: finite [{B}, 2, {wave.shape[-1]}]; no kernel of the port "
+        f"launched; bf16 vs fp32 min SI-SDR {sdr_bf16:.1f} dB; the first BLSTM (256) at "
+        f"[{x.shape[0]}, {x.shape[1]}, 12]: bf16 {lstm_ms['bfloat16']:.1f} ms, fp32 (TF32 off) "
+        f"{lstm_ms['float32']:.1f} ms")
+    serve_s = seconds_per_call(lambda: module.predict_step(wave), 3)
+    serve32_s = seconds_per_call(lambda: module32.predict_step(wave), 3)
+    log(f"serving: predict_step on {B} x {SECONDS:g} s in {serve_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve_s:.1f} audio-s/s in bf16, {serve32_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve32_s:.1f} audio-s/s in fp32")
+    del module32, net32, x
+    check_budget("nb-blstm serving")
+
+    # 36. training
+    log(f"phase 36/39 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+        f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
+    batch = fixed_batch(B_TRAIN, CHANNELS, FS)
+    losses = []
+    trainer = trainer_of(TrainModule(**{**module.__dict__, "arch": BLSTM2_FC1(
+        **BLSTM_CFG, dtype=torch.bfloat16, device=dev)}), dev, losses)
+    before = port_launches()
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    check_losses(losses)
+    if port_launches() != before:
+        raise AssertionError("NB-BLSTM training launched a kernel of the port")
+    torch.cuda.reset_peak_memory_stats()
+    train_s = seconds_per_call(lambda: trainer.train_step(batch), 3)
+    log(f"training: train_step on {B_TRAIN} x {SECONDS:g} s in {train_s * 1e3:.1f} ms = "
+        f"{B_TRAIN * SECONDS / train_s:.1f} audio-s/s trained; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check_budget("nb-blstm training")
+
+
+def nbss_phase(dev):
+    """Phase 37: the NBSS wrapper, one forward for each arch in fp32 and bf16."""
+    import torch
+
+    from nbss_tpu_torch.models.nbss import NBSS
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    log(f"phase 37/39 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+        "B=2): one forward for each arch in fp32 and bf16")
+    gen = torch.Generator().manual_seed(9)
+    wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
+    nbc_kw = {k: v for k, v in NBC_CFG.items() if k not in ("dim_input", "dim_output")}
+    nbc2_kw = {k: v for k, v in NBC2_CFG.items() if k not in ("dim_input", "dim_output")}
+    for arch, kw, counter, per_fwd in (
+            ("NB_BLSTM", {"hidden_size": BLSTM_CFG["hidden_size"]}, None, 0),
+            ("NBC", nbc_kw, "relpos_launches", NBC_CFG["n_layers"]),
+            ("NBC2", dict(nbc2_kw, num_freqs=NBC_NFFT // 2 + 1), "launches",
+             NBC2_CFG["n_layers"])):
+        for dtype in (torch.float32, torch.bfloat16):
+            model = NBSS(n_channel=NBC_CHANNELS, arch=arch, arch_kwargs=kw, dtype=dtype,
+                         generator=torch.Generator().manual_seed(10), device=dev).eval()
+            before = getattr(ab, counter) if counter else 0
+            with torch.no_grad():
+                out = model(wave)
+            torch.cuda.synchronize()
+            launched = (getattr(ab, counter) - before) if counter else 0
+            check_outputs(((f"NBSS {arch} {dtype}", out),), (2, 2, wave.shape[-1]))
+            if launched != per_fwd:
+                raise AssertionError(f"NBSS {arch} {dtype}: {launched} kernel launches, "
+                                     f"expected {per_fwd}")
+            log(f"{arch} {str(dtype).split('.')[1]}: finite [2, 2, {wave.shape[-1]}], "
+                f"{launched} kernel launches")
+            del model, out
+    check_budget("nbss")
+
+
+def nbc_training_phases(dev):
+    """Phases 38-39: NBC (``configs/NBC.yaml``) trains at its dropout 0.1,
+    where neither row 8 nor rows 4-5 run, and at dropout 0 through row 8.
+    Returns row 8's training launches and rates."""
+    import torch
+
+    from nbss_tpu_torch import check_gradients
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.nbc import NBC
+    from nbss_tpu_torch.ops import attention as att
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.train.module import TrainModule
+
+    n_layers = NBC_CFG["n_layers"]
+    out = {}
+    for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
+        bsz = NBC_B_TRAIN[dropout]
+        log(f"phase {phase}/39 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
+            f"SyntheticDataset items ({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for "
+            f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, bf16")
+        batch = fixed_batch(bsz, NBC_CHANNELS, NBC_FS)
+        cfg = dict(NBC_CFG, dropout=dropout)
+        module = TrainModule(arch=NBC(**cfg, dtype=torch.bfloat16, device=dev),
+                             channels=tuple(range(NBC_CHANNELS)),
+                             stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
+                             norm=Norm(mode="frequency"))
+        losses = []
+        trainer = trainer_of(module, dev, losses)
+        torch.cuda.reset_peak_memory_stats()
+        ab.relpos_launches = ab.relpos_tc_launches = att.launches = att.bwd_launches = 0
+        trainer.fit([batch], max_epochs=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fit = (ab.relpos_launches, ab.relpos_tc_launches, att.launches + att.bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_losses(losses)
+        per_step = n_layers if dropout == 0 else 0  # the block is off while dropout is active
+        log(f"launches in {TRAIN_STEPS} steps: attention_block_relpos {fit[0]} ({fit[1]} on the "
+            f"tensor-core kernel), the narrow-band attention {fit[2]}; peak memory {peak:.1f} GiB")
+        if fit != (TRAIN_STEPS * per_step,) * 2 + (0,):
+            raise AssertionError(f"expected {per_step} relative-position launches a step, all on "
+                                 "the tensor-core kernel, and no narrow-band attention")
+        if dropout == 0:
+            log("fp32 gradients: kernel path vs plain composition (fp32 and float64 arch)")
+            grads = check_gradients.gradients(  # in parts: the plain attention's [M, 8, T, T]
+                module, trainer.to_device(batch), cfg, dev, parts64=bsz, arch_cls=NBC,
+                plain=dict(fused_block=False, attention_kernel=False), parts32=2)
+            exempt = [n for n in grads["kernel"] if n.endswith("self_attn.key_proj.bias")]
+            log(check_gradients.hold(grads, exempt=exempt) + f"; {len(exempt)} key biases "
+                "left out (the fold drops them: the softmax removes a constant score row)")
+            del grads
+            torch.cuda.empty_cache()
+        train_s = seconds_per_call(lambda: trainer.train_step(batch), 3)
+        log(f"training: train_step on {bsz} x {SECONDS:g} s in {train_s * 1e3:.1f} ms = "
+            f"{bsz * SECONDS / train_s:.2f} audio-s/s trained")
+        out[f"dropout_{dropout:g}"] = {"B": bsz, "launches": fit[0], "tc_launches": fit[1],
+                                       "train_audio_s_per_s": bsz * SECONDS / train_s,
+                                       "peak_gib": peak}
+        del trainer, module
+        fresh_start()
+        check_budget(f"nbc training at dropout {dropout:g}")
+    return out
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ TF32 is off.
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 RTOL = 5e-3  # the JAX package's gradient bound, scaled to each parameter's largest entry
 SPATIALNET_SMALL = dict(dim_input=12, dim_output=4, num_layers=8, dim_hidden=96, dim_ffn=192,
@@ -29,44 +30,57 @@ SPATIALNET_SMALL = dict(dim_input=12, dim_output=4, num_layers=8, dim_hidden=96,
 B, CHANNELS, SECONDS, FS, STEPS = 8, 6, 4.0, 8000, 20
 
 
-def gradients(module, batch, arch_kwargs: dict, device, parts64: int = 4) -> dict:
+def gradients(module, batch, arch_kwargs: dict, device, parts64: int = 4, arch_cls=None,
+              plain: Optional[dict] = None, parts32: int = 1) -> dict:
     """One batch's parameter gradients from ``module.arch``'s state dict,
-    as float64, under the keys ``kernel`` (SpatialNet with ``fused_block``),
-    ``plain32`` (without) and ``plain64`` (without, its arch in float64; the
-    batch mean taken in ``parts64`` parts to bound the float64 attention's
-    memory). ``batch`` is on ``device``."""
+    as float64, under the keys ``kernel`` (``arch_cls`` with
+    ``fused_block``), ``plain32`` (built with ``plain``) and ``plain64``
+    (with ``plain``, its arch in float64); the batch mean is taken in
+    ``parts32`` parts in float32 and ``parts64`` in float64, to bound the
+    attention's memory. ``arch_cls`` is
+    SpatialNet unless given, built from ``arch_kwargs``; ``plain`` is
+    ``{"fused_block": False}`` unless given. A parameter that gets no
+    gradient gets zeros. ``batch`` is on ``device``."""
     import torch
 
     from nbss_tpu_torch.models.spatialnet import SpatialNet
     from nbss_tpu_torch.train.module import TrainModule
 
+    arch_cls = arch_cls or SpatialNet
+    plain = plain or dict(fused_block=False)
     n, grads = len(batch[0]), {}
-    for key, kw, parts in (("kernel", dict(fused_block=True), 1),
-                           ("plain32", dict(fused_block=False), 1),
-                           ("plain64", dict(fused_block=False, dtype=torch.float64), parts64)):
-        net = SpatialNet(**arch_kwargs, **kw, device=device)
+    for key, kw, parts in (("kernel", dict(fused_block=True), parts32),
+                           ("plain32", plain, parts32),
+                           ("plain64", dict(plain, dtype=torch.float64), parts64)):
+        net = arch_cls(**arch_kwargs, **kw, device=device)
         net.load_state_dict(module.arch.state_dict())
         m = TrainModule(**{**module.__dict__, "arch": net})
         for i in range(0, n, n // parts):
             part = tuple(t[i:i + n // parts] for t in batch[:2]) + tuple(batch[2:])
             (m.training_step(part) / parts).backward()
-        grads[key] = {name: p.grad.double() for name, p in net.named_parameters()}
+        grads[key] = {name: (torch.zeros_like(p) if p.grad is None else p.grad).double()
+                      for name, p in net.named_parameters()}
         del net, m
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return grads
 
 
-def hold(grads: dict, rtol: float = RTOL) -> str:
+def hold(grads: dict, rtol: float = RTOL, exempt=()) -> str:
     """Raise AssertionError unless every parameter's kernel gradient is
     non-zero and no farther, from the float64 gradient and from the plain
     float32 one, than max(rtol x max|float64|, 2 x max|plain32 - float64|):
     the kernel path may miss the float64 run by twice what the plain float32
     run misses it by, or by the float32 bound where that run is close.
-    Returns a line with each gap's worst parameter, over max|float64|."""
+    Returns a line with each gap's worst parameter, over max|float64|.
+    Parameters named in ``exempt`` are left out: those whose gradient is 0
+    in exact arithmetic, which a kernel's fold drops (NBC's key bias, whose
+    constant score row the softmax removes)."""
     worst = {"kernel - float64": (0.0, ""), "plain fp32 - float64": (0.0, ""),
              "kernel - plain fp32": (0.0, "")}
     for name, g64 in grads["plain64"].items():
+        if name in exempt:
+            continue
         gk, g32 = grads["kernel"][name], grads["plain32"][name]
         scale = max(g64.abs().max().item(), 1e-30)
         gaps = {"kernel - float64": (gk - g64).abs().max().item(),
@@ -83,8 +97,9 @@ def hold(grads: dict, rtol: float = RTOL) -> str:
                                      f"max({rtol:g}, 2 x {own:.2e})")
         for label, gap in gaps.items():
             worst[label] = max(worst[label], (gap / scale, name))
-    return (f"{len(grads['kernel'])} parameters, worst max |gap| / max|float64|: " + "; ".join(
-        f"{label} {v:.2e} ({name})" for label, (v, name) in worst.items()))
+    return (f"{len(grads['kernel']) - len(exempt)} parameters, worst max |gap| / "
+            "max|float64|: " + "; ".join(f"{label} {v:.2e} ({name})"
+                                         for label, (v, name) in worst.items()))
 
 
 def fit(device):

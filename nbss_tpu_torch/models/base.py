@@ -1,11 +1,12 @@
 """Building blocks of the narrow-band models, channel-last.
 
 Counterpart of the parts of ``nbss_tpu/models/base.py`` that SpatialNet,
-OnlineSpatialNet and NBC use. Parameters are float32 in the layout of the original torch NBSS
-modules (Linear [out, in], Conv1d [out, in/groups, k]); each block computes in
-its input's dtype and casts its parameters to it, as the JAX package does
-with ``param_dtype=float32, dtype=bf16``. Normalizations take their
-statistics in float32, with var = E[x^2] - E[x]^2 and eps 1e-5.
+OnlineSpatialNet, NBC and NBC2 use. Parameters are float32 in the layout of
+the original torch NBSS modules (Linear [out, in], Conv1d [out, in/groups,
+k]); each block computes in its input's dtype and casts its parameters to
+it, as the JAX package does with ``param_dtype=float32, dtype=bf16``.
+Normalizations take their statistics in float32, with var = E[x^2] - E[x]^2
+and eps 1e-5.
 
 Initialization follows torch's Linear/Conv defaults (uniform with bound
 1/sqrt(fan_in)) and draws from an explicit ``torch.Generator``. Each block's
@@ -189,15 +190,72 @@ class GroupNorm(nn.Module):
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
+class GlobalLayerNorm(nn.Module):
+    """gLN: per leading sample, statistics over the sequence and the channels
+    of [..., S, H]."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        y = _norm_stats(x, (-2, -1), self.eps)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class GroupBatchNorm(nn.Module):
+    """Group batch norm over the sequences that share an utterance: x is
+    [B * group_size, S, H] (NBC2 calls it with group_size = F, each frequency
+    one sequence), and the statistics of each utterance's group are taken
+    over (group member, H), or over (group member, S, H) with
+    ``share_along_sequence_dim``, from the input in training and in eval
+    alike: no running statistics. The affine parameters are [H]."""
+
+    def __init__(self, num_features: int, share_along_sequence_dim: bool = False,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.share_along_sequence_dim, self.eps = share_along_sequence_dim, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x, group_size: int):
+        BG, S, H = x.shape
+        if BG % group_size:
+            raise ValueError(f"{BG} sequences do not split into groups of {group_size}")
+        dims = (1, 2, 3) if self.share_along_sequence_dim else (1, 3)
+        y = _norm_stats(x.reshape(BG // group_size, group_size, S, H), dims,
+                        self.eps).reshape(x.shape)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
 def new_norm(norm_type: str, num_features: int, num_groups: Optional[int] = None) -> nn.Module:
-    """'LN' or 'GN'. The other norms of the JAX package (gLN, GBN,
-    GBNShare) belong to NBC2 and come with its slice of the port."""
+    """'LN', 'GN', 'gLN', 'GBN' (case-insensitive) or 'GBNShare', as the JAX
+    package's ``new_norm``; KeyError for any other name. GBN and GBNShare
+    take the runtime group size as their second argument."""
     t = norm_type.upper()
     if t == "LN":
         return LayerNorm(num_features)
     if t == "GN":
         return GroupNorm(num_groups, num_features)
-    raise NotImplementedError(f"norm {norm_type!r} is not ported yet: it comes with the NBC2 slice")
+    if t == "GLN":
+        return GlobalLayerNorm(num_features)
+    if t == "GBN":
+        return GroupBatchNorm(num_features)
+    if norm_type == "GBNShare":
+        return GroupBatchNorm(num_features, share_along_sequence_dim=True)
+    raise KeyError(norm_type)
 
 
 class LinearGroup(nn.Module):

@@ -1,29 +1,34 @@
 """Where the serving step's time goes on the card.
 
-    python3 -m nbss_tpu_torch.profile_serving [--arch spatialnet|online_spatialnet|nbc]
-                                              [--attention 'mamba(16,4)'|'mhsa(251)'|...]
-                                              [--fused-ffn]
+    python3 -m nbss_tpu_torch.profile_serving
+        [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm]
+        [--attention 'mamba(16,4)'|'mhsa(251)'|...] [--fused-ffn]
 
 Serves SpatialNet-small, or OnlineSpatialNet with the time module
 ``--attention`` (default mamba(16,4), the committed run; mhsa(251) is the
 masked-attention alternative) at 8 layers, H=96, at B=16 x 6 channels x 4 s
 at 8 kHz; or NBC (``configs/NBC.yaml``: 4 layers, H=192, 8 heads) at B=16 x
-8 channels x 4 s at 16 kHz, STFT 512/256; seeded random weights, bf16
+8 channels x 4 s at 16 kHz, STFT 512/256; or NBC2-small
+(``configs/NBC2.yaml``: 8 layers, H=96, 2 heads, LN/GBN/GBN) or NB-BLSTM
+(``configs/NB-BLSTM.yaml``: BLSTM 256, 128) at B=16 x 6 channels x 4 s at
+8 kHz; seeded random weights, bf16
 (``--fused-ffn``: SpatialNet-small's T-ConvFFN through its kernel, row 3),
 through ``TrainModule.predict_step`` under ``torch.profiler`` for three
 steps, after two warm-up steps, and prints the device time of the 25
 costliest kernels, the port's kernels' shares and the device's busy share of
 the profiled wall time. It checks that each step launched the arch's kernel
-once per block (8 attention blocks, 16 scans for mamba(16,4), 8 narrow-band
-attentions for mhsa(N), 4 relative-position blocks for NBC; with
-``--fused-ffn`` also 8 T-ConvFFN kernels, whose share it prints) and no
-backward kernel. Needs a CUDA card.
+once per block (8 attention blocks for SpatialNet-small and NBC2-small, 16
+scans for mamba(16,4), 8 narrow-band attentions for mhsa(N), 4
+relative-position blocks for NBC, none for NB-BLSTM, whose LSTMs are
+cuDNN's; with ``--fused-ffn`` also 8 T-ConvFFN kernels, whose share it
+prints) and no backward kernel. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import sys
 import time
+from typing import Optional
 
 STEPS, ROWS = 3, 25
 B, C, S, LAYERS = 16, 6, 32000, 8
@@ -34,20 +39,30 @@ NBC_C, NBC_S = 8, 64000
 NBC_WIDTHS = dict(dim_input=2 * NBC_C, dim_output=4, n_layers=4, encoder_kernel_size=4,
                   n_heads=8, hidden_size=192, ffn_size=384, inner_conv_kernel_size=3,
                   inner_conv_groups=8, dropout=0.1)
+# configs/NBC2.yaml (small) and configs/NB-BLSTM.yaml, 6 channels at 8 kHz
+NBC2_WIDTHS = dict(dim_input=2 * C, dim_output=4, n_layers=LAYERS, encoder_kernel_size=5,
+                   dim_hidden=96, dim_ffn=192, num_freqs=129, n_heads=2, conv_kernel_size=3,
+                   n_conv_groups=8, norms=("LN", "GBN", "GBN"))
+BLSTM_WIDTHS = dict(dim_input=2 * C, dim_output=4, hidden_size=(256, 128))
+ARCHS = ("spatialnet", "online_spatialnet", "nbc", "nbc2", "nb_blstm")
 
 
 def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)",
-          fused_ffn: bool = False):
+          fused_ffn: bool = False, dropout: Optional[float] = None):
     """(TrainModule, a function giving the kernel's forward and backward
-    launch counts, its launches per forward, (forward, backward) tuples of
-    kernel-name pieces whose device time is summed) for
+    launch counts, its launches (per serving forward, per train step forward,
+    per train step backward), (forward, backward) tuples of kernel-name
+    pieces whose device time is summed) for
     SpatialNet-small, OnlineSpatialNet with ``attention``, as the committed
-    run trains it, or NBC. ``fused_ffn`` routes SpatialNet's T-ConvFFN through
-    its kernel."""
+    run trains it, NBC (``dropout``: its configuration's 0.1 unless given),
+    NBC2-small or NB-BLSTM. ``fused_ffn`` routes SpatialNet's T-ConvFFN
+    through its kernel."""
     from nbss_tpu_torch.io.loss import Loss
     from nbss_tpu_torch.io.norm import Norm
     from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.nb_blstm import BLSTM2_FC1
     from nbss_tpu_torch.models.nbc import NBC
+    from nbss_tpu_torch.models.nbc2 import NBC2
     from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet, parse_attention
     from nbss_tpu_torch.models.spatialnet import SpatialNet
     from nbss_tpu_torch.ops import attention as narrowband
@@ -60,18 +75,27 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
     if arch == "spatialnet":
         net = SpatialNet(**WIDTHS, dtype=dtype, fused_ffn=fused_ffn, generator=generator,
                          device="cuda")
-        # the forward: attention_block_tc_kernel in bf16, attention_block_kernel in fp32;
-        # the backward: attention_block_bwd_tc_* in bf16, attention_block_bwd_* in fp32
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), counts(attention_block),
-                LAYERS, (("attention_block_tc_kernel", "attention_block_kernel"),
-                         ("attention_block_bwd",)))
+                (LAYERS,) * 3, BLOCK_KEYS)
+    if arch == "nbc2":
+        net = NBC2(**NBC2_WIDTHS, dtype=dtype, generator=generator, device="cuda")
+        module = TrainModule(arch=net, norm=Norm(mode="frequency"),
+                             loss=Loss(name="neg_sa_sdr", pit=True))
+        return module, counts(attention_block), (LAYERS,) * 3, BLOCK_KEYS
+    if arch == "nb_blstm":  # no kernel of the port: cuDNN's LSTM, its cell kernels timed
+        net = BLSTM2_FC1(**BLSTM_WIDTHS, dtype=dtype, generator=generator, device="cuda")
+        return (TrainModule(arch=net, norm=Norm(mode="frequency")), lambda: (0, 0), (0, 0, 0),
+                (("RNNcell",), ()))
     if arch == "nbc":  # the relative-position block has no backward kernel
         # relpos_tc_keys / _proj / _attn in bf16, relpos_ln / _proj / _qpos / _attn in fp32
-        net = NBC(**NBC_WIDTHS, dtype=dtype, generator=generator, device="cuda")
+        widths = NBC_WIDTHS if dropout is None else dict(NBC_WIDTHS, dropout=dropout)
+        net = NBC(**widths, dtype=dtype, generator=generator, device="cuda")
         module = TrainModule(arch=net, channels=tuple(range(NBC_C)),
                              stft=STFT(n_fft=512, n_hop=256), norm=Norm(mode="frequency"))
-        return (module, lambda: (attention_block.relpos_launches, 0), NBC_WIDTHS["n_layers"],
-                (("relpos_",), ()))
+        # in training the block runs only with dropout inactive, as in the JAX package
+        n = widths["n_layers"]
+        return (module, lambda: (attention_block.relpos_launches, 0),
+                (n, n if widths["dropout"] == 0 else 0, 0), (("relpos_",), ()))
     net = OnlineSpatialNet(**WIDTHS, attention=attention, dtype=dtype, remat=remat,
                            generator=generator, device="cuda")
     module = TrainModule(arch=net, norm=Norm(mode="utterance", online=True),
@@ -81,27 +105,39 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
         # the forward: narrowband_attention_tc_kernel in bf16, the CUDA-core kernels in fp32;
         # the backward: narrowband_attention_bwd_tc_dq / _dkdv in bf16,
         # narrowband_attention_bwd_dq / _dkdv (and _wide) in fp32
-        return (module, counts(narrowband), LAYERS,
+        return (module, counts(narrowband), (LAYERS, LAYERS * (1 + remat), LAYERS),
                 (("narrowband_attention_tc_kernel", "narrowband_attention_kernel",
                   "narrowband_attention_wide_kernel"),
                  ("narrowband_attention_bwd_tc_", "narrowband_attention_bwd_")))
     blocks = 2 if cfg["replace_ffn"] else 1  # Mamba blocks a layer
-    return (module, counts(ssm), blocks * LAYERS,
+    n = blocks * LAYERS  # remat recomputes each layer's forward
+    return (module, counts(ssm), (n, n * (1 + remat), n),
             (("selective_scan_kernel",), ("selective_scan_bwd",)))
 
 
-def parse_args(description: str, archs=("spatialnet", "online_spatialnet")):
+# the attention block's forward: attention_block_tc_kernel in bf16, attention_block_kernel in
+# fp32; its backward: attention_block_bwd_tc_* in bf16, attention_block_bwd_* in fp32
+BLOCK_KEYS = (("attention_block_tc_kernel", "attention_block_kernel"), ("attention_block_bwd",))
+
+
+def parse_args(description: str, dropout: bool = False):
     import argparse
 
     parser = argparse.ArgumentParser(description=description)
-    parser.add_argument("--arch", choices=archs, default="spatialnet")
+    parser.add_argument("--arch", choices=ARCHS, default="spatialnet")
     parser.add_argument("--attention", default="mamba(16,4)",
                         help="OnlineSpatialNet's time module, e.g. 'mamba(16,4)' or 'mhsa(251)'")
     parser.add_argument("--fused-ffn", action="store_true",
                         help="SpatialNet only: the T-ConvFFN through its kernel (row 3)")
+    if dropout:
+        parser.add_argument("--dropout", type=float, default=None,
+                            help="NBC only: its dropout (configs/NBC.yaml: 0.1; at 0 the "
+                                 "relative-position block runs)")
     args = parser.parse_args()
     if args.fused_ffn and args.arch != "spatialnet":
         parser.error("--fused-ffn takes --arch spatialnet")
+    if getattr(args, "dropout", None) is not None and args.arch != "nbc":
+        parser.error("--dropout takes --arch nbc")
     return args
 
 
@@ -123,16 +159,16 @@ def main() -> int:
 
     from nbss_tpu_torch.ops import tconvffn
 
-    args = parse_args(__doc__.splitlines()[0], ("spatialnet", "online_spatialnet", "nbc"))
+    args = parse_args(__doc__.splitlines()[0])
     arch = args.arch
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
 
     gen = torch.Generator().manual_seed(0)
-    module, counts, per_fwd, (fwd_key, _) = build(arch, torch.bfloat16, gen,
-                                                  attention=args.attention,
-                                                  fused_ffn=args.fused_ffn)
+    module, counts, (per_fwd, _, _), (fwd_key, _) = build(arch, torch.bfloat16, gen,
+                                                          attention=args.attention,
+                                                          fused_ffn=args.fused_ffn)
     channels, samples, rate = (NBC_C, NBC_S, 16000) if arch == "nbc" else (C, S, 8000)
     if arch == "online_spatialnet":
         arch = f"{arch} {args.attention}"

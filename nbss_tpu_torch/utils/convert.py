@@ -1,8 +1,10 @@
-"""Convert the JAX package's SpatialNet, OnlineSpatialNet and NBC parameter
-trees into the port's ``state_dict``.
+"""Convert the JAX package's SpatialNet, OnlineSpatialNet, NBC, NBC2 and
+NB-BLSTM parameter trees into the port's ``state_dict``.
 
 For NBC the exact inverse of ``nbss_tpu.utils.torch_compat.nbc_params_from_torch``
-(``nbc_state_dict_from_flax``).
+(``nbc_state_dict_from_flax``); for NBC2 of ``nbc2_params_from_torch``
+(``nbc2_state_dict_from_flax``); for NB-BLSTM of
+``blstm2_fc1_params_from_torch`` (``blstm2_fc1_state_dict_from_flax``).
 
 For the mhsa and T-ConvFFN layers of OnlineSpatialNet, whose layout is
 SpatialNet's module for module, the exact inverse of
@@ -186,4 +188,78 @@ def nbc_state_dict_from_flax(params: Mapping, n_layers: int,
         for i in range(n_conv_layers):
             sd.update(_conv_layer(bp[f"conv_{i}"], f"{t}.conv.{3 * i}"))
             sd.update(_norm(bp[f"conv_norm_{i}"], f"{t}.conv.{3 * i + 1}"))
+    return sd
+
+
+def _nbc2_norm(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """An NBC2 norm: the JAX ``_NBC2Norm`` holds one child, ``LayerNorm_0``,
+    ``GroupBatchNorm_0`` or ``GroupNorm_0`` by its kind, each with a scale
+    and a bias over the channels."""
+    (child,) = p.values()
+    return _norm(child, prefix)
+
+
+def nbc2_state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    """JAX NBC2 params -> ``nbss_tpu_torch.models.nbc2.NBC2`` state_dict (the
+    reference torch NBC2's names), the exact inverse of
+    ``nbss_tpu.utils.torch_compat.nbc2_params_from_torch``: the encoder conv,
+    the decoder Dense, and per block the norms, the packed attention
+    projections, linear1/linear2 and the grouped convs at ``conv.{1,3,6}``
+    with the mid norm at ``conv.4``. Each norm maps by its kind, so an NBC2
+    with other norms converts too (``nbc2_params_from_torch`` assumes LN,
+    GBN, GBN). The GroupBatchNorm scale and bias stay [H]:
+    ``nbc2_params_from_torch`` reshapes the reference's to [H] with
+    ``reshape(-1)``, and the shape they had there is not recorded."""
+    p = params.get("params", params)
+    sd = {"encoder.weight": _conv(p["encoder"]["Conv_0"]["kernel"]),
+          "encoder.bias": _t(p["encoder"]["Conv_0"]["bias"]),
+          "decoder.weight": _dense(p["decoder"]["kernel"]),
+          "decoder.bias": _t(p["decoder"]["bias"])}
+    for l in range(n_layers):
+        t, bp = f"sa_layers.{l}", p[f"block_{l}"]
+        sd.update(_nbc2_norm(bp["norm1"], f"{t}.norm1"))
+        sd.update(_mhsa(bp["self_attn"], f"{t}.self_attn"))
+        sd.update(_nbc2_norm(bp["norm2"], f"{t}.norm2"))
+        sd.update(_linear(bp["linear1"], f"{t}.linear1"))
+        for name, idx in (("conv1", 1), ("conv2", 3), ("conv3", 6)):
+            sd.update(_conv_layer(bp[name], f"{t}.conv.{idx}"))
+        sd.update(_nbc2_norm(bp["conv_norm"], f"{t}.conv.4"))
+        sd.update(_linear(bp["linear2"], f"{t}.linear2"))
+    return sd
+
+
+def _lstm_layer(cell_fwd: Mapping, cell_bwd: Mapping, prefix: str,
+                layer: int) -> Dict[str, torch.Tensor]:
+    """One bidirectional layer of ``nn.LSTM`` from two flax
+    ``OptimizedLSTMCell``s: the gate kernels ``i{i,f,g,o}`` / ``h{i,f,g,o}``
+    [in, h] stack into weight_ih [4h, in] / weight_hh [4h, h] in torch's gate
+    order i, f, g, o; the flax bias (on the ``h*`` Denses) becomes bias_ih,
+    and bias_hh is zero."""
+    sd = {}
+    for cell, sfx in ((cell_fwd, f"l{layer}"), (cell_bwd, f"l{layer}_reverse")):
+        sd[f"{prefix}.weight_ih_{sfx}"] = torch.cat([_dense(cell[f"i{g}"]["kernel"])
+                                                    for g in "ifgo"])
+        sd[f"{prefix}.weight_hh_{sfx}"] = torch.cat([_dense(cell[f"h{g}"]["kernel"])
+                                                    for g in "ifgo"])
+        sd[f"{prefix}.bias_ih_{sfx}"] = torch.cat([_t(cell[f"h{g}"]["bias"]) for g in "ifgo"])
+        sd[f"{prefix}.bias_hh_{sfx}"] = torch.zeros_like(sd[f"{prefix}.bias_ih_{sfx}"])
+    return sd
+
+
+def blstm2_fc1_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX BLSTM2_FC1 params -> ``nbss_tpu_torch.models.nb_blstm.BLSTM2_FC1``
+    state_dict (the reference torch names), the inverse of
+    ``nbss_tpu.utils.torch_compat.blstm2_fc1_params_from_torch``; the number
+    of repeated second layers is read from the tree. This direction is exact:
+    the flax bias goes to bias_ih and bias_hh is zero, so
+    ``blstm2_fc1_params_from_torch`` gives the tree back bit for bit. The
+    other direction sums the reference's two biases into one, which this
+    function cannot split again."""
+    p = params.get("params", params)
+    sd = _lstm_layer(p["blstm1"]["fwd_0"], p["blstm1"]["bwd_0"], "blstm1", 0)
+    n_repeat = sum(1 for k in p["blstm2"] if k.startswith("fwd_"))
+    for l in range(n_repeat):
+        sd.update(_lstm_layer(p["blstm2"][f"fwd_{l}"], p["blstm2"][f"bwd_{l}"], "blstm2", l))
+    sd["linear.weight"] = _dense(p["linear"]["kernel"])
+    sd["linear.bias"] = _t(p["linear"]["bias"])
     return sd

@@ -1,8 +1,10 @@
 """The port's gradient-parity rule (``nbss_tpu_torch.check_gradients``) on the CPU.
 
-``hold`` is checked on made-up gradients at each side of its bound, and
-``gradients`` on a small SpatialNet (2 layers, H=16, F=9, 20 frames), where
-the fused block runs its plain ``reference`` and ``reference_bwd``.
+``hold`` is checked on made-up gradients at each side of its bound and
+with a parameter left out, and ``gradients`` on a small SpatialNet (2
+layers, H=16, F=9, 20 frames), where the fused block runs its plain
+``reference`` and ``reference_bwd``, and on a small NBC2, its float32 runs
+in one pass and in two parts.
 """
 
 import numpy as np
@@ -71,3 +73,39 @@ def test_gradients_of_a_small_spatialnet_hold():
             assert grads[key][n].dtype == torch.float64 and grads[key][n].shape == p.shape
     line = cg.hold(grads)
     assert f"{len(names)} parameters" in line
+
+
+def test_hold_leaves_out_exempt_parameters():
+    """A parameter whose kernel gradient is zero is refused unless it is
+    named in ``exempt`` (NBC's key biases, which the fold drops)."""
+    grads = _grads(0.0, 0.0)
+    for key in grads:
+        grads[key]["b"] = torch.full((4,), 1e-12 if key == "plain64" else 0.0,
+                                     dtype=torch.float64)
+    with pytest.raises(AssertionError, match="gradient of b through the kernels is zero"):
+        cg.hold(grads)
+    assert "1 parameters" in cg.hold(grads, exempt=["b"])
+
+
+def test_gradients_of_a_small_nbc2_in_parts_hold():
+    """``gradients`` builds another arch (NBC2, its plain path without the
+    folded block or the attention kernel); the float32 runs taken in two
+    parts give what one pass gives, and the rule holds."""
+    from nbss_tpu_torch.models.nbc2 import NBC2
+
+    kw = dict(dim_input=12, dim_output=4, n_layers=2, dim_hidden=16, dim_ffn=32, n_heads=2,
+              n_conv_groups=4, num_freqs=9)
+    net = NBC2(**kw, generator=torch.Generator().manual_seed(4), device="cpu")
+    module = TrainModule(arch=net, channels=tuple(range(6)), stft=STFT(n_fft=16, n_hop=8),
+                         norm=Norm(mode="frequency"), loss=Loss("neg_sa_sdr", pit=True))
+    rng = np.random.default_rng(6)
+    batch = (torch.as_tensor(rng.standard_normal((4, 6, 152)), dtype=torch.float32),
+             torch.as_tensor(rng.standard_normal((4, 2, 6, 152)), dtype=torch.float32))
+    plain = dict(fused_block=False, attention_kernel=False)
+    whole, parts = (cg.gradients(module, batch, kw, torch.device("cpu"), parts64=2,
+                                 arch_cls=NBC2, plain=plain, parts32=n) for n in (1, 2))
+    for key in ("kernel", "plain32"):
+        for name, g in whole[key].items():
+            torch.testing.assert_close(parts[key][name], g, atol=1e-6 * g.abs().max().item(),
+                                       rtol=1e-5, msg=f"{key} {name}")
+    assert f"{len(list(net.parameters()))} parameters" in cg.hold(parts)

@@ -31,8 +31,11 @@ edges of their tiles (T = 1, 13, 15, 16, 17, 64, 65, 250, 251, 256, and 257,
 q/k heads of 24, 64, 216) with bit-identical relaunches; the counters show
 that float32 reaches the CUDA-core kernels and bf16 the tensor-core ones;
 they refuse dh > 256, dv > 64, H != 96 and T > 256 (the block); and a
-2-layer bf16 SpatialNet's and mhsa model's gradients through them lie within
-the bf16 rule of the plain path's.
+2-layer bf16 SpatialNet's, mhsa model's and NBC2's gradients through them
+lie within the bf16 rule of the plain path's. The block is also held at
+NBC2-small's two heads of 48 (forward and backward, fp32 and bf16, T = 1 ...
+256 at the tiles' edges), the attention at NBC2's heads of 48 (dh = dv = 48,
+two heads, masked and not), and NBC2-large (H 192) is refused on the card.
 
 The narrow-band attention kernels are held against ``attention.reference``
 and ``attention.reference_bwd`` at the same bounds, with no mask, a causal
@@ -168,6 +171,62 @@ def test_tensor_core_attention_block_refuses_what_it_does_not_take(card):
         ab.attention_block(x64, ops[0][:, :64].contiguous(), *ops[1:], eps, 4)
 
 
+# NBC2-small's two heads of 48 at H = 96: one frame, the edges of the tensor-core kernels'
+# 16-frame tiles and 128-key halves, the serving length and the longest the kernels take
+NH2_T = [1, 13, 15, 16, 17, 64, 65, 250, 251, 256]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", NH2_T)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_kernels_at_two_heads(card, T, dtype):
+    """Rows 1-2 at NBC2-small's nh = 2: the forward within the forward
+    bounds and each cotangent of the backward within the backward bounds of
+    the plain versions, one launch each; in bf16 on the tensor-core kernels,
+    relaunches bit-identical."""
+    M, nh = 5, 2
+    x, ops, eps = _operands(T + 2000, M, T, nh)
+    g = torch.randn(M, T, 96, generator=torch.Generator().manual_seed(T)).cuda().to(dtype)
+    x = x.to(dtype)
+    f0, b0 = ab.tc_launches, ab.bwd_tc_launches
+    y, y2 = (ab.attention_block(x, *ops, eps, nh) for _ in range(2))
+    got, got2 = (ab.backward(x, *ops[:3], g, eps, nh) for _ in range(2))
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (ab.tc_launches - f0, ab.bwd_tc_launches - b0) == (2 * tc, 2 * tc)
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    want = ab.reference(x.float(), *ops, eps, nh)
+    ref = ab.reference_bwd(x.float(), *ops[:3], g.float(), eps, nh)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+        for name, a, r in zip(BWD_NAMES, got, ref):
+            torch.testing.assert_close(a, r, atol=5e-3 * r.abs().max().item(), rtol=5e-3,
+                                       msg=name)
+        return
+    err = (y.float() - want).abs().max().item()
+    plain = (ab.reference(x, *ops, eps, nh).float() - want).abs().max().item()
+    assert np.isfinite(err) and err <= max(2 * plain, 2e-4 + 1e-4 * want.abs().max().item())
+    for name, a, p, r in zip(BWD_NAMES, got, ab.reference_bwd(x, *ops[:3], g, eps, nh), ref):
+        e, ep = (a.float() - r).abs().max().item(), (p.float() - r).abs().max().item()
+        assert np.isfinite(e) and e <= max(2 * ep, 5e-3 * r.abs().max().item()), (name, e, ep)
+
+
+@pytest.mark.gpu
+def test_nbc2_large_is_refused_on_the_card(card):
+    """NBC2-large (H 192, ``configs/NBC2.yaml``) reaches the attention-block
+    kernel at H = 192, which refuses it with a ValueError: nothing is
+    launched and nothing falls back (its CPU path runs:
+    ``tests/test_torch_nbc2.py``)."""
+    from nbss_tpu_torch.models.nbc2 import NBC2
+
+    net = NBC2(dim_input=12, dim_output=4, n_layers=1, dim_hidden=192, dim_ffn=384,
+               device="cuda").eval()
+    before = ab.launches
+    with pytest.raises(ValueError, match="H = 96"), torch.no_grad():
+        net(torch.randn(1, 3, 20, 12, device="cuda"))
+    assert ab.launches == before
+
+
 BWD_NAMES = ("dx", "dln", "dA", "dWvo", "dc")
 
 
@@ -278,12 +337,13 @@ def _gradients(net, x, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["spatialnet", "mhsa"])
+@pytest.mark.parametrize("arch", ["spatialnet", "mhsa", "nbc2"])
 def test_bf16_gradients_through_tensor_core_kernels_within_bf16_rule(card, arch):
-    """A 2-layer bf16 SpatialNet and a 2-layer bf16 OnlineSpatialNet mhsa(16)
-    at H=96, each through its tensor-core forward and backward: the kernel
-    path's gradients against the plain path's under the bf16 rule, both held
-    to the fp32 plain path."""
+    """A 2-layer bf16 SpatialNet, a 2-layer bf16 OnlineSpatialNet mhsa(16)
+    and a 2-layer bf16 NBC2 (2 heads) at H=96, each through its tensor-core
+    forward and backward: the kernel path's gradients against the plain
+    path's under the bf16 rule, both held to the fp32 plain path."""
+    from nbss_tpu_torch.models.nbc2 import NBC2
     from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
     from nbss_tpu_torch.models.spatialnet import SpatialNet
 
@@ -292,6 +352,9 @@ def test_bf16_gradients_through_tensor_core_kernels_within_bf16_rule(card, arch)
     if arch == "spatialnet":
         make, off = (lambda **k: SpatialNet(**kw, **k, device="cuda")), {"fused_block": False}
         kernels = ab
+    elif arch == "nbc2":
+        make = lambda **k: NBC2(12, 4, 2, dim_hidden=96, dim_ffn=192, **k, device="cuda")
+        off, kernels = {"fused_block": False, "attention_kernel": False}, ab
     else:
         from nbss_tpu_torch.ops import attention as att
 
@@ -497,6 +560,8 @@ def test_online_spatialnet_gradients_through_scan_kernels_match_plain_path(card,
 ATTN_SHAPES = [(1, 1, 4, 24, 24), (5, 13, 4, 24, 24), (7, 64, 2, 16, 16), (3, 65, 3, 32, 32),
                (9, 251, 4, 24, 24), (2, 300, 2, 64, 64), (4, 37, 4, 8, 12), (2, 1024, 1, 24, 24),
                (1032, 251, 4, 24, 24),
+               # NBC2's two heads of 48 (padded to the 64-wide kernels): ragged and serving length
+               (3, 17, 2, 48, 48), (5, 251, 2, 48, 48),
                # the wide kernels (q/k heads above 64): NBC's augmented 216 with dv = 24, one
                # frame, off the 32-row tiles, a ragged width, the widest q/k 256 with dv 64
                (5, 13, 8, 216, 24), (1, 1, 2, 216, 24), (6, 251, 8, 216, 24), (3, 65, 2, 100, 16),
@@ -614,7 +679,7 @@ def test_narrowband_attention_kernels_refuse_what_they_do_not_take(card):
 # 64 and 216
 TC_ATTN_SHAPES = [(3, T, 4, 24, 24) for T in (1, 13, 16, 17, 64, 65, 256, 257, 300)] + [
     (1, 251, 4, 24, 24), (2, 251, 4, 64, 64), (2, 65, 8, 216, 24), (2, 300, 8, 216, 24),
-    (1, 248, 8, 216, 24)]
+    (1, 248, 8, 216, 24), (3, 65, 2, 48, 48), (2, 251, 2, 48, 48)]
 
 
 @pytest.mark.gpu

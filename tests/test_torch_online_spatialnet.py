@@ -215,12 +215,23 @@ def test_trainer_fits_with_adamw_and_remat():
     (dict(attention="ret(1,not_share_qk)"), "retention"),
     (dict(attention="mamba(16,4)", remat=True, remat_policy="dots"), "remat_policy"),
     (dict(attention="mhsa(251)", remat=True, remat_policy="dots"), "remat_policy"),
-    (dict(attention="mhsa(251)", norms=("gLN", "LN", "GN", "LN", "LN", "LN")), "NBC2"),
 ])
 def test_refused_settings_raise(kw, match):
     cfg = {**CFG, **kw}
     with pytest.raises(NotImplementedError, match=match):
         OnlineSpatialNet(**cfg, device="cpu")
+
+
+def test_gln_norm_matches_jax():
+    """The gLN norm the port refused until NBC2's slice brought it (here
+    before the masked attention) builds and matches the JAX model."""
+    cfg = dict(CFG, attention="mhsa(251)", norms=("gLN", "LN", "GN", "LN", "LN", "LN"))
+    params, net = _pair(cfg, seed=3)
+    x = _x(4, T=20, cfg=cfg)
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    want = np.asarray(JOnlineSpatialNet(**cfg).apply(params, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
 
 
 def test_epoch39_checkpoint_port_matches_jax():
