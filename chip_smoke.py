@@ -14,7 +14,9 @@ heads, and the causal T-ConvFFN); then NBC serving at the full width of
 ``configs/NBC.yaml``; then SpatialNet-small again with ``fused_ffn=True``,
 whose T-ConvFFN runs through its kernel; then NBC2-small (``configs/NBC2.yaml``)
 through the attention-block kernels at two heads, NB-BLSTM, the NBSS
-wrapper, and NBC training. Thirty-nine phases:
+wrapper, and NBC training; then SpatialNet-large (12 layers, H=192, 4
+heads), whole 16-s recordings and NBC2-large through the attention block's
+wide route. Forty-four phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -213,7 +215,30 @@ wrapper, and NBC training. Thirty-nine phases:
     tensor-core kernel (the gradient is autograd's of the plain version, as
     the JAX package's); the fp32 kernel path's gradients held by
     ``check_gradients.hold`` (the key biases left out: the fold drops them);
-    the peak device memory and the rate.
+    the peak device memory and the rate;
+40. the attention block's wide route (``attention_block_wide_tc.cu`` in bf16,
+    ``attention_block_wide.cu`` in fp32) vs ``reference`` / ``reference_bwd``
+    at SpatialNet-large's shape (H=192, nh=4; the forward at M = 16*129, the
+    backward at 8*129, T=251), at M = 1 with T = 1, 17, 255, 257, 300, 1001
+    for (H, nh) = (96, 4), (192, 4), (192, 2), and at (M, T) = (4*129, 1001):
+    fp32 at the bounds of phases 3 and 6, bf16 under the bf16 rule, every
+    relaunch bit-identical, the wide counters advancing by the launches;
+    times of both directions against their plain versions, the library
+    composition and bounds, also at T = 1001 and at nh 2;
+41. SpatialNet-large serving (``configs/SpatialNet.yaml`` comments: 12
+    layers, H=192, ffn 384, 4 heads, squeeze 16) at B=16 in bf16 with
+    ``fused_ffn`` off and on: 12 wide launches a forward, all on the
+    tensor cores, and 12 T-ConvFFN launches with it on; fp32 kernel path vs
+    the plain composition at B=2, SI-SDR >= 50 dB; serving rates;
+42. whole recordings: SpatialNet-small and -large at B=4 x 16 s (T = 1001)
+    through the wide route, fp32 vs plain at B=1 >= 50 dB, serving rates;
+43. SpatialNet-large training: 20 steps at B=8 (Adam 1e-3, clip 5, bf16),
+    falling loss, 12 + 12 wide tensor-core launches a step, the peak
+    memory and the rate; fp32 gradients of its first 2 layers at the
+    trained weights held by ``check_gradients.hold``; 3 steps at dropout
+    (0.1, 0.1, 0.1), where the block is off and rows 4-5 run at dh 48;
+44. NBC2-large (12 layers, H=192, 2 heads): serving at B=16 through the wide
+    route, fp32 vs plain at B=2 >= 50 dB, and 5 training steps at B=8.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -264,6 +289,16 @@ NBC2_CFG = dict(dim_input=12, dim_output=4, n_layers=8, encoder_kernel_size=5, d
                 norms=("LN", "GBN", "GBN"))
 # configs/NB-BLSTM.yaml: BLSTM 256 then 128; 6 channels at 8 kHz, neg-SI-SDR with PIT
 BLSTM_CFG = dict(dim_input=12, dim_output=4, hidden_size=(256, 128))
+# SpatialNet-large (configs/SpatialNet.yaml comments): 12 layers, H 192, ffn 384, 4 heads (dh
+# 48), squeeze 16; the rest as SpatialNet-small
+LARGE = dict(FLAGSHIP, num_layers=12, dim_hidden=192, dim_ffn=384, dim_squeeze=16)
+LARGE_DEPTH_CHECK = 2  # layers of its fp32 gradient check (check_gradients.hold)
+B_LARGE_CHECK = 2  # batch of its fp32 kernel-vs-plain serving comparison
+DROPOUT_STEPS = 3  # training steps of the run at dropout 0.1 (the block off, rows 4-5 on)
+LONG_SECONDS, B_LONG = 16.0, 4  # offline serving of whole recordings: T = 1001 frames
+# NBC2-large (configs/NBC2.yaml comments): 12 layers, H 192, ffn 384, 2 heads (dh 96)
+NBC2_LARGE_CFG = dict(NBC2_CFG, n_layers=12, dim_hidden=192, dim_ffn=384)
+NBC2_LARGE_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -316,7 +351,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/39 device")
+    log("phase 1/44 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -324,7 +359,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/39 build (plain nvcc, sm_90a)")
+    log("phase 2/44 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -334,7 +369,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/39 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/44 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -386,19 +421,21 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/39 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/44 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
                          loss=Loss(name="neg_si_sdr", pit=True))
     wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
     target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
-    ab.launches = ab.tc_launches = ab.bwd_launches = 0
+    ab.launches = ab.tc_launches = ab.bwd_launches = ab.wide_launches = 0
     yr_hat, _ = module.forward(wave)
     pred = module.predict_step(wave, target)
     torch.cuda.synchronize()
     launches, serve_tc, serve_bwd = ab.launches, ab.tc_launches, ab.bwd_launches
     n_layers = FLAGSHIP["num_layers"]
+    if ab.wide_launches != 0:  # H = 96, T <= 256: the shared-memory kernel, not the wide route
+        raise AssertionError(f"SpatialNet-small reached the wide route ({ab.wide_launches})")
     for name, out in (("forward", yr_hat), ("predict_step", pred)):
         if out.shape != (B, 2, wave.shape[-1]) or not torch.isfinite(out).all():
             raise AssertionError(f"{name}: shape {tuple(out.shape)}, finite "
@@ -425,7 +462,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/39 times (CUDA events, after warm-up)")
+    log("phase 5/44 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -486,6 +523,8 @@ def main() -> int:
     nbss_phase(dev)
     fresh_start()
     row8["training"] = nbc_training_phases(dev)
+    fresh_start()
+    row1_wide, row2_wide = large_phases(dev)
     rows45[0].update(wide4, **nbc2_row4)
     rows45[1].update(wide5, **nbc2_row5)
     row2.update(nbc2_row2)
@@ -500,7 +539,7 @@ def main() -> int:
         "max_abs_err": err32, "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms,
         "ms_fp32": ms_fp32, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, **nbc2_row1},
-        row2, row3, *rows67, *rows45, row8]}), flush=True)
+        row2, row1_wide, row2_wide, row3, *rows67, *rows45, row8]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -566,7 +605,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/39 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/44 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -630,12 +669,16 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/39 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/44 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
+    ab.wide_launches = ab.bwd_wide_launches = 0
     module, trainer, batch, losses = check_gradients.fit(dev)  # data and init launch nothing
     torch.cuda.synchronize()
     fit = (ab.launches, ab.tc_launches, ab.bwd_launches, ab.bwd_tc_launches)
+    if ab.wide_launches or ab.bwd_wide_launches:  # H = 96, T <= 256: not the wide route
+        raise AssertionError(f"SpatialNet-small training reached the wide route "
+                             f"({ab.wide_launches} + {ab.bwd_wide_launches})")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     trainer.train_step(batch)
     torch.cuda.synchronize()
@@ -658,7 +701,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/39 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/44 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -667,7 +710,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/39 times (CUDA events, after warm-up)")
+    log("phase 9/44 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -778,7 +821,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/39 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/44 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -813,7 +856,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/39 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/44 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -844,7 +887,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/39 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/44 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -881,7 +924,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/39 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/44 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -902,7 +945,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/39 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/44 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -961,7 +1004,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/39 times (CUDA events, after warm-up)")
+    log("phase 15/44 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1100,7 +1143,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/39 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/44 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1158,7 +1201,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/39 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/44 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1216,7 +1259,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/39 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/44 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1255,7 +1298,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/39 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/44 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1277,7 +1320,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/39 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/44 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1341,7 +1384,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/39 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/44 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1488,7 +1531,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/39 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/44 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1570,7 +1613,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/39 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/44 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1631,7 +1674,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/39 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/44 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1680,7 +1723,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/39 times (CUDA events, after warm-up)")
+    log("phase 25/44 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -1869,7 +1912,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/39 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/44 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -1950,7 +1993,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/39 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/44 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -1995,7 +2038,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/39 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/44 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -2057,7 +2100,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/39 times (CUDA events, after warm-up)")
+    log("phase 29/44 times (CUDA events, after warm-up)")
     with torch.no_grad():
         ffn_ms = cuda_ms(lambda: tc.tconvffn(xb, p, G), iters=10)
         x32 = xb.float()
@@ -2261,7 +2304,7 @@ def nbc2_phases(dev):
     ops = (ln, A, Wvo)
 
     # 30. rows 1-2 at nh 2
-    log(f"phase 30/39 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+    log(f"phase 30/44 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh} (dh {dh})")
     tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2370,7 +2413,7 @@ def nbc2_phases(dev):
     # 31. rows 4-5 at dh = dv = 48
     Ma = 2 * n_freq
     causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
-    log(f"phase 31/39 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+    log(f"phase 31/44 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
         f"dh=dv={dh}, no mask and causal")
     tc0, btc0 = att.tc_launches, att.bwd_tc_launches
     att_errs = {}
@@ -2454,7 +2497,7 @@ def nbc2_phases(dev):
     check_budget("attention at dh 48")
 
     # 32. serving
-    log(f"phase 32/39 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 32/44 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2497,7 +2540,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 serving")
 
     # 33. training
-    log(f"phase 33/39 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 33/44 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2523,7 +2566,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 training")
 
     # 34. rates
-    log("phase 34/39 NBC2-small rates")
+    log("phase 34/44 NBC2-small rates")
     serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
     torch.cuda.reset_peak_memory_stats()
     train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
@@ -2578,7 +2621,7 @@ def blstm_phases(dev):
                 + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
 
     # 35. serving
-    log(f"phase 35/39 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+    log(f"phase 35/44 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
         f"ch, {SECONDS:g} s, bf16 and fp32")
     gen = torch.Generator().manual_seed(8)
     net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -2616,7 +2659,7 @@ def blstm_phases(dev):
     check_budget("nb-blstm serving")
 
     # 36. training
-    log(f"phase 36/39 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 36/44 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2643,7 +2686,7 @@ def nbss_phase(dev):
     from nbss_tpu_torch.models.nbss import NBSS
     from nbss_tpu_torch.ops import attention_block as ab
 
-    log(f"phase 37/39 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+    log(f"phase 37/44 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
         "B=2): one forward for each arch in fp32 and bf16")
     gen = torch.Generator().manual_seed(9)
     wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
@@ -2690,7 +2733,7 @@ def nbc_training_phases(dev):
     out = {}
     for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
         bsz = NBC_B_TRAIN[dropout]
-        log(f"phase {phase}/39 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
+        log(f"phase {phase}/44 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
             f"SyntheticDataset items ({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for "
             f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, bf16")
         batch = fixed_batch(bsz, NBC_CHANNELS, NBC_FS)
@@ -2734,6 +2777,452 @@ def nbc_training_phases(dev):
         fresh_start()
         check_budget(f"nbc training at dropout {dropout:g}")
     return out
+
+
+def fold_block(layer, nh):
+    """A SpatialNet layer's LN + MHSA folded into the attention block's
+    operands at nh heads (no autograd graph)."""
+    import torch
+
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    with torch.no_grad():
+        return ab.fold_weights(layer.norm_mhsa.weight, layer.norm_mhsa.bias,
+                               layer.mhsa.in_proj_weight, layer.mhsa.in_proj_bias,
+                               layer.mhsa.out_proj.weight, layer.mhsa.out_proj.bias, nh)
+
+
+def wide_counts():
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    return (ab.wide_launches, ab.wide_tc_launches, ab.bwd_wide_launches, ab.bwd_wide_tc_launches)
+
+
+def check_wide_block(label, x, g, ops, c, eps, nh):
+    """The wide route's forward and backward on x, g against ``reference``
+    and ``reference_bwd``: float32 at atol 2e-4, rtol 1e-4 and each
+    cotangent at atol 5e-3 x max|plain|, rtol 5e-3; bf16 under the bf16
+    rule; two launches bit-identical. Returns (forward error, cotangent
+    errors) against the float32 plain results."""
+    import torch
+
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    names = ("dx", "dln", "dA", "dWvo", "dc")
+    with torch.no_grad():
+        y = ab.attention_block(x, *ops, c, eps, nh)
+        relaunched(label, [y], [ab.attention_block(x, *ops, c, eps, nh)])
+        want = ab.reference(x.float(), *ops, c, eps, nh)
+        if x.dtype == torch.float32:
+            torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4, msg=label)
+            err = (y - want).abs().max().item()
+        else:
+            err, = bf16_rule(label, [y], [want], [ab.reference(x, *ops, c, eps, nh)], 2e-4, 1e-4)
+        del y, want
+    got = ab.backward(x, *ops[:3], g, eps, nh)
+    relaunched(label + " backward", got, ab.backward(x, *ops[:3], g, eps, nh))
+    want = ab.reference_bwd(x.float(), *ops[:3], g.float(), eps, nh)
+    if x.dtype == torch.float32:
+        errs = []
+        for name, a, w in zip(names, got, want):
+            torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=f"{label} {name}")
+            errs.append((a - w).abs().max().item())
+    else:
+        errs = bf16_rule(label + " backward", got, want,
+                         ab.reference_bwd(x, *ops[:3], g, eps, nh), 0.0, 5e-3)
+    return err, dict(zip(names, errs))
+
+
+def wide_block_times(layer, xb, gb, ops, c, eps, nh):
+    """CUDA-event times of the wide route's forward on xb and backward on
+    gb's rows (bf16 tensor cores and fp32 CUDA cores), their plain versions,
+    the PyTorch library composition (LN, the projections, SDPA, the out
+    projection, the residual) and its backward, and their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    M, T, H = xb.shape
+    Mt = gb.shape[0]
+    xt = xb[:Mt]
+    bf = torch.bfloat16
+    m = layer.mhsa
+    params = [t.detach().to(bf) for t in (layer.norm_mhsa.weight, layer.norm_mhsa.bias,
+                                          m.in_proj_weight, m.in_proj_bias, m.out_proj.weight,
+                                          m.out_proj.bias)]
+
+    def library(x, ln_w, ln_b, w_in, b_in, w_out, b_out):  # the port never calls this
+        M_ = x.shape[0]
+        q, k, v = F.linear(F.layer_norm(x, (H,), ln_w, ln_b), w_in, b_in).chunk(3, -1)
+        q, k, v = (t.reshape(M_, T, nh, H // nh).transpose(1, 2) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(M_, T, H)
+        return x + F.linear(o, w_out, b_out)
+
+    out = {}
+    with torch.no_grad():
+        out["fwd_ms"] = cuda_ms(lambda: ab.attention_block(xb, *ops, c, eps, nh), iters=10)
+        x32 = xb.float()
+        out["fwd_ms_fp32"] = cuda_ms(lambda: ab.attention_block(x32, *ops, c, eps, nh), iters=2,
+                                     warmup=1)
+        del x32
+        out["fwd_plain_ms"] = cuda_ms(lambda: ab.reference(xb, *ops, c, eps, nh), iters=2,
+                                      warmup=1)
+        out["fwd_library_ms"] = cuda_ms(lambda: library(xb, *params), iters=10)
+    out["bwd_ms"] = cuda_ms(lambda: ab.backward(xt, *ops[:3], gb, eps, nh), iters=5)
+    xt32, gt32 = xt.float(), gb.float()
+    out["bwd_ms_fp32"] = cuda_ms(lambda: ab.backward(xt32, *ops[:3], gt32, eps, nh), iters=2,
+                                 warmup=1)
+    del xt32, gt32
+    out["bwd_plain_ms"] = cuda_ms(lambda: ab.reference_bwd(xt, *ops[:3], gb, eps, nh), iters=2,
+                                  warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (xt, *params)]
+    yl = library(*leaves)  # graph built once
+    out["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(yl, leaves, gb,
+                                                                retain_graph=True), iters=5)
+    del yl, leaves
+    op_bytes = sum(t.numel() * t.element_size() for t in ops[:4])
+    flops = T * H * 3 * H * 2 + 2 * 2 * T * T * H + 2 * T * H * H  # a sequence, unfolded
+    out["fwd_bound_ms"], out["fwd_bound_by"] = bound(2 * xb.numel() * 2 + op_bytes, M * flops)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(3 * gb.numel() * 2 + 2 * op_bytes,
+                                                     2 * Mt * flops)
+    out.update(M=M, M_bwd=Mt, T=T, H=H, nh=nh)
+    return out
+
+
+def large_phases(dev):
+    """Phases 40-44: rows 1-2 on the wide route (H = 192 and T > 256),
+    SpatialNet-large serving (also at 16 s) and training, NBC2-large. Returns
+    the wide routes' two rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch import check_gradients
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.models.nbc2 import NBC2
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+    from nbss_tpu_torch.ops import attention as att
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops import tconvffn
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.module import TrainModule
+
+    H, nh, n_layers = LARGE["dim_hidden"], LARGE["num_heads"], LARGE["num_layers"]
+    n_freq = LARGE["num_freqs"]
+    T = int(SECONDS * FS) // 128 + 1
+    T_long = int(LONG_SECONDS * FS) // 128 + 1
+    M, Mt, M_long = B * n_freq, B_TRAIN * n_freq, B_LONG * n_freq
+    gen = torch.Generator().manual_seed(11)
+    large = SpatialNet(**dict(LARGE, num_layers=1), generator=gen, device=dev).layers[0]
+    small = SpatialNet(**dict(FLAGSHIP, num_layers=1), generator=gen, device=dev).layers[0]
+    ln, A, Wvo, c, eps = fold_block(large, nh)
+    ops = (ln, A, Wvo)
+
+    # 40. rows 1-2 on the wide route
+    log(f"phase 40/44 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
+        f"T={T} H={H} nh={nh}; T = 1 ... {T_long} at H = 96 and 192")
+    counts0 = wide_counts()
+    n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
+    xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
+    gb = torch.randn(Mt, T, H, generator=gen).to(dev).to(torch.bfloat16)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        with torch.no_grad():
+            y = ab.attention_block(xb.to(dtype), *ops, c, eps, nh)
+            relaunched(f"{key} wide forward", [y], [ab.attention_block(xb.to(dtype), *ops, c, eps,
+                                                                       nh)])
+            want = ab.reference(xb.float(), *ops, c, eps, nh)
+            if dtype == torch.float32:
+                torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+                fwd_err = (y - want).abs().max().item()
+            else:
+                fwd_err, = bf16_rule("bf16 wide forward", [y], [want],
+                                     [ab.reference(xb, *ops, c, eps, nh)], 2e-4, 1e-4)
+            del y, want
+        _, bwd_err = check_wide_block(f"{key} wide at (M, T) = ({Mt}, {T})", xb[:Mt].to(dtype),
+                                      gb.to(dtype), ops, c, eps, nh)
+        n_fwd, n_bwd = n_fwd + 4, n_bwd + 2
+        errs[key] = (fwd_err, bwd_err)
+        log(f"{key}: forward max |kernel - plain| {fwd_err:.3e}; backward " + ", ".join(
+            f"{n} {e:.3e}" for n, e in bwd_err.items()) + "; within the bounds, relaunches "
+            "bit-identical")
+    edges = []
+    for layer, width, heads in ((small, 96, 4), (large, 192, 4), (large, 192, 2)):
+        opse = fold_block(layer, heads)
+        for Te in (1, 17, 255, 257, 300, T_long):
+            for dtype in (torch.float32, torch.bfloat16):
+                xe, ge = (torch.randn(1, Te, width, generator=gen).to(dev).to(dtype)
+                          for _ in range(2))
+                check_wide_block(f"{dtype} (H, nh, T) = {(width, heads, Te)}", xe, ge,
+                                 opse[:3], opse[3], opse[4], heads)
+                n_fwd += 2 * ab.is_wide(Te, width)
+                n_bwd += 2 * ab.is_wide(Te, width)
+        edges.append((width, heads))
+    log("M = 1 at T = 1, 17, 255, 257, 300, 1001 for (H, nh) in " + ", ".join(map(str, edges))
+        + ", fp32 and bf16, forward and backward: within the bounds, relaunches bit-identical")
+    xl = torch.randn(M_long, T_long, H, generator=gen).to(dev).to(torch.bfloat16)
+    gl = torch.randn(M_long, T_long, H, generator=gen).to(dev).to(torch.bfloat16)
+    errs_long = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs_long[str(dtype).split(".")[1]] = check_wide_block(
+            f"{dtype} wide at (M, T) = ({M_long}, {T_long})", xl.to(dtype), gl.to(dtype), ops, c,
+            eps, nh)
+        n_fwd, n_bwd = n_fwd + 2, n_bwd + 2
+    log(f"(M, T) = ({M_long}, {T_long}): forward fp32 {errs_long['float32'][0]:.3e}, bf16 "
+        f"{errs_long['bfloat16'][0]:.3e}; within the bounds, relaunches bit-identical")
+    counts = tuple(a - b for a, b in zip(wide_counts(), counts0))
+    if counts != (n_fwd, n_fwd // 2, n_bwd, n_bwd // 2):
+        raise AssertionError(f"wide launches {counts}, expected {n_fwd} forward and {n_bwd} "
+                             "backward, half of each on the tensor cores")
+    times = wide_block_times(large, xb, gb, ops, c, eps, nh)
+    times_long = wide_block_times(large, xl, gl, ops, c, eps, nh)
+    for label, t in (("serving/training shape", times), (f"T = {T_long}", times_long)):
+        log(f"wide route at the {label}, nh {nh}: forward M={t['M']} bf16 {t['fwd_ms']:.3f} ms "
+            f"(fp32 {t['fwd_ms_fp32']:.3f}), plain {t['fwd_plain_ms']:.3f}, library "
+            f"{t['fwd_library_ms']:.3f}, bound {t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}); "
+            f"backward M={t['M_bwd']} bf16 {t['bwd_ms']:.3f} ms (fp32 {t['bwd_ms_fp32']:.3f}), "
+            f"plain {t['bwd_plain_ms']:.3f}, library {t['bwd_library_ms']:.3f}, bound "
+            f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']})")
+    ops2 = fold_block(large, 2)
+    times_nh2 = wide_block_times(large, xb, gb, ops2[:3], ops2[3], eps, 2)
+    log(f"wide route at nh 2 (NBC2-large's heads of 96): forward bf16 {times_nh2['fwd_ms']:.3f} "
+        f"ms, library {times_nh2['fwd_library_ms']:.3f}; backward bf16 "
+        f"{times_nh2['bwd_ms']:.3f} ms, library {times_nh2['bwd_library_ms']:.3f}")
+    del xb, gb, xl, gl, large, small
+    fresh_start()
+    check_budget("wide route")
+
+    # 41. SpatialNet-large serving, fused_ffn off and on
+    log(f"phase 41/44 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
+        f"{CHANNELS} ch, {SECONDS:g} s, bf16, fused_ffn off and on")
+    net = SpatialNet(**LARGE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                         stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
+                         loss=Loss(name="neg_si_sdr", pit=True))
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    target = (0.1 * torch.randn(B, 2, int(SECONDS * FS), generator=gen)).to(dev)
+    serving, sdrs = {}, {}
+    for fused_ffn in (False, True):
+        arch = SpatialNet(**LARGE, dtype=torch.bfloat16, fused_ffn=fused_ffn, device=dev).eval()
+        arch.load_state_dict(net.state_dict())
+        m = TrainModule(**{**module.__dict__, "arch": arch})
+        ab.launches = ab.tc_launches = ab.bwd_launches = 0
+        ab.wide_launches = ab.wide_tc_launches = tconvffn.tc_launches = 0
+        yr_hat, _ = m.forward(wave)
+        pred = m.predict_step(wave, target)
+        torch.cuda.synchronize()
+        served = (ab.launches, ab.wide_tc_launches, ab.bwd_launches, tconvffn.tc_launches)
+        check_outputs((("forward", yr_hat), ("predict_step", pred)), (B, 2, wave.shape[-1]))
+        want = (2 * n_layers, 2 * n_layers, 0, 2 * n_layers * fused_ffn)
+        log(f"fused_ffn {fused_ffn}: finite [{B}, 2, {wave.shape[-1]}]; attention_block launched "
+            f"{served[0]} times ({served[1]} on the wide tensor-core kernel), its backward "
+            f"{served[2]}; the T-ConvFFN's tensor-core kernel {served[3]}")
+        if served != want:
+            raise AssertionError(f"launches {served}, expected {want}")
+        serve_s = seconds_per_call(lambda: m.predict_step(wave), 3)
+        serving[fused_ffn] = (served, B * SECONDS / serve_s)
+        log(f"serving: predict_step on {B} x {SECONDS:g} s in {serve_s * 1e3:.1f} ms = "
+            f"{B * SECONDS / serve_s:.1f} audio-s/s")
+        kernel32 = SpatialNet(**LARGE, fused_ffn=fused_ffn, device=dev).eval()
+        kernel32.load_state_dict(net.state_dict())
+        plain32 = SpatialNet(**LARGE, fused_block=False, device=dev).eval()
+        plain32.load_state_dict(net.state_dict())
+        w2 = wave[:B_LARGE_CHECK]
+        y_kernel, _ = TrainModule(**{**module.__dict__, "arch": kernel32}).forward(w2)
+        y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(w2)
+        sdrs[fused_ffn] = si_sdr(y_kernel, y_plain).min().item()
+        log(f"fp32 kernel path (fused_ffn {fused_ffn}) vs plain composition at "
+            f"B={B_LARGE_CHECK}: min SI-SDR {sdrs[fused_ffn]:.1f} dB (bound >= 50)")
+        if not sdrs[fused_ffn] >= 50.0:
+            raise AssertionError(f"SI-SDR {sdrs[fused_ffn]:.1f} dB < 50 dB")
+        del arch, m, kernel32, plain32, yr_hat, pred, y_kernel, y_plain
+        fresh_start()
+    check_budget("spatialnet-large serving")
+
+    # 42. long utterances: 16 s, T = 1001
+    log(f"phase 42/44 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
+        f"{LONG_SECONDS:g} s (T = {T_long}), bf16, through the wide route")
+    wave_long = (0.1 * torch.randn(B_LONG, CHANNELS, int(LONG_SECONDS * FS), generator=gen)).to(dev)
+    long_rates, long_sdrs = {}, {}
+    for name, cfg in (("small", FLAGSHIP), ("large", LARGE)):
+        arch = SpatialNet(**cfg, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+        m = TrainModule(**{**module.__dict__, "arch": arch})
+        ab.launches = ab.wide_tc_launches = 0
+        yr_hat, _ = m.forward(wave_long)
+        pred = m.predict_step(wave_long)
+        torch.cuda.synchronize()
+        served = (ab.launches, ab.wide_tc_launches)
+        check_outputs((("forward", yr_hat), ("predict_step", pred)),
+                      (B_LONG, 2, wave_long.shape[-1]))
+        if served != (2 * cfg["num_layers"],) * 2:
+            raise AssertionError(f"SpatialNet-{name} at {LONG_SECONDS:g} s: launches {served}, "
+                                 f"expected {cfg['num_layers']} a forward on the wide route")
+        serve_s = seconds_per_call(lambda: m.predict_step(wave_long), 2)
+        long_rates[name] = B_LONG * LONG_SECONDS / serve_s
+        kernel32 = SpatialNet(**cfg, device=dev).eval()
+        kernel32.load_state_dict(arch.state_dict())
+        plain32 = SpatialNet(**cfg, fused_block=False, device=dev).eval()
+        plain32.load_state_dict(arch.state_dict())
+        y_kernel, _ = TrainModule(**{**module.__dict__, "arch": kernel32}).forward(wave_long[:1])
+        y_plain, _ = TrainModule(**{**module.__dict__, "arch": plain32}).forward(wave_long[:1])
+        long_sdrs[name] = si_sdr(y_kernel, y_plain).min().item()
+        log(f"SpatialNet-{name}: finite [{B_LONG}, 2, {wave_long.shape[-1]}], {served[0]} wide "
+            f"launches in two forwards; predict_step in {serve_s * 1e3:.1f} ms = "
+            f"{long_rates[name]:.1f} audio-s/s; fp32 kernel path vs plain composition at B=1: "
+            f"{long_sdrs[name]:.1f} dB (bound >= 50)")
+        if not long_sdrs[name] >= 50.0:
+            raise AssertionError(f"SI-SDR {long_sdrs[name]:.1f} dB < 50 dB")
+        del arch, m, kernel32, plain32, yr_hat, pred, y_kernel, y_plain
+        fresh_start()
+    del wave_long
+    check_budget("long-utterance serving")
+
+    # 43. SpatialNet-large training
+    log(f"phase 43/44 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
+        f"for {TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
+    batch = fixed_batch(B_TRAIN, CHANNELS, FS)
+    losses = []
+    trainer = trainer_of(TrainModule(**{**module.__dict__, "arch": SpatialNet(
+        **LARGE, dtype=torch.bfloat16, device=dev)}), dev, losses)
+    ab.launches = ab.bwd_launches = 0
+    ab.wide_launches = ab.wide_tc_launches = ab.bwd_wide_launches = ab.bwd_wide_tc_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fit = (ab.launches, ab.wide_tc_launches, ab.bwd_launches, ab.bwd_wide_tc_launches)
+    check_losses(losses)
+    log(f"launches in {TRAIN_STEPS} steps: {fit[0]} forward ({fit[1]} on the wide tensor-core "
+        f"kernel) + {fit[2]} backward ({fit[3]}); peak memory {peak:.1f} GiB")
+    if fit != (TRAIN_STEPS * n_layers,) * 4:
+        raise AssertionError(f"expected {n_layers} forward and {n_layers} backward launches a "
+                             "step, all on the wide tensor-core kernels")
+    train_s = seconds_per_call(lambda: trainer.train_step(batch), 3)
+    log(f"training: train_step on {B_TRAIN} x {SECONDS:g} s in {train_s * 1e3:.1f} ms = "
+        f"{B_TRAIN * SECONDS / train_s:.1f} audio-s/s trained")
+    depth = LARGE_DEPTH_CHECK
+    cfg = dict(LARGE, num_layers=depth)
+    state = {k: v for k, v in trainer.module.arch.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < depth}
+    small_arch = SpatialNet(**cfg, device=dev)
+    small_arch.load_state_dict(state)
+    log(f"fp32 gradients at the trained weights of the first {depth} layers: kernel path vs "
+        "plain composition (fp32 and float64 arch), one batch")
+    grads = check_gradients.gradients(TrainModule(**{**module.__dict__, "arch": small_arch}),
+                                      trainer.to_device(batch), cfg, dev)
+    log(check_gradients.hold(grads))
+    del grads, small_arch, trainer
+    fresh_start()
+    # at dropout 0.1 the block is off in training and the MHSA runs rows 4-5 at dh 48
+    cfg = dict(LARGE, dropout=(0.1, 0.1, 0.1))
+    losses_d = []
+    trainer = trainer_of(TrainModule(**{**module.__dict__, "arch": SpatialNet(
+        **cfg, dtype=torch.bfloat16, device=dev)}), dev, losses_d)
+    ab.launches = ab.bwd_launches = 0
+    att.launches = att.tc_launches = att.bwd_launches = att.bwd_tc_launches = 0
+    trainer.fit([batch], max_epochs=DROPOUT_STEPS)
+    torch.cuda.synchronize()
+    dropped = (ab.launches, ab.bwd_launches, att.tc_launches, att.bwd_tc_launches)
+    log(f"dropout (0.1, 0.1, 0.1), {DROPOUT_STEPS} steps: losses "
+        f"{', '.join(f'{v:.3f}' for v in losses_d)}; attention_block {dropped[0]} + "
+        f"{dropped[1]} launches, the narrow-band attention (dh {H // nh}) {dropped[2]} + "
+        f"{dropped[3]} on the tensor-core kernels")
+    if dropped != (0, 0, DROPOUT_STEPS * n_layers, DROPOUT_STEPS * n_layers) or not all(
+            np.isfinite(losses_d)):
+        raise AssertionError("expected the block off and rows 4-5 once a layer and step")
+    del trainer
+    fresh_start()
+    check_budget("spatialnet-large training")
+
+    # 44. NBC2-large
+    nl2 = NBC2_LARGE_CFG["n_layers"]
+    log(f"phase 44/44 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
+        f"{NBC2_LARGE_CFG['n_heads']} heads, {nl2} layers): serving B={B} and "
+        f"{NBC2_LARGE_STEPS} training steps at B={B_TRAIN}, bf16")
+    net2 = NBC2(**NBC2_LARGE_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    module2 = TrainModule(**{**module.__dict__, "arch": net2, "loss": Loss(name="neg_sa_sdr",
+                                                                           pit=True)})
+    ab.launches = ab.wide_tc_launches = 0
+    yr_hat, _ = module2.forward(wave)
+    pred = module2.predict_step(wave)
+    torch.cuda.synchronize()
+    served2 = (ab.launches, ab.wide_tc_launches)
+    check_outputs((("forward", yr_hat), ("predict_step", pred)), (B, 2, wave.shape[-1]))
+    if served2 != (2 * nl2,) * 2:
+        raise AssertionError(f"NBC2-large launches {served2}, expected {nl2} a forward on the "
+                             "wide tensor-core kernel")
+    serve2_s = seconds_per_call(lambda: module2.predict_step(wave), 3)
+    kernel32 = NBC2(**NBC2_LARGE_CFG, device=dev).eval()
+    kernel32.load_state_dict(net2.state_dict())
+    plain32 = NBC2(**NBC2_LARGE_CFG, fused_block=False, attention_kernel=False, device=dev).eval()
+    plain32.load_state_dict(net2.state_dict())
+    y_kernel, _ = TrainModule(**{**module2.__dict__, "arch": kernel32}).forward(wave[:2])
+    y_plain, _ = TrainModule(**{**module2.__dict__, "arch": plain32}).forward(wave[:2])
+    sdr2 = si_sdr(y_kernel, y_plain).min().item()
+    del kernel32, plain32, y_kernel, y_plain, yr_hat, pred
+    log(f"serving: finite [{B}, 2, {wave.shape[-1]}], {served2[0]} wide launches in two "
+        f"forwards; predict_step in {serve2_s * 1e3:.1f} ms = {B * SECONDS / serve2_s:.1f} "
+        f"audio-s/s; fp32 kernel path vs plain composition at B=2: {sdr2:.1f} dB (bound >= 50)")
+    if not sdr2 >= 50.0:
+        raise AssertionError(f"NBC2-large SI-SDR {sdr2:.1f} dB < 50 dB")
+    losses2 = []
+    trainer = trainer_of(TrainModule(**{**module2.__dict__, "arch": NBC2(
+        **NBC2_LARGE_CFG, dtype=torch.bfloat16, device=dev)}), dev, losses2)
+    ab.wide_tc_launches = ab.bwd_wide_tc_launches = 0
+    trainer.fit([batch], max_epochs=NBC2_LARGE_STEPS)
+    torch.cuda.synchronize()
+    fit2 = (ab.wide_tc_launches, ab.bwd_wide_tc_launches)
+    train2_s = seconds_per_call(lambda: trainer.train_step(batch), 2)
+    log(f"training: losses {', '.join(f'{v:.3f}' for v in losses2)}; {fit2[0]} + {fit2[1]} wide "
+        f"tensor-core launches; train_step in {train2_s * 1e3:.1f} ms = "
+        f"{B_TRAIN * SECONDS / train2_s:.1f} audio-s/s trained")
+    if fit2 != (NBC2_LARGE_STEPS * nl2,) * 2 or not all(np.isfinite(losses2)):
+        raise AssertionError(f"NBC2-large training: launches {fit2}, losses {losses2}")
+    del trainer, net2, module2
+    fresh_start()
+    check_budget("nbc2-large")
+
+    common = {"route": "cuda", "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"}}
+    row1 = {"name": "attention_block_wide", **common,
+            "source": "nbss_tpu_torch/csrc/attention_block_wide_tc.cu",
+            "source_fp32": "nbss_tpu_torch/csrc/attention_block_wide.cu",
+            "replaces": "nbss_tpu/ops/attention_block.py:183",
+            "launches": serving[False][0][0], "tc_launches": serving[False][0][1],
+            "launches_training": fit[0], "max_abs_err": errs["float32"][0],
+            "max_err_fp32": errs["float32"][0], "max_err_bf16": errs["bfloat16"][0],
+            "ms": times["fwd_ms"], "ms_fp32": times["fwd_ms_fp32"],
+            "plain_ms": times["fwd_plain_ms"], "bound_ms": times["fwd_bound_ms"],
+            "bound_by": times["fwd_bound_by"], "library_ms": times["fwd_library_ms"],
+            "M": M, "T": T, "H": H, "nh": nh,
+            "t1001": {k: v for k, v in times_long.items() if not k.startswith("bwd")},
+            "nh2": {k: v for k, v in times_nh2.items() if not k.startswith("bwd")},
+            "serve_audio_s_per_s": serving[False][1],
+            "serve_audio_s_per_s_fused_ffn": serving[True][1],
+            "serve_sdr_db_fp32": sdrs[False], "serve_sdr_db_fp32_fused_ffn": sdrs[True],
+            "long_serve_audio_s_per_s": long_rates, "long_sdr_db_fp32": long_sdrs,
+            "nbc2_large": {"launches": served2[0], "serve_audio_s_per_s": B * SECONDS / serve2_s,
+                           "sdr_db_fp32": sdr2, "train_audio_s_per_s":
+                           B_TRAIN * SECONDS / train2_s}}
+    row2 = {"name": "attention_block_wide_bwd", **common,
+            "source": "nbss_tpu_torch/csrc/attention_block_wide_tc.cu",
+            "source_fp32": "nbss_tpu_torch/csrc/attention_block_wide.cu",
+            "replaces": "nbss_tpu/ops/attention_block.py:316",
+            "launches": fit[2], "tc_launches": fit[3],
+            "max_abs_err": max(errs["float32"][1].values()),
+            "max_err_fp32": errs["float32"][1], "max_err_bf16": errs["bfloat16"][1],
+            "ms": times["bwd_ms"], "ms_fp32": times["bwd_ms_fp32"],
+            "plain_ms": times["bwd_plain_ms"], "bound_ms": times["bwd_bound_ms"],
+            "bound_by": times["bwd_bound_by"], "library_ms": times["bwd_library_ms"],
+            "M": Mt, "T": T, "H": H, "nh": nh,
+            "t1001": {k: v for k, v in times_long.items() if not k.startswith("fwd")},
+            "nh2": {k: v for k, v in times_nh2.items() if not k.startswith("fwd")},
+            "train_audio_s_per_s": B_TRAIN * SECONDS / train_s, "train_peak_gib": peak,
+            "nbc2_large_launches": fit2[1]}
+    return row1, row2
 
 
 if __name__ == "__main__":

@@ -75,11 +75,10 @@ constexpr int SMEM_BYTES = 4 * TILE_BYTES + 3 * TMAX * 4;
 static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
 static_assert(NW * 3 * H * 4 <= TILE_BYTES, "the dln/dc reduction fits in a tile");
 
-// The weight product: a block per (row slice, head, operand), 7 warps, each
-// owning 16 output columns of a [112, 112] product.
-constexpr int GW = 7;
-constexpr int GROWS = 64;      // rows staged at a time
-constexpr int GLS = HW + 8;    // their shared row stride
+// The weight product (attention_block_bwd_weights): a block per (row slice,
+// head, operand), 7 warps, each owning 16 output columns of a [112, 112]
+// product, the rows staged 64 at a time.
+constexpr int GROWS = 64;
 
 struct Work {
   bf16* xa_rows;   // [M * T][HW]: xa of every frame (lane H = 1)
@@ -493,92 +492,6 @@ attention_block_bwd_tc_kernel(const bf16* __restrict__ x, const float* __restric
   }
 }
 
-// part[s][y] = xa^T D over rows [s * per, (s + 1) * per) of slice s, for
-// y = 2h (D = the dt rows of head h, 112 wide) and y = 2h + 1 (the dvo rows,
-// 96 wide): [112][112] float32, each warp 16 columns, all 7 row tiles.
-__global__ void __launch_bounds__(GW * 32)
-attention_block_bwd_tc_weights(const bf16* __restrict__ xa_rows, const bf16* __restrict__ dt_rows,
-                               const bf16* __restrict__ dvo_rows, float* __restrict__ part,
-                               long long nrows, long long per) {
-  __shared__ __align__(16) bf16 xs[GROWS][GLS];
-  __shared__ __align__(16) bf16 ds[GROWS][GLS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int y = blockIdx.y, h = y / 2;
-  const bool is_dt = (y & 1) == 0;
-  const int width = is_dt ? HW : H;
-  const bf16* D = is_dt ? dt_rows + size_t(h) * nrows * HW : dvo_rows + size_t(h) * nrows * H;
-  const long long r_begin = blockIdx.x * per, r_end = min(nrows, r_begin + per);
-  const bool live = warp * 16 < width;
-  float acc[HW / 16][2][4] = {};
-  for (long long r0 = r_begin; r0 < r_end; r0 += GROWS) {
-    __syncthreads();  // the previous rows are consumed
-    for (int idx = tid; idx < GROWS * (HW / 8); idx += GW * 32) {
-      const int r = idx / (HW / 8), c = (idx % (HW / 8)) * 8;
-      const long long row = r0 + r;
-      if (row < r_end) {
-        cp_async16(&xs[r][c], xa_rows + row * HW + c);
-        if (c < width)
-          cp_async16(&ds[r][c], D + row * width + c);
-        else
-          *reinterpret_cast<uint4*>(&ds[r][c]) = make_uint4(0, 0, 0, 0);
-      } else {
-        *reinterpret_cast<uint4*>(&xs[r][c]) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(&ds[r][c]) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int k0 = 0; k0 < GROWS; k0 += 16) {
-        uint32_t B[4];
-        ldsm_x4_t(B, &ds[k0 + (lane & 7) + ((lane >> 3) & 1) * 8][warp * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mt = 0; mt < HW / 16; ++mt) {
-          uint32_t A[4];
-          ldsm_x4_t(A, &xs[k0 + (lane & 7) + (lane >> 4) * 8][mt * 16 + ((lane >> 3) & 1) * 8]);
-          mma(acc[mt][0], A, B[0], B[1]);
-          mma(acc[mt][1], A, B[2], B[3]);
-        }
-      }
-    }
-  }
-  float* out = part + (size_t(blockIdx.x) * gridDim.y + y) * HW * HW;
-  const int g4 = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < HW / 16; ++mt)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        out[(mt * 16 + g4 + 8 * (e >> 1)) * HW + warp * 16 + n * 8 + 2 * t4 + (e & 1)] = acc[mt][n][e];
-}
-
-// out = [dA: nh HA HA][dWvo: nh HA HA][dln: 2H][dc: H], each the sum over
-// slices (blocks) in order of their partials
-__global__ void attention_block_bwd_tc_reduce(const float* __restrict__ wpart,
-                                              const float* __restrict__ part,
-                                              float* __restrict__ out, int nslices,
-                                              int nblocks, int nh) {
-  const size_t n_w = 2 * size_t(nh) * HA * HA, n = n_w + 3 * H;
-  for (size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
-       e += size_t(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    if (e < n_w) {
-      const size_t per = size_t(nh) * HA * HA;
-      const int which = int(e / per);
-      const size_t r = e % per;
-      const int h = int(r / (HA * HA)), i = int(r % (HA * HA)) / HA, k = int(r % HA);
-      const size_t y = 2 * h + which;
-      for (int sl = 0; sl < nslices; ++sl)
-        s += wpart[(size_t(sl) * 2 * nh + y) * HW * HW + i * HW + k];
-    } else {
-      for (int b = 0; b < nblocks; ++b) s += part[size_t(b) * 3 * H + (e - n_w)];
-    }
-    out[e] = s;
-  }
-}
-
 size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
 
 // The workspace's parts, in bytes, in order.
@@ -646,13 +559,12 @@ extern "C" int nbss_attention_block_bwd_tc(const void* x, const void* ln, const 
   if (err != cudaSuccess) return int(err);
   const long long nrows = (long long)M * T;
   const long long per = ((nrows + nslices - 1) / nslices + GROWS - 1) / GROWS * GROWS;
-  attention_block_bwd_tc_weights<<<dim3(nslices, 2 * nh), GW * 32, 0, s>>>(
+  attention_block_bwd_weights<H, HW, GROWS><<<dim3(nslices, 2 * nh), HW / 16 * 32, 0, s>>>(
       w.xa_rows, w.dt_rows, w.dvo_rows, wpart, nrows, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const int n = int(2 * nh * HA * HA + 3 * H);
-  attention_block_bwd_tc_reduce<<<(n + 255) / 256, 256, 0, s>>>(wpart, w.part,
-                                                                 static_cast<float*>(out),
-                                                                 nslices, nblocks, nh);
+  attention_block_bwd_reduce<H, HW><<<(n + 255) / 256, 256, 0, s>>>(
+      wpart, w.part, static_cast<float*>(out), nslices, nblocks, nh);
   return int(cudaGetLastError());
 }

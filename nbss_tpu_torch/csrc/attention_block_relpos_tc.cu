@@ -290,13 +290,6 @@ __global__ void __launch_bounds__(PW * 32, 1) relpos_tc_proj(const ProjArgs a) {
   }
 }
 
-// 16 bytes from global to shared memory, asynchronously, marked for early
-// eviction from L2 (pol: an evict_first policy).
-__device__ __forceinline__ void cp_async16_ef(void* dst, const void* src, uint64_t pol) {
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "l"(pol));
-}
-
 struct AttnArgs {
   const bf16* xk;   // [rows, KQ] key operand
   const bf16* qw;   // [nh, rows, KQ]
@@ -327,8 +320,7 @@ __global__ void __launch_bounds__(NT, 1) relpos_tc_attn(const AttnArgs a) {
   // The key, vo and Q' tiles stream through L2 marked evict-first, so that
   // they do not push the blocks' head-sum slots out of it (without the mark
   // the call at NBC's serving shape was slower on an H100).
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  const uint64_t pol = evict_first();
 
   auto stage_keys = [&](size_t rb, int kt, int buf) {
     bf16* dst = KB + buf * KBUF;

@@ -1,8 +1,9 @@
 // Pieces shared by the attention block's tensor-core kernels,
-// attention_block_tc.cu (forward) and attention_block_bwd_tc.cu (backward):
-// the channel widths, the bf16 weight layout that the prep kernel writes,
-// and the m16n8k16 products over the channels of xa-like [*][LS] tiles in
-// shared memory. Lanes H and H+1 of xa are 1 and 0 for every frame, so each
+// attention_block_tc.cu (forward), attention_block_bwd_tc.cu (backward) and
+// attention_block_wide_tc.cu (both, at H = 192 and any T): the channel
+// widths, the bf16 weight layout that the prep kernel writes, the m16n8k16
+// products over the channels of xa-like [*][LS] tiles in shared memory, and
+// the backward's weight cotangents and fixed-order sums. Lanes H and H+1 of xa are 1 and 0 for every frame, so each
 // product runs over the H channels (H / 16 k-steps) and the ones lane enters
 // as a float32 bias. The helpers take the width as a template parameter,
 // HH, 96 unless given (the backward is built for 96 only).
@@ -175,6 +176,100 @@ template <int HH = H>
 __device__ __forceinline__ void c_to_a(uint32_t (&D)[HH / 16][4], const float (&c)[HH / 8][4]) {
 #pragma unroll
   for (int ks = 0; ks < HH / 16; ++ks) pack_a(D[ks], c[2 * ks], c[2 * ks + 1]);
+}
+
+// The backward kernels' weight cotangents dA_h = xa^T dt and dWvo_h = xa^T
+// dvo, over every frame of every sequence, as fixed slices of the rows:
+// part[s][y] = xa^T D over the rows of slice s (of `per`), for y = 2h (D =
+// head h's dt rows, XW wide, lane H the row sum of dS) and y = 2h + 1 (its
+// dvo rows, H wide): [XW][XW] float32, each of XW / 16 warps 16 columns, the
+// rows staged GROWS at a time. xa rows are XW wide, lane H = 1.
+template <int HH, int XW, int GROWS>
+static __global__ void __launch_bounds__(XW / 16 * 32)
+attention_block_bwd_weights(const bf16* __restrict__ xa_rows, const bf16* __restrict__ dt_rows,
+                            const bf16* __restrict__ dvo_rows, float* __restrict__ part,
+                            long long nrows, long long per) {
+  constexpr int H = HH, GLS = XW + 8, NT = XW / 16 * 32;  // GLS: odd 16-byte rows
+  static_assert(XW % 16 == 0 && (GLS / 8) % 2 == 1, "16-column warps, odd 16-byte rows");
+  __shared__ __align__(16) bf16 xs[GROWS][GLS];
+  __shared__ __align__(16) bf16 ds[GROWS][GLS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int y = blockIdx.y, h = y / 2;
+  const bool is_dt = (y & 1) == 0;
+  const int width = is_dt ? XW : H;
+  const bf16* D = is_dt ? dt_rows + size_t(h) * nrows * XW : dvo_rows + size_t(h) * nrows * H;
+  const long long r_begin = blockIdx.x * per, r_end = min(nrows, r_begin + per);
+  const bool live = warp * 16 < width;
+  float acc[XW / 16][2][4] = {};
+  for (long long r0 = r_begin; r0 < r_end; r0 += GROWS) {
+    __syncthreads();  // the previous rows are consumed
+    for (int idx = tid; idx < GROWS * (XW / 8); idx += NT) {
+      const int r = idx / (XW / 8), c = (idx % (XW / 8)) * 8;
+      const long long row = r0 + r;
+      if (row < r_end) {
+        cp_async16(&xs[r][c], xa_rows + row * XW + c);
+        if (c < width)
+          cp_async16(&ds[r][c], D + row * width + c);
+        else
+          *reinterpret_cast<uint4*>(&ds[r][c]) = make_uint4(0, 0, 0, 0);
+      } else {
+        *reinterpret_cast<uint4*>(&xs[r][c]) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(&ds[r][c]) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int k0 = 0; k0 < GROWS; k0 += 16) {
+        uint32_t B[4];
+        ldsm_x4_t(B, &ds[k0 + (lane & 7) + ((lane >> 3) & 1) * 8][warp * 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < XW / 16; ++mt) {
+          uint32_t A[4];
+          ldsm_x4_t(A, &xs[k0 + (lane & 7) + (lane >> 4) * 8][mt * 16 + ((lane >> 3) & 1) * 8]);
+          mma(acc[mt][0], A, B[0], B[1]);
+          mma(acc[mt][1], A, B[2], B[3]);
+        }
+      }
+    }
+  }
+  float* out = part + (size_t(blockIdx.x) * gridDim.y + y) * XW * XW;
+  const int g4 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < XW / 16; ++mt)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[(mt * 16 + g4 + 8 * (e >> 1)) * XW + warp * 16 + n * 8 + 2 * t4 + (e & 1)] = acc[mt][n][e];
+}
+
+// out = [dA: nh HA HA][dWvo: nh HA HA][dln: 2H][dc: H], each the sum over
+// slices (the weight partials) or blocks (part [nblocks][3H]) in order
+template <int HH, int XW>
+static __global__ void attention_block_bwd_reduce(const float* __restrict__ wpart,
+                                                  const float* __restrict__ part,
+                                                  float* __restrict__ out, int nslices,
+                                                  int nblocks, int nh) {
+  constexpr int H = HH, HA = H + 2;
+  const size_t n_w = 2 * size_t(nh) * HA * HA, n = n_w + 3 * H;
+  for (size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
+       e += size_t(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    if (e < n_w) {
+      const size_t per = size_t(nh) * HA * HA;
+      const int which = int(e / per);
+      const size_t r = e % per;
+      const int h = int(r / (HA * HA)), i = int(r % (HA * HA)) / HA, k = int(r % HA);
+      const size_t y = 2 * h + which;
+      for (int sl = 0; sl < nslices; ++sl)
+        s += wpart[(size_t(sl) * 2 * nh + y) * XW * XW + i * XW + k];
+    } else {
+      for (int b = 0; b < nblocks; ++b) s += part[size_t(b) * 3 * H + (e - n_w)];
+    }
+    out[e] = s;
+  }
 }
 
 }  // namespace nbss_block

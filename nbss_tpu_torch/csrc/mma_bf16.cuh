@@ -1,6 +1,7 @@
 // Fragment helpers for the tensor-core kernels (narrowband_attention_tc.cu,
 // narrowband_attention_bwd_tc.cu, attention_block_tc.cu,
-// attention_block_bwd_tc.cu, attention_block_relpos_tc.cu, tconvffn_tc.cu):
+// attention_block_bwd_tc.cu, attention_block_relpos_tc.cu,
+// attention_block_wide_tc.cu, tconvffn_tc.cu):
 // mma.sync m16n8k16 (and m16n8k8) with bf16 operands and a float32
 // accumulator, ldmatrix from shared memory, movmatrix, cp.async staging.
 //
@@ -124,6 +125,20 @@ __device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
 // 16 bytes from global to shared memory, asynchronously (both 16-byte aligned).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// 16 bytes from global to shared memory, asynchronously, marked for early
+// eviction from L2 (pol: an evict_first policy).
+__device__ __forceinline__ void cp_async16_ef(void* dst, const void* src, uint64_t pol) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "l"(pol));
+}
+
+// An L2 policy that marks every access it tags for early eviction.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
 }
 
 // 4 bytes from global to shared memory, asynchronously (both 4-byte aligned).

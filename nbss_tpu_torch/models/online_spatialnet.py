@@ -143,6 +143,7 @@ class OnlineSpatialNetLayer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kind, self.cfg = _settings(attention)
+        self.dropout = (0, 0, 0)  # read by the shared _full; the JAX model's dropout is not ported
         H, FF, S, g = dim_hidden, dim_ffn, dim_squeeze, generator
         f_groups, t_groups = conv_groups
         f_k, t_k = kernel_size

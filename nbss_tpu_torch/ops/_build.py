@@ -108,6 +108,21 @@ def library() -> ctypes.CDLL:
         lib.nbss_attention_block_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
         lib.nbss_attention_block_bwd_workspace_floats.argtypes = [i]
         lib.nbss_attention_block_bwd_workspace_floats.restype = ctypes.c_longlong
+        f = ctypes.c_float
+        lib.nbss_attention_block_wide_tc_workspace_bytes.argtypes = [i] * 5
+        lib.nbss_attention_block_wide_tc_workspace_bytes.restype = ctypes.c_longlong
+        lib.nbss_attention_block_wide_tc_fwd.argtypes = [p] * 7 + [i] * 6 + [f, p]
+        lib.nbss_attention_block_wide_tc_fwd.restype = i
+        lib.nbss_attention_block_wide_bwd_tc_workspace_bytes.argtypes = [i] * 6
+        lib.nbss_attention_block_wide_bwd_tc_workspace_bytes.restype = ctypes.c_longlong
+        lib.nbss_attention_block_wide_bwd_tc.argtypes = [p] * 8 + [i] * 6 + [f, p]
+        lib.nbss_attention_block_wide_bwd_tc.restype = i
+        lib.nbss_attention_block_wide_workspace_bytes.argtypes = [i] * 5
+        lib.nbss_attention_block_wide_workspace_bytes.restype = ctypes.c_longlong
+        lib.nbss_attention_block_wide_fwd.argtypes = [p] * 7 + [i] * 5 + [f, p]
+        lib.nbss_attention_block_wide_fwd.restype = i
+        lib.nbss_attention_block_wide_bwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
+        lib.nbss_attention_block_wide_bwd.restype = i
         lib.nbss_selective_scan_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.nbss_selective_scan_fwd.restype = i
         lib.nbss_selective_scan_bwd.argtypes = [p] * 15 + [i] * 5 + [p]

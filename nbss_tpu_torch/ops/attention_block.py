@@ -11,12 +11,19 @@ so that ``y = x + sum_h softmax(xa A_h xa^T) (xa Wvo_h)[:, :H] + c`` with
 ``xa = [LN(x), 1, 0]``.
 
 ``attention_block`` is a ``torch.autograd.Function``. For a CUDA tensor its
-forward and backward run hand-written CUDA kernels chosen by dtype:
+forward and backward run hand-written CUDA kernels chosen by dtype and
+shape. At H = 96 with T <= 256 (SpatialNet-small, NBC2-small at 4 s),
 bfloat16 inputs take ``csrc/attention_block_tc.cu`` and
-``csrc/attention_block_bwd_tc.cu`` (bf16 tensor cores, ``mma.sync``),
-float32 inputs ``csrc/attention_block.cu`` and ``csrc/attention_block_bwd.cu``
-(float32 FMA on the CUDA cores: no tensor-core product keeps float32's
-digits). For a CPU tensor they run the plain
+``csrc/attention_block_bwd_tc.cu`` (bf16 tensor cores, ``mma.sync``; a
+sequence's tiles in shared memory), float32 inputs
+``csrc/attention_block.cu`` and ``csrc/attention_block_bwd.cu`` (float32
+FMA on the CUDA cores: no tensor-core product keeps float32's digits). At
+H = 192 (SpatialNet-large, NBC2-large) and at H = 96 with T > 256 the wide
+route runs: bfloat16 through ``csrc/attention_block_wide_tc.cu`` (the
+operands as bf16 rows in device memory, the attention streaming them in
+32-row tiles), float32 through ``csrc/attention_block_wide.cu`` (float32
+products and row passes over chunks of sequences). Other widths raise
+``ValueError``. For a CPU tensor they run the plain
 PyTorch versions ``reference`` and ``reference_bwd``. The kernels replace the
 Pallas TPU kernels ``_fused_block`` (``_kernel``) and ``_fused_block_bwd``
 (``_bwd_kernel``) of the JAX package, and the backward returns what the JAX
@@ -57,13 +64,21 @@ import math
 import torch
 
 NEG_INF = -1e30
-KERNEL_H = 96  # channels the kernel is compiled for
-KERNEL_TMAX = 256  # longest sequence the kernel holds in shared memory
+KERNEL_H = 96  # channels the shared-memory kernels are compiled for
+KERNEL_TMAX = 256  # longest sequence they hold in shared memory
+WIDE_H = (96, 192)  # channels the wide route is compiled for (any T)
+# the wide forward's workspace holds this many bytes; longer calls go in chunks of sequences
+WIDE_TC_WORKSPACE_BYTES = 4 << 30  # bf16: the xa, t and vo rows of a chunk
+WIDE_WORKSPACE_BYTES = 2 << 30  # float32: a chunk's rows and its [T, T] scores
 
 launches = 0  # forward kernel launches made by attention_block since import
-tc_launches = 0  # of which on the bf16 tensor-core forward
+tc_launches = 0  # of which on a bf16 tensor-core forward (either route)
+wide_launches = 0  # of which on the wide route (either dtype)
+wide_tc_launches = 0  # of which on the wide bf16 tensor-core forward
 bwd_launches = 0  # backward kernel launches made by attention_block since import
-bwd_tc_launches = 0  # of which on the bf16 tensor-core backward
+bwd_tc_launches = 0  # of which on a bf16 tensor-core backward (either route)
+bwd_wide_launches = 0  # of which on the wide route (either dtype)
+bwd_wide_tc_launches = 0  # of which on the wide bf16 tensor-core backward
 BWD_SLICE_ROWS = 1024  # frames per slice of the tensor-core backward's weight products
 BWD_MAX_SLICES = 64  # and at most this many slices, each a block per head and operand
 
@@ -189,9 +204,9 @@ def _check(name, x, ln, A, Wvo, nh, extra=()):
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be [M, T, H], got {tuple(x.shape)}")
     M, T, H = x.shape
-    if H != KERNEL_H or not 1 <= T <= KERNEL_TMAX:
-        raise ValueError(f"{name}: the kernel takes H = {KERNEL_H} and "
-                         f"1 <= T <= {KERNEL_TMAX}, got H = {H}, T = {T}")
+    if H not in WIDE_H or T < 1 or nh < 1 or H % nh:
+        raise ValueError(f"{name}: the kernels take H = 96 or 192, T >= 1 and nh dividing H, "
+                         f"got H = {H}, T = {T}, nh = {nh}")
     expect = {"ln": (ln, (2, H)), "A": (A, (nh, H + 2, H + 2)),
               "Wvo": (Wvo, (nh, H + 2, H + 2)), **dict(extra)}
     for key, (t, shape) in expect.items():
@@ -211,11 +226,72 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def is_wide(T: int, H: int) -> bool:
+    """Whether a [*, T, H] block takes the wide route (H = 192, or T > 256)
+    rather than the kernels that hold a sequence in shared memory."""
+    return H != KERNEL_H or T > KERNEL_TMAX
+
+
+def _chunk(M: int, workspace_bytes, budget: int, most: int) -> int:
+    """Sequences a chunked kernel takes at a time: the fewest chunks, of
+    equal size, whose workspace fits ``budget`` bytes, each at most ``most``
+    sequences. ``workspace_bytes(k)`` is the workspace of k sequences."""
+    one, two = workspace_bytes(1), workspace_bytes(2)
+    fit = max(1, min(most, (budget - (2 * one - two)) // max(1, two - one)))
+    return -(-M // -(-M // fit))
+
+
+def _forward_wide(lib, x, ln, A, Wvo, c, y, eps: float, nh: int, stream):
+    M, T, H = x.shape
+    nblocks = _sm_count(x.device.index)
+    if x.dtype == torch.bfloat16:
+        def size(k):
+            return lib.nbss_attention_block_wide_tc_workspace_bytes(k, T, H, nh, nblocks)
+
+        chunk = _chunk(M, size, WIDE_TC_WORKSPACE_BYTES, (2 ** 31 - 1) // (T * (H + 16)))
+        ws = torch.empty(size(chunk), dtype=torch.uint8, device=x.device)
+        return lib.nbss_attention_block_wide_tc_fwd(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), c.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), M, T, H, nh, chunk, nblocks, ctypes.c_float(eps), stream)
+
+    def size(k):
+        return lib.nbss_attention_block_wide_workspace_bytes(k, T, H, 0, 0)
+
+    chunk = _chunk(M, size, WIDE_WORKSPACE_BYTES, min(65535, (1 << 22) // T))
+    ws = torch.empty(size(chunk), dtype=torch.uint8, device=x.device)
+    return lib.nbss_attention_block_wide_fwd(
+        x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), c.data_ptr(), y.data_ptr(),
+        ws.data_ptr(), M, T, H, nh, chunk, ctypes.c_float(eps), stream)
+
+
+def _backward_wide(lib, x, ln, A, Wvo, g, dx, out, eps: float, nh: int, stream):
+    M, T, H = x.shape
+    nblocks = _sm_count(x.device.index)
+    if x.dtype == torch.bfloat16:
+        nslices = max(1, min(BWD_MAX_SLICES, -(-M * T // BWD_SLICE_ROWS)))
+        ws = torch.empty(lib.nbss_attention_block_wide_bwd_tc_workspace_bytes(
+            M, T, H, nh, nblocks, nslices), dtype=torch.uint8, device=x.device)
+        return lib.nbss_attention_block_wide_bwd_tc(
+            x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), nblocks, nslices, M, T, H, nh, ctypes.c_float(eps),
+            stream)
+
+    def size(k):
+        return lib.nbss_attention_block_wide_workspace_bytes(k, T, H, 1, nblocks * 8)
+
+    chunk = _chunk(M, size, WIDE_WORKSPACE_BYTES, min(65535, (1 << 22) // T))
+    ws = torch.empty(size(chunk), dtype=torch.uint8, device=x.device)
+    return lib.nbss_attention_block_wide_bwd(
+        x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), M, T, H, nh, chunk, nblocks, ctypes.c_float(eps), stream)
+
+
 def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
-    """The block: ``reference`` for a CPU tensor; for a CUDA tensor the
-    tensor-core kernel on bfloat16 inputs and the CUDA-core kernel on float32
-    ones (or ValueError if it does not take the inputs)."""
-    global launches, tc_launches
+    """The block: ``reference`` for a CPU tensor; for a CUDA tensor a
+    tensor-core kernel on bfloat16 inputs and a CUDA-core kernel on float32
+    ones, of the wide route where ``is_wide`` (or ValueError if no kernel
+    takes the inputs)."""
+    global launches, tc_launches, wide_launches, wide_tc_launches
     if x.device.type == "cpu":
         return reference(x, ln, A, Wvo, c, eps, nh)
     _check("attention_block", x, ln, A, Wvo, nh, {"c": (c, (1, x.shape[-1]))})
@@ -228,7 +304,10 @@ def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     tc = x.dtype == torch.bfloat16
-    if tc:
+    wide = is_wide(T, H)
+    if wide:
+        err = _forward_wide(lib, x, ln, A, Wvo, c, y, eps, nh, stream)
+    elif tc:
         nblocks = min(M, _sm_count(x.device.index))
         ws = torch.empty(lib.nbss_attention_block_tc_workspace_bytes(nh, nblocks),
                          dtype=torch.uint8, device=x.device)
@@ -240,19 +319,22 @@ def _forward(x, ln, A, Wvo, c, eps: float, nh: int):
             x.data_ptr(), ln.data_ptr(), A.data_ptr(), Wvo.data_ptr(), c.data_ptr(),
             y.data_ptr(), M, T, H, nh, ctypes.c_float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"attention_block {'tensor-core ' if tc else ''}kernel launch failed "
-                           f"with CUDA error {err}")
+        raise RuntimeError(f"attention_block {'wide ' if wide else ''}"
+                           f"{'tensor-core ' if tc else ''}kernel launch failed with CUDA error {err}")
     launches += 1
     tc_launches += tc
+    wide_launches += wide
+    wide_tc_launches += wide and tc
     return y
 
 
 def backward(x, ln, A, Wvo, g, eps: float, nh: int):
     """The block's adjoint: ``reference_bwd`` for a CPU tensor; for a CUDA
-    tensor the tensor-core kernel on bfloat16 inputs and the CUDA-core kernel
-    on float32 ones (or ValueError if it does not take the inputs). Returns
-    (dx, dln, dA, dWvo, dc) as ``reference_bwd`` does."""
-    global bwd_launches, bwd_tc_launches
+    tensor a tensor-core kernel on bfloat16 inputs and a CUDA-core kernel on
+    float32 ones, of the wide route where ``is_wide`` (or ValueError if no
+    kernel takes the inputs). Returns (dx, dln, dA, dWvo, dc) as
+    ``reference_bwd`` does."""
+    global bwd_launches, bwd_tc_launches, bwd_wide_launches, bwd_wide_tc_launches
     if x.device.type == "cpu":
         return reference_bwd(x, ln, A, Wvo, g, eps, nh)
     _check("attention_block backward", x, ln, A, Wvo, nh)
@@ -273,7 +355,10 @@ def backward(x, ln, A, Wvo, g, eps: float, nh: int):
         nblocks = min(M, _sm_count(x.device.index))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         tc = x.dtype == torch.bfloat16
-        if tc:
+        wide = is_wide(T, H)
+        if wide:
+            err = _backward_wide(lib, x, ln, A, Wvo, g, dx, out, eps, nh, stream)
+        elif tc:
             nslices = max(1, min(BWD_MAX_SLICES, -(-M * T // BWD_SLICE_ROWS)))
             ws = torch.empty(lib.nbss_attention_block_bwd_tc_workspace_bytes(
                 M, T, nh, nblocks, nslices), dtype=torch.uint8, device=x.device)
@@ -289,10 +374,13 @@ def backward(x, ln, A, Wvo, g, eps: float, nh: int):
                 dx.data_ptr(), out.data_ptr(), ws.data_ptr(), nblocks, M, T, H, nh,
                 ctypes.c_float(eps), stream)
         if err != 0:
-            raise RuntimeError(f"attention_block backward {'tensor-core ' if tc else ''}kernel "
-                               f"launch failed with CUDA error {err}")
+            raise RuntimeError(f"attention_block backward {'wide ' if wide else ''}"
+                               f"{'tensor-core ' if tc else ''}kernel launch failed with CUDA "
+                               f"error {err}")
         bwd_launches += 1
         bwd_tc_launches += tc
+        bwd_wide_launches += wide
+        bwd_wide_tc_launches += wide and tc
     n = nh * Ha * Ha
     return (dx, out[2 * n:2 * n + 2 * H].view(2, H), out[:n].view(nh, Ha, Ha),
             out[n:2 * n].view(nh, Ha, Ha), out[2 * n + 2 * H:].view(1, H))
@@ -535,12 +623,12 @@ def _forward_relpos(x, ln, A, Gs, Gc, Wvo, c, sin_t, cos_t, eps: float, nh: int)
     tc = x.dtype == torch.bfloat16
     if tc:
         nblocks = _sm_count(x.device.index)
-        one, two = (lib.nbss_attention_block_relpos_tc_workspace_bytes(k, T, nh, nblocks)
-                    for k in (1, 2))
-        most = max(1, (RELPOS_TC_WORKSPACE_BYTES - (2 * one - two)) // (two - one))
-        chunk = -(-M // -(-M // most))  # the fewest chunks the budget allows, of equal size
-        ws = torch.empty(lib.nbss_attention_block_relpos_tc_workspace_bytes(chunk, T, nh, nblocks),
-                         dtype=torch.uint8, device=x.device)
+
+        def size(k):
+            return lib.nbss_attention_block_relpos_tc_workspace_bytes(k, T, nh, nblocks)
+
+        chunk = _chunk(M, size, RELPOS_TC_WORKSPACE_BYTES, M)
+        ws = torch.empty(size(chunk), dtype=torch.uint8, device=x.device)
         err = lib.nbss_attention_block_relpos_tc_fwd(
             x.data_ptr(), ln.data_ptr(), A.data_ptr(), Gs.data_ptr(), Gc.data_ptr(),
             Wvo.data_ptr(), c.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(), y.data_ptr(),

@@ -1,7 +1,7 @@
 """Where the serving step's time goes on the card.
 
     python3 -m nbss_tpu_torch.profile_serving
-        [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm]
+        [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm] [--large]
         [--attention 'mamba(16,4)'|'mhsa(251)'|...] [--fused-ffn]
 
 Serves SpatialNet-small, or OnlineSpatialNet with the time module
@@ -11,17 +11,21 @@ at 8 kHz; or NBC (``configs/NBC.yaml``: 4 layers, H=192, 8 heads) at B=16 x
 8 channels x 4 s at 16 kHz, STFT 512/256; or NBC2-small
 (``configs/NBC2.yaml``: 8 layers, H=96, 2 heads, LN/GBN/GBN) or NB-BLSTM
 (``configs/NB-BLSTM.yaml``: BLSTM 256, 128) at B=16 x 6 channels x 4 s at
-8 kHz; seeded random weights, bf16
-(``--fused-ffn``: SpatialNet-small's T-ConvFFN through its kernel, row 3),
+8 kHz; with ``--large``, SpatialNet-large or NBC2-large instead (12 layers,
+H=192, ffn 384; SpatialNet's squeeze 16; ``configs/SpatialNet.yaml`` and
+``configs/NBC2.yaml`` comments), whose blocks take the attention block's
+wide route; seeded random weights, bf16
+(``--fused-ffn``: SpatialNet's T-ConvFFN through its kernel, row 3),
 through ``TrainModule.predict_step`` under ``torch.profiler`` for three
 steps, after two warm-up steps, and prints the device time of the 25
 costliest kernels, the port's kernels' shares and the device's busy share of
 the profiled wall time. It checks that each step launched the arch's kernel
-once per block (8 attention blocks for SpatialNet-small and NBC2-small, 16
+once per block (8 attention blocks for SpatialNet-small and NBC2-small, 12
+for the large models, 16
 scans for mamba(16,4), 8 narrow-band attentions for mhsa(N), 4
 relative-position blocks for NBC, none for NB-BLSTM, whose LSTMs are
-cuDNN's; with ``--fused-ffn`` also 8 T-ConvFFN kernels, whose share it
-prints) and no backward kernel. Needs a CUDA card.
+cuDNN's; with ``--fused-ffn`` also a T-ConvFFN kernel a layer, whose share
+it prints) and no backward kernel. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -44,19 +48,23 @@ NBC2_WIDTHS = dict(dim_input=2 * C, dim_output=4, n_layers=LAYERS, encoder_kerne
                    dim_hidden=96, dim_ffn=192, num_freqs=129, n_heads=2, conv_kernel_size=3,
                    n_conv_groups=8, norms=("LN", "GBN", "GBN"))
 BLSTM_WIDTHS = dict(dim_input=2 * C, dim_output=4, hidden_size=(256, 128))
+# the large models' widths (configs/SpatialNet.yaml and configs/NBC2.yaml comments)
+LARGE_LAYERS = 12
+LARGE_WIDTHS = dict(WIDTHS, num_layers=LARGE_LAYERS, dim_hidden=192, dim_ffn=384, dim_squeeze=16)
+NBC2_LARGE_WIDTHS = dict(NBC2_WIDTHS, n_layers=LARGE_LAYERS, dim_hidden=192, dim_ffn=384)
 ARCHS = ("spatialnet", "online_spatialnet", "nbc", "nbc2", "nb_blstm")
 
 
 def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)",
-          fused_ffn: bool = False, dropout: Optional[float] = None):
+          fused_ffn: bool = False, dropout: Optional[float] = None, large: bool = False):
     """(TrainModule, a function giving the kernel's forward and backward
     launch counts, its launches (per serving forward, per train step forward,
     per train step backward), (forward, backward) tuples of kernel-name
     pieces whose device time is summed) for
     SpatialNet-small, OnlineSpatialNet with ``attention``, as the committed
     run trains it, NBC (``dropout``: its configuration's 0.1 unless given),
-    NBC2-small or NB-BLSTM. ``fused_ffn`` routes SpatialNet's T-ConvFFN
-    through its kernel."""
+    NBC2-small or NB-BLSTM (``large``: SpatialNet-large, NBC2-large).
+    ``fused_ffn`` routes SpatialNet's T-ConvFFN through its kernel."""
     from nbss_tpu_torch.io.loss import Loss
     from nbss_tpu_torch.io.norm import Norm
     from nbss_tpu_torch.io.stft import STFT
@@ -72,16 +80,18 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
     def counts(kernels):
         return lambda: (kernels.launches, kernels.bwd_launches)
 
+    n, keys = (LARGE_LAYERS, WIDE_KEYS) if large else (LAYERS, BLOCK_KEYS)
     if arch == "spatialnet":
-        net = SpatialNet(**WIDTHS, dtype=dtype, fused_ffn=fused_ffn, generator=generator,
-                         device="cuda")
+        net = SpatialNet(**(LARGE_WIDTHS if large else WIDTHS), dtype=dtype, fused_ffn=fused_ffn,
+                         generator=generator, device="cuda")
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), counts(attention_block),
-                (LAYERS,) * 3, BLOCK_KEYS)
+                (n,) * 3, keys)
     if arch == "nbc2":
-        net = NBC2(**NBC2_WIDTHS, dtype=dtype, generator=generator, device="cuda")
+        net = NBC2(**(NBC2_LARGE_WIDTHS if large else NBC2_WIDTHS), dtype=dtype,
+                   generator=generator, device="cuda")
         module = TrainModule(arch=net, norm=Norm(mode="frequency"),
                              loss=Loss(name="neg_sa_sdr", pit=True))
-        return module, counts(attention_block), (LAYERS,) * 3, BLOCK_KEYS
+        return module, counts(attention_block), (n,) * 3, keys
     if arch == "nb_blstm":  # no kernel of the port: cuDNN's LSTM, its cell kernels timed
         net = BLSTM2_FC1(**BLSTM_WIDTHS, dtype=dtype, generator=generator, device="cuda")
         return (TrainModule(arch=net, norm=Norm(mode="frequency")), lambda: (0, 0), (0, 0, 0),
@@ -118,6 +128,12 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
 # the attention block's forward: attention_block_tc_kernel in bf16, attention_block_kernel in
 # fp32; its backward: attention_block_bwd_tc_* in bf16, attention_block_bwd_* in fp32
 BLOCK_KEYS = (("attention_block_tc_kernel", "attention_block_kernel"), ("attention_block_bwd",))
+# its wide route (H = 192): wide_keys / _proj / _attn in bf16 (the backward recomputes the first
+# two), wide_ln / _gemm / _softmax / _accumulate in fp32 (the backward's too); the backward's
+# own: wide_bwd_query / _key / _dxa, wide_ln_bwd, attention_block_bwd_weights / _reduce (shared
+# with the backward above), wide_ds and wide_sum in fp32
+WIDE_KEYS = (("wide_keys", "wide_proj", "wide_attn"),
+             ("wide_bwd_", "wide_ln_bwd", "attention_block_bwd_"))
 
 
 def parse_args(description: str, dropout: bool = False):
@@ -129,6 +145,8 @@ def parse_args(description: str, dropout: bool = False):
                         help="OnlineSpatialNet's time module, e.g. 'mamba(16,4)' or 'mhsa(251)'")
     parser.add_argument("--fused-ffn", action="store_true",
                         help="SpatialNet only: the T-ConvFFN through its kernel (row 3)")
+    parser.add_argument("--large", action="store_true",
+                        help="SpatialNet-large or NBC2-large (H 192, 12 layers)")
     if dropout:
         parser.add_argument("--dropout", type=float, default=None,
                             help="NBC only: its dropout (configs/NBC.yaml: 0.1; at 0 the "
@@ -136,6 +154,8 @@ def parse_args(description: str, dropout: bool = False):
     args = parser.parse_args()
     if args.fused_ffn and args.arch != "spatialnet":
         parser.error("--fused-ffn takes --arch spatialnet")
+    if args.large and args.arch not in ("spatialnet", "nbc2"):
+        parser.error("--large takes --arch spatialnet or nbc2")
     if getattr(args, "dropout", None) is not None and args.arch != "nbc":
         parser.error("--dropout takes --arch nbc")
     return args
@@ -168,10 +188,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     module, counts, (per_fwd, _, _), (fwd_key, _) = build(arch, torch.bfloat16, gen,
                                                           attention=args.attention,
-                                                          fused_ffn=args.fused_ffn)
+                                                          fused_ffn=args.fused_ffn,
+                                                          large=args.large)
     channels, samples, rate = (NBC_C, NBC_S, 16000) if arch == "nbc" else (C, S, 8000)
     if arch == "online_spatialnet":
         arch = f"{arch} {args.attention}"
+    if args.large:
+        arch = f"{arch} large"
     if args.fused_ffn:
         arch = f"{arch} fused_ffn"
     module.arch.eval()
@@ -193,7 +216,7 @@ def main() -> int:
         print(f"profile_serving: {fwd} forward and {bwd} backward kernel launches in {STEPS} "
               f"steps, expected {per_fwd} and 0 a step", file=sys.stderr)
         return 1
-    ffn_want = STEPS * LAYERS if args.fused_ffn else 0
+    ffn_want = STEPS * per_fwd if args.fused_ffn else 0
     if tconvffn.launches - ffn0 != ffn_want:
         print(f"profile_serving: {tconvffn.launches - ffn0} T-ConvFFN launches in {STEPS} steps, "
               f"expected {ffn_want}", file=sys.stderr)

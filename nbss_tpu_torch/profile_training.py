@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python3 -m nbss_tpu_torch.profile_training
-        [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm]
+        [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm] [--large]
         [--attention 'mamba(16,4)'|'mhsa(251)'|...] [--fused-ffn] [--dropout P]
 
 Trains SpatialNet-small (neg-SI-SDR with PIT, Adam), or OnlineSpatialNet
@@ -9,7 +9,9 @@ with the time module ``--attention`` (default mamba(16,4)) as the committed
 run does (neg-SNR with PIT, AdamW with weight decay 1e-3, remat), at 8
 layers, H=96; or NBC (``configs/NBC.yaml``, 8 channels x 4 s at 16 kHz;
 ``--dropout``, 0.1 unless given), NBC2-small (neg-SA-SDR with PIT) or
-NB-BLSTM at their configurations' widths, with Adam; seeded random weights,
+NB-BLSTM at their configurations' widths, with Adam (``--large``:
+SpatialNet-large or NBC2-large, 12 layers at H=192, through the attention
+block's wide route); seeded random weights,
 bf16 compute and float32 parameters, on one fixed batch of B=8
 ``SyntheticDataset`` items of 6 channels x 4 s (NBC: 8 x 4 s at 16 kHz, B=6
 with dropout active, the most an 80 GB card holds)
@@ -19,13 +21,13 @@ steps. Prints the step's wall time, the device time of the 25 costliest
 kernels, the port's kernels' shares, the device's busy share of the
 profiled wall time and the peak device memory. It checks each step's
 launches: 8 attention-block forward and 8 backward for SpatialNet-small and
-NBC2-small; 32 scan forward (16, and 16 more recomputed by remat) and 16
+NBC2-small, 12 and 12 for the large models; 32 scan forward (16, and 16 more recomputed by remat) and 16
 backward for mamba(16,4); 16 narrow-band attention forward (8 + 8) and 8
 backward for mhsa(N); for NBC 4 relative-position forward at dropout 0 and
 none at 0.1, where the block is off while dropout is active, as in the JAX
 package (its backward is autograd's); none for NB-BLSTM; with
-``--fused-ffn`` (SpatialNet's T-ConvFFN through its kernel) also 8 T-ConvFFN
-forward launches and none in the backward, which recomputes the plain chain
+``--fused-ffn`` (SpatialNet's T-ConvFFN through its kernel) also a T-ConvFFN
+forward launch a layer and none in the backward, which recomputes the plain chain
 under autograd. Needs a CUDA card.
 """
 
@@ -48,7 +50,6 @@ def main() -> int:
     from nbss_tpu_torch.data.synthetic import SyntheticDataset
     from nbss_tpu_torch.ops import tconvffn
     from nbss_tpu_torch.profile_serving import (
-        LAYERS,
         NBC_C,
         build,
         device_us_of,
@@ -72,12 +73,14 @@ def main() -> int:
     online = arch == "online_spatialnet"
     module, counts, (_, want_fwd, want_bwd), (fwd_key, bwd_key) = build(
         arch, torch.bfloat16, None, remat=online, attention=args.attention,
-        fused_ffn=args.fused_ffn, dropout=args.dropout)
+        fused_ffn=args.fused_ffn, dropout=args.dropout, large=args.large)
     optimizer = ("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}) if online else ("Adam", {"lr": 1e-3})
     trainer = Trainer(module, optimizer=optimizer, seed=2)
     trainer.init()
     if online:
         arch = f"{arch} {args.attention}"
+    if args.large:
+        arch = f"{arch} large"
     if args.fused_ffn:
         arch = f"{arch} fused_ffn"
     if arch == "nbc":
@@ -100,7 +103,7 @@ def main() -> int:
         print(f"profile_training: {fwd} forward and {bwd} backward kernel launches in {STEPS} "
               f"steps, expected {want_fwd} and {want_bwd} a step", file=sys.stderr)
         return 1
-    ffn_want = STEPS * LAYERS if args.fused_ffn else 0
+    ffn_want = STEPS * want_fwd if args.fused_ffn else 0
     if tconvffn.launches - ffn0 != ffn_want:
         print(f"profile_training: {tconvffn.launches - ffn0} T-ConvFFN launches in {STEPS} "
               f"steps, expected {ffn_want}", file=sys.stderr)

@@ -35,7 +35,18 @@ they refuse dh > 256, dv > 64, H != 96 and T > 256 (the block); and a
 lie within the bf16 rule of the plain path's. The block is also held at
 NBC2-small's two heads of 48 (forward and backward, fp32 and bf16, T = 1 ...
 256 at the tiles' edges), the attention at NBC2's heads of 48 (dh = dv = 48,
-two heads, masked and not), and NBC2-large (H 192) is refused on the card.
+two heads, masked and not), and NBC2-large (H 192), once refused, runs on
+the card within the forward bounds of its plain composition.
+
+The wide route of the block (H = 192, and H = 96 past 256 frames; bf16 on
+``attention_block_wide_tc.cu``, float32 on ``attention_block_wide.cu``) is
+held against the plain versions at one frame, the edges of its 16-row tiles
+and 32-row stages, kept scores in shared and in device memory (T up to
+1001), 4, 3 and 2 heads, with bit-identical relaunches; the counters show
+that (H, T) and the dtype pick the route; H = 128 is refused. A 2-layer
+SpatialNet at the large widths trains through it (float32 gradients within
+5e-3 x max|plain|, bf16 within the bf16 rule), and with a mask or active
+attention dropout SpatialNet's MHSA runs rows 4-5 instead of the block.
 
 The narrow-band attention kernels are held against ``attention.reference``
 and ``attention.reference_bwd`` at the same bounds, with no mask, a causal
@@ -116,9 +127,12 @@ def test_attention_block_kernel_matches_plain(card, M, T, nh, dtype):
 
 @pytest.mark.gpu
 def test_attention_block_kernel_refuses_what_it_does_not_take(card):
-    x, ops, eps = _operands(0, 2, 257, 4)
-    with pytest.raises(ValueError, match="T <= 256"):
+    x, ops, eps = _operands(0, 2, 40, 4, H=128)
+    before = ab.launches
+    with pytest.raises(ValueError, match="H = 96 or 192"):
         ab.attention_block(x, *ops, eps, 4)
+    assert ab.launches == before
+    x, ops, eps = _operands(0, 2, 257, 4)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ab.attention_block(x[:, :8].half(), *ops, eps, 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -162,10 +176,13 @@ def test_dtype_picks_the_attention_block_forward_kernel(card):
 
 @pytest.mark.gpu
 def test_tensor_core_attention_block_refuses_what_it_does_not_take(card):
+    x, ops, eps = _operands(0, 2, 40, 4, H=128)
+    with pytest.raises(ValueError, match="H = 96 or 192"):
+        ab.attention_block(x.bfloat16(), *ops, eps, 4)
     x, ops, eps = _operands(0, 2, 257, 4)
     x = x.bfloat16()
-    with pytest.raises(ValueError, match="T <= 256"):
-        ab.attention_block(x, *ops, eps, 4)
+    with pytest.raises(ValueError, match="nh dividing H"):
+        ab.attention_block(x, *ops, eps, 5)
     x64 = x[:, :8, :64].contiguous()
     with pytest.raises(ValueError, match="H = 96"):
         ab.attention_block(x64, ops[0][:, :64].contiguous(), *ops[1:], eps, 4)
@@ -213,18 +230,24 @@ def test_attention_block_kernels_at_two_heads(card, T, dtype):
 
 @pytest.mark.gpu
 def test_nbc2_large_is_refused_on_the_card(card):
-    """NBC2-large (H 192, ``configs/NBC2.yaml``) reaches the attention-block
-    kernel at H = 192, which refuses it with a ValueError: nothing is
-    launched and nothing falls back (its CPU path runs:
-    ``tests/test_torch_nbc2.py``)."""
+    """NBC2-large (H 192, two heads, ``configs/NBC2.yaml``), once refused at
+    H = 192, now runs on the card through the wide route of rows 1-2: one
+    wide launch a layer, and in float32 within the forward bounds of its
+    plain module composition (the name is kept from when it was refused)."""
     from nbss_tpu_torch.models.nbc2 import NBC2
 
-    net = NBC2(dim_input=12, dim_output=4, n_layers=1, dim_hidden=192, dim_ffn=384,
-               device="cuda").eval()
-    before = ab.launches
-    with pytest.raises(ValueError, match="H = 96"), torch.no_grad():
-        net(torch.randn(1, 3, 20, 12, device="cuda"))
-    assert ab.launches == before
+    kw = dict(dim_input=12, dim_output=4, n_layers=2, dim_hidden=192, dim_ffn=384, n_heads=2,
+              device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    net = NBC2(**kw, generator=gen).eval()
+    plain = NBC2(**kw, fused_block=False, attention_kernel=False).eval()
+    plain.load_state_dict(net.state_dict())
+    x = torch.randn(1, 3, 20, 12, generator=gen).cuda()
+    before = ab.wide_launches
+    with torch.no_grad():
+        y, want = net(x), plain(x)
+    assert ab.wide_launches == before + 2
+    torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
 
 
 BWD_NAMES = ("dx", "dln", "dA", "dWvo", "dc")
@@ -267,9 +290,10 @@ def test_attention_block_bwd_kernel_matches_plain(card, M, T, nh, dtype):
 
 @pytest.mark.gpu
 def test_attention_block_bwd_kernel_refuses_what_it_does_not_take(card):
-    x, (ln, A, Wvo, _), eps = _operands(0, 2, 257, 4)
-    with pytest.raises(ValueError, match="T <= 256"):
+    x, (ln, A, Wvo, _), eps = _operands(0, 2, 40, 4, H=128)
+    with pytest.raises(ValueError, match="H = 96 or 192"):
         ab.backward(x, ln, A, Wvo, x, eps, 4)
+    x, (ln, A, Wvo, _), eps = _operands(0, 2, 257, 4)
     x64 = x[:, :8, :64].contiguous()
     with pytest.raises(ValueError, match="H = 96"):
         ab.backward(x64, ln[:, :64].contiguous(), A, Wvo, x64, eps, 4)
@@ -311,13 +335,83 @@ def test_dtype_picks_the_attention_block_backward_kernel(card):
 
 @pytest.mark.gpu
 def test_tensor_core_attention_block_bwd_refuses_what_it_does_not_take(card):
+    x, (ln, A, Wvo, _), eps = _operands(0, 2, 40, 4, H=128)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="H = 96 or 192"):
+        ab.backward(x, ln, A, Wvo, x, eps, 4)
     x, (ln, A, Wvo, _), eps = _operands(0, 2, 257, 4)
     x = x.bfloat16()
-    with pytest.raises(ValueError, match="T <= 256"):
-        ab.backward(x, ln, A, Wvo, x, eps, 4)
     x64 = x[:, :8, :64].contiguous()
     with pytest.raises(ValueError, match="H = 96"):
         ab.backward(x64, ln[:, :64].contiguous(), A, Wvo, x64, eps, 4)
+
+
+# The wide route: H = 192 (SpatialNet-large, NBC2-large) at 4, 2 and 3 heads, and H = 96
+# past the shared-memory kernels' 256 frames. One frame, the edges of the 16-row tiles and
+# 32-row stages, the kept scores in shared memory (T <= 352 in the backward, 384 in the
+# forward) and in device memory beyond, one sequence and a few dozen.
+WIDE_SHAPES = [(3, 1, 4, 192), (5, 17, 4, 192), (1, 33, 4, 192), (4, 255, 4, 192),
+               (3, 257, 2, 192), (2, 300, 4, 192), (2, 400, 4, 192), (2, 1001, 4, 192),
+               (37, 251, 4, 192), (4, 251, 3, 192), (2, 257, 4, 96), (3, 300, 2, 96),
+               (2, 1001, 4, 96), (5, 400, 3, 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,nh,H", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_wide_route_matches_plain(card, M, T, nh, H, dtype):
+    """Rows 1-2 on the wide route: the forward within the forward bounds of
+    ``reference`` and each cotangent within the backward bounds of
+    ``reference_bwd``; two launches give the same bits; the wide counters
+    (and in bf16 the tensor-core ones) advance."""
+    x, ops, eps = _operands(M * 1000 + T + H, M, T, nh, H)
+    g = torch.randn(M, T, H, generator=torch.Generator().manual_seed(T + H)).cuda().to(dtype)
+    x = x.to(dtype)
+    counts = (ab.wide_launches, ab.wide_tc_launches, ab.bwd_wide_launches, ab.bwd_wide_tc_launches)
+    y, y2 = (ab.attention_block(x, *ops, eps, nh) for _ in range(2))
+    got, got2 = (ab.backward(x, *ops[:3], g, eps, nh) for _ in range(2))
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (ab.wide_launches - counts[0], ab.wide_tc_launches - counts[1],
+            ab.bwd_wide_launches - counts[2], ab.bwd_wide_tc_launches - counts[3]) == (
+                2, 2 * tc, 2, 2 * tc)
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    want = ab.reference(x.float(), *ops, eps, nh)
+    ref = ab.reference_bwd(x.float(), *ops[:3], g.float(), eps, nh)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4)
+        for name, a, r in zip(BWD_NAMES, got, ref):
+            torch.testing.assert_close(a, r, atol=5e-3 * r.abs().max().item(), rtol=5e-3,
+                                       msg=name)
+        return
+    err = (y.float() - want).abs().max().item()
+    plain = (ab.reference(x, *ops, eps, nh).float() - want).abs().max().item()
+    assert np.isfinite(err) and err <= max(2 * plain, 2e-4 + 1e-4 * want.abs().max().item()), (
+        err, plain)
+    for name, a, p, r in zip(BWD_NAMES, got, ab.reference_bwd(x, *ops[:3], g, eps, nh), ref):
+        e, ep = (a.float() - r).abs().max().item(), (p.float() - r).abs().max().item()
+        assert np.isfinite(e) and e <= max(2 * ep, 5e-3 * r.abs().max().item()), (name, e, ep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,H,wide", [(40, 96, 0), (256, 96, 0), (257, 96, 1), (40, 192, 1)])
+def test_shape_and_dtype_pick_the_attention_block_route(card, T, H, wide):
+    """H = 96 with T <= 256 stays on the shared-memory kernels, H = 192 and
+    T > 256 take the wide route; bf16 lands on a tensor-core kernel and
+    float32 on a CUDA-core one, forward and backward, as the counters show."""
+    x, (ln, A, Wvo, c), eps = _operands(T + H, 2, T, 4, H)
+    for dtype in (torch.float32, torch.bfloat16):
+        tc = int(dtype == torch.bfloat16)
+        before = (ab.launches, ab.tc_launches, ab.wide_launches, ab.wide_tc_launches,
+                  ab.bwd_launches, ab.bwd_tc_launches, ab.bwd_wide_launches,
+                  ab.bwd_wide_tc_launches)
+        ab.attention_block(x.to(dtype), ln, A, Wvo, c, eps, 4)
+        ab.backward(x.to(dtype), ln, A, Wvo, x.to(dtype), eps, 4)
+        after = (ab.launches, ab.tc_launches, ab.wide_launches, ab.wide_tc_launches,
+                 ab.bwd_launches, ab.bwd_tc_launches, ab.bwd_wide_launches,
+                 ab.bwd_wide_tc_launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            1, tc, wide, wide * tc, 1, tc, wide, wide * tc)
 
 
 def _bf16_rule_on_gradients(kernel, plain, ref):
@@ -406,6 +500,65 @@ def test_spatialnet_gradients_through_kernels_match_plain_path(card, dtype):
             gp = grads[1][name]
             torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
                                        msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatialnet_large_gradients_through_the_wide_route(card, dtype):
+    """A 2-layer SpatialNet at the large widths (H 192, ffn 384, 4 heads,
+    squeeze 16; F = 9, 300 frames, past the shared-memory kernels' 256): one
+    wide forward and one wide backward launch a layer; in float32 every
+    gradient within 5e-3 x max|plain| of the plain module composition's, in
+    bf16 within the bf16 rule of it."""
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=192, dim_ffn=384,
+              num_heads=4, dim_squeeze=16, num_freqs=9)
+    gen = torch.Generator().manual_seed(0)
+    net = SpatialNet(**kw, dtype=dtype, generator=gen, device="cuda")
+    plain = SpatialNet(**kw, dtype=dtype, fused_block=False, device="cuda")
+    ref = SpatialNet(**kw, fused_block=False, device="cuda")
+    plain.load_state_dict(net.state_dict())
+    ref.load_state_dict(net.state_dict())
+    x = torch.randn(2, 9, 300, 12, generator=gen).cuda()
+    w = torch.randn(2, 9, 300, 4, generator=gen).cuda()
+    before = (ab.wide_launches, ab.bwd_wide_launches)
+    grads = _gradients(net, x, w)
+    assert (ab.wide_launches - before[0], ab.bwd_wide_launches - before[1]) == (2, 2)
+    want = _gradients(ref, x, w)
+    if dtype == torch.float32:
+        for name, r in want.items():
+            torch.testing.assert_close(grads[name], r, atol=5e-3 * r.abs().max().item(), rtol=0,
+                                       msg=name)
+    else:
+        _bf16_rule_on_gradients(grads, _gradients(plain, x, w), want)
+
+
+@pytest.mark.gpu
+def test_spatialnet_mask_or_active_dropout_takes_rows_4_5(card):
+    """With an attention mask, or in training with the attention's dropout
+    active, SpatialNet's folded block is off and its MHSA runs the
+    narrow-band attention kernels (rows 4-5), as the JAX package's runs its
+    Pallas kernel: no attention-block launch, one attention launch a layer
+    (and one backward in training)."""
+    from nbss_tpu_torch.models.spatialnet import SpatialNet
+    from nbss_tpu_torch.ops import attention as att
+
+    kw = dict(dim_input=12, dim_output=4, num_layers=2, dim_hidden=96, dim_ffn=192,
+              num_heads=4, dim_squeeze=8, num_freqs=9)
+    gen = torch.Generator().manual_seed(0)
+    net = SpatialNet(**kw, dropout=(0.1, 0.1, 0.1), dtype=torch.bfloat16, generator=gen,
+                     device="cuda")
+    x = torch.randn(2, 9, 40, 12, generator=gen).cuda()
+    mask = torch.triu(torch.ones(40, 40, dtype=torch.bool, device="cuda"), 1)
+    counts = (ab.launches, ab.bwd_launches, att.launches, att.bwd_launches)
+    with torch.no_grad():
+        y = net.eval()(x, att_mask=mask)
+    net.train()(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert tuple(a - b for a, b in zip(
+        (ab.launches, ab.bwd_launches, att.launches, att.bwd_launches), counts)) == (0, 0, 4, 2)
 
 
 # (M, T, D, N): T = 1, 7, 8, 9, 13 around the 8-frame chunk, 15, 16, 17 around half
