@@ -217,14 +217,17 @@ wide route. Forty-four phases:
     ``check_gradients.hold`` (the key biases left out: the fold drops them);
     the peak device memory and the rate;
 40. the attention block's wide route (``attention_block_wide_tc.cu`` in bf16,
-    ``attention_block_wide.cu`` in fp32) vs ``reference`` / ``reference_bwd``
-    at SpatialNet-large's shape (H=192, nh=4; the forward at M = 16*129, the
-    backward at 8*129, T=251), at M = 1 with T = 1, 17, 255, 257, 300, 1001
-    for (H, nh) = (96, 4), (192, 4), (192, 2), and at (M, T) = (4*129, 1001):
-    fp32 at the bounds of phases 3 and 6, bf16 under the bf16 rule, every
-    relaunch bit-identical, the wide counters advancing by the launches;
-    times of both directions against their plain versions, the library
-    composition and bounds, also at T = 1001 and at nh 2;
+    Hopper's ``wgmma``; ``attention_block_wide.cu`` in fp32) vs ``reference``
+    / ``reference_bwd`` at SpatialNet-large's shape (H=192, nh=4; the forward
+    at M = 16*129, the backward at 8*129, T=251), at M = 3 with the edge
+    lengths ``WIDE_EDGES`` (either side of the 32-row stages, 64-row tiles
+    and 128-row blocks, and 1001) for H = 96 and 192 at nh 4, 3 and 2, and
+    at (M, T) = (4*129, 1001): fp32 at the bounds of phases 3 and 6, bf16
+    under the bf16 rule, every relaunch bit-identical, the wide counters
+    advancing by the launches; times of both directions against their plain
+    versions, the library composition and bounds, also at T = 1001 (H 192,
+    and SpatialNet-small's H 96) and at nh 2; row 3's time, library call and
+    bound at SpatialNet-large's widths (192, 384);
 41. SpatialNet-large serving (``configs/SpatialNet.yaml`` comments: 12
     layers, H=192, ffn 384, 4 heads, squeeze 16) at B=16 in bf16 with
     ``fused_ffn`` off and on: 12 wide launches a forward, all on the
@@ -296,6 +299,12 @@ LARGE_DEPTH_CHECK = 2  # layers of its fp32 gradient check (check_gradients.hold
 B_LARGE_CHECK = 2  # batch of its fp32 kernel-vs-plain serving comparison
 DROPOUT_STEPS = 3  # training steps of the run at dropout 0.1 (the block off, rows 4-5 on)
 LONG_SECONDS, B_LONG = 16.0, 4  # offline serving of whole recordings: T = 1001 frames
+# phase 40's edge lengths of the wide route: either side of the bf16 kernels' 32-row stages,
+# 64-row tiles and 128-row blocks of two warpgroups, and whole recordings; at H = 96 the
+# wide route starts past 256 frames. M_EDGE sequences, a count no tile or block divides.
+WIDE_EDGES = {192: (1, 31, 33, 63, 64, 65, 127, 128, 129, 191, 193, 255, 256, 257, 300, 1001),
+              96: (1, 255, 257, 300, 319, 321, 383, 385, 1001)}
+M_EDGE = 3
 # NBC2-large (configs/NBC2.yaml comments): 12 layers, H 192, ffn 384, 2 heads (dh 96)
 NBC2_LARGE_CFG = dict(NBC2_CFG, n_layers=12, dim_hidden=192, dim_ffn=384)
 NBC2_LARGE_STEPS = 5
@@ -524,7 +533,7 @@ def main() -> int:
     fresh_start()
     row8["training"] = nbc_training_phases(dev)
     fresh_start()
-    row1_wide, row2_wide = large_phases(dev)
+    row1_wide, row2_wide, row3["large"] = large_phases(dev)
     rows45[0].update(wide4, **nbc2_row4)
     rows45[1].update(wide5, **nbc2_row5)
     row2.update(nbc2_row2)
@@ -1873,13 +1882,45 @@ def ffn_params(gen, H: int, FF: int, dev):
     return out
 
 
+def tconvffn_times(xb, p, G):
+    """CUDA-event times of row 3's bf16 kernel on xb, its plain version and
+    one PyTorch composition of the same function (the port never calls it),
+    with the bound of the grouped work."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbss_tpu_torch.ops import tconvffn as tc
+
+    M, T, H = xb.shape
+    FF = p["w_up"].shape[0]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: tc.tconvffn(xb, p, G), iters=10)
+        plain_ms = cuda_ms(lambda: tc.reference(xb, p, G), iters=3, warmup=1)
+        w = {k: v.to(torch.bfloat16) for k, v in p.items()}
+
+        def library():
+            z = F.silu(F.linear(F.layer_norm(xb, (H,), w["ln_scale"], w["ln_bias"]), w["w_up"],
+                                w["b_up"])).transpose(1, 2)
+            z = F.silu(F.conv1d(z, w["w_c1"], w["b_c1"], padding=1, groups=G))
+            z = F.conv1d(z, w["w_c2"], w["b_c2"], padding=1, groups=G)
+            z = F.silu(F.group_norm(z, G, w["gn_scale"], w["gn_bias"]))
+            z = F.silu(F.conv1d(z, w["w_c3"], w["b_c3"], padding=1, groups=G))
+            return F.linear(z.transpose(1, 2), w["w_down"], w["b_down"])
+
+        library_ms = cuda_ms(library, iters=10)
+    io_bytes = 2 * xb.numel() * xb.element_size() + sum(v.numel() * 2 for v in p.values())
+    ops = 2 * M * T * (2 * H * FF + 3 * 3 * FF * (FF // G))  # up, down, three grouped convs
+    bound_ms, bound_by = bound(io_bytes, ops)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": io_bytes, "ops": ops, "M": M, "T": T, "H": H, "FF": FF}
+
+
 def tconvffn_phases(dev):
     """Phases 26-29: SpatialNet-small with ``fused_ffn=True``, whose
     T-ConvFFN runs through the row-3 kernel. Returns row 3's entry of the
     ``kernels`` line."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from nbss_tpu_torch.data.synthetic import SyntheticDataset
     from nbss_tpu_torch.io.loss import Loss
@@ -2101,34 +2142,19 @@ def tconvffn_phases(dev):
 
     # 29. times
     log("phase 29/44 times (CUDA events, after warm-up)")
+    ffn = tconvffn_times(xb, p, G)
+    ffn_ms, ffn_plain_ms, ffn_library_ms = ffn["ms"], ffn["plain_ms"], ffn["library_ms"]
+    ffn_bound, ffn_by, ffn_bytes, ffn_ops = ffn["bound_ms"], ffn["bound_by"], ffn["bytes"], ffn["ops"]
     with torch.no_grad():
-        ffn_ms = cuda_ms(lambda: tc.tconvffn(xb, p, G), iters=10)
         x32 = xb.float()
         ffn_ms_fp32 = cuda_ms(lambda: tc.tconvffn(x32, p, G), iters=5)
         del x32
-        ffn_plain_ms = cuda_ms(lambda: tc.reference(xb, p, G), iters=3, warmup=1)
-        bf = torch.bfloat16
-        w = {k: v.to(bf) for k, v in p.items()}
-
-        def library():  # one PyTorch composition of the same function; the port never calls it
-            z = F.silu(F.linear(F.layer_norm(xb, (H,), w["ln_scale"], w["ln_bias"]), w["w_up"],
-                                w["b_up"])).transpose(1, 2)
-            z = F.silu(F.conv1d(z, w["w_c1"], w["b_c1"], padding=1, groups=G))
-            z = F.conv1d(z, w["w_c2"], w["b_c2"], padding=1, groups=G)
-            z = F.silu(F.group_norm(z, G, w["gn_scale"], w["gn_bias"]))
-            z = F.silu(F.conv1d(z, w["w_c3"], w["b_c3"], padding=1, groups=G))
-            return F.linear(z.transpose(1, 2), w["w_down"], w["b_down"])
-
-        ffn_library_ms = cuda_ms(library, iters=10)
         operands_ms = cuda_ms(lambda: tc._tc_operands(p, G), iters=20)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(20):
             tc._tc_operands(p, G)
         operands_host_us = (time.perf_counter() - t1) / 20 * 1e6
-    ffn_bytes = 2 * xb.numel() * xb.element_size() + sum(v.numel() * 2 for v in p.values())
-    ffn_ops = 2 * M * T * (2 * H * FF + 3 * 3 * FF * (FF // G))  # up, down, three grouped convs
-    ffn_bound, ffn_by = bound(ffn_bytes, ffn_ops)
     log(f"tconvffn bf16 M={M}: kernel {ffn_ms:.3f} ms (fp32 {ffn_ms_fp32:.3f} ms), plain "
         f"{ffn_plain_ms:.3f} ms, library (layer_norm + linear + grouped conv1d x3 + group_norm "
         f"+ linear) {ffn_library_ms:.3f} ms, bound {ffn_bound:.4f} ms ({ffn_by}: "
@@ -2923,7 +2949,7 @@ def large_phases(dev):
 
     # 40. rows 1-2 on the wide route
     log(f"phase 40/44 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
-        f"T={T} H={H} nh={nh}; T = 1 ... {T_long} at H = 96 and 192")
+        f"T={T} H={H} nh={nh}; M = {M_EDGE}, T = 1 ... {T_long} at H = 96 and 192, nh 2, 3, 4")
     counts0 = wide_counts()
     n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2951,19 +2977,21 @@ def large_phases(dev):
             f"{n} {e:.3e}" for n, e in bwd_err.items()) + "; within the bounds, relaunches "
             "bit-identical")
     edges = []
-    for layer, width, heads in ((small, 96, 4), (large, 192, 4), (large, 192, 2)):
+    for layer, width, heads in ((small, 96, 4), (small, 96, 3), (small, 96, 2), (large, 192, 4),
+                                (large, 192, 3), (large, 192, 2)):
         opse = fold_block(layer, heads)
-        for Te in (1, 17, 255, 257, 300, T_long):
+        for Te in WIDE_EDGES[width]:
             for dtype in (torch.float32, torch.bfloat16):
-                xe, ge = (torch.randn(1, Te, width, generator=gen).to(dev).to(dtype)
+                xe, ge = (torch.randn(M_EDGE, Te, width, generator=gen).to(dev).to(dtype)
                           for _ in range(2))
                 check_wide_block(f"{dtype} (H, nh, T) = {(width, heads, Te)}", xe, ge,
                                  opse[:3], opse[3], opse[4], heads)
                 n_fwd += 2 * ab.is_wide(Te, width)
                 n_bwd += 2 * ab.is_wide(Te, width)
         edges.append((width, heads))
-    log("M = 1 at T = 1, 17, 255, 257, 300, 1001 for (H, nh) in " + ", ".join(map(str, edges))
-        + ", fp32 and bf16, forward and backward: within the bounds, relaunches bit-identical")
+    log(f"M = {M_EDGE} at T = {WIDE_EDGES[192]} (H 192) and {WIDE_EDGES[96]} (H 96) for (H, nh) "
+        "in " + ", ".join(map(str, edges)) + ", fp32 and bf16, forward and backward: within the "
+        "bounds, relaunches bit-identical")
     xl = torch.randn(M_long, T_long, H, generator=gen).to(dev).to(torch.bfloat16)
     gl = torch.randn(M_long, T_long, H, generator=gen).to(dev).to(torch.bfloat16)
     errs_long = {}
@@ -2992,7 +3020,30 @@ def large_phases(dev):
     log(f"wide route at nh 2 (NBC2-large's heads of 96): forward bf16 {times_nh2['fwd_ms']:.3f} "
         f"ms, library {times_nh2['fwd_library_ms']:.3f}; backward bf16 "
         f"{times_nh2['bwd_ms']:.3f} ms, library {times_nh2['bwd_library_ms']:.3f}")
-    del xb, gb, xl, gl, large, small
+    del xl, gl
+    # SpatialNet-small's whole 16-s recordings (H 96, nh 4) take the wide route too
+    opss = fold_block(small, FLAGSHIP["num_heads"])
+    xs_long, gs_long = (torch.randn(M_long, T_long, FLAGSHIP["dim_hidden"], generator=gen).to(dev)
+                        .to(torch.bfloat16) for _ in range(2))
+    times_small = wide_block_times(small, xs_long, gs_long, opss[:3], opss[3], opss[4],
+                                   FLAGSHIP["num_heads"])
+    log(f"wide route at SpatialNet-small's 16-s shape (M={M_long}, T={T_long}, H 96, nh 4): "
+        f"forward bf16 {times_small['fwd_ms']:.3f} ms (fp32 {times_small['fwd_ms_fp32']:.3f}), "
+        f"plain {times_small['fwd_plain_ms']:.3f}, library {times_small['fwd_library_ms']:.3f}, "
+        f"bound {times_small['fwd_bound_ms']:.4f} ({times_small['fwd_bound_by']}); backward bf16 "
+        f"{times_small['bwd_ms']:.3f} ms, library {times_small['bwd_library_ms']:.3f}, bound "
+        f"{times_small['bwd_bound_ms']:.4f}")
+    del xs_long, gs_long
+    # row 3 at SpatialNet-large's widths, (H, FF) = (192, 384), at its serving shape
+    with torch.no_grad():
+        pl = {k: v.detach().to(torch.bfloat16)
+              for k, v in tconvffn.params_from_sequential(large.tconvffn).items()}
+    ffn_large = tconvffn_times(xb, pl, LARGE["conv_groups"][1])
+    log(f"tconvffn bf16 at (H, FF) = (192, 384), M={M}, T={T}: kernel {ffn_large['ms']:.3f} ms, "
+        f"plain {ffn_large['plain_ms']:.3f}, library {ffn_large['library_ms']:.3f}, bound "
+        f"{ffn_large['bound_ms']:.4f} ({ffn_large['bound_by']}: {ffn_large['bytes'] / 1e6:.0f} MB, "
+        f"{ffn_large['ops'] / 1e9:.1f} GFLOP grouped)")
+    del xb, gb, large, small, pl
     fresh_start()
     check_budget("wide route")
 
@@ -3186,7 +3237,7 @@ def large_phases(dev):
     fresh_start()
     check_budget("nbc2-large")
 
-    common = {"route": "cuda", "routes": {"bfloat16": "mma.sync bf16", "float32": "fp32 FMA"}}
+    common = {"route": "cuda", "routes": {"bfloat16": "wgmma bf16", "float32": "fp32 FMA"}}
     row1 = {"name": "attention_block_wide", **common,
             "source": "nbss_tpu_torch/csrc/attention_block_wide_tc.cu",
             "source_fp32": "nbss_tpu_torch/csrc/attention_block_wide.cu",
@@ -3199,6 +3250,7 @@ def large_phases(dev):
             "bound_by": times["fwd_bound_by"], "library_ms": times["fwd_library_ms"],
             "M": M, "T": T, "H": H, "nh": nh,
             "t1001": {k: v for k, v in times_long.items() if not k.startswith("bwd")},
+            "t1001_h96": {k: v for k, v in times_small.items() if not k.startswith("bwd")},
             "nh2": {k: v for k, v in times_nh2.items() if not k.startswith("bwd")},
             "serve_audio_s_per_s": serving[False][1],
             "serve_audio_s_per_s_fused_ffn": serving[True][1],
@@ -3219,10 +3271,12 @@ def large_phases(dev):
             "bound_by": times["bwd_bound_by"], "library_ms": times["bwd_library_ms"],
             "M": Mt, "T": T, "H": H, "nh": nh,
             "t1001": {k: v for k, v in times_long.items() if not k.startswith("fwd")},
+            "t1001_h96": {k: v for k, v in times_small.items() if not k.startswith("fwd")},
             "nh2": {k: v for k, v in times_nh2.items() if not k.startswith("fwd")},
             "train_audio_s_per_s": B_TRAIN * SECONDS / train_s, "train_peak_gib": peak,
             "nbc2_large_launches": fit2[1]}
-    return row1, row2
+    return row1, row2, {k: ffn_large[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "M", "T", "H", "FF")}
 
 
 if __name__ == "__main__":

@@ -19,10 +19,12 @@ sequence's tiles in shared memory), float32 inputs
 ``csrc/attention_block.cu`` and ``csrc/attention_block_bwd.cu`` (float32
 FMA on the CUDA cores: no tensor-core product keeps float32's digits). At
 H = 192 (SpatialNet-large, NBC2-large) and at H = 96 with T > 256 the wide
-route runs: bfloat16 through ``csrc/attention_block_wide_tc.cu`` (the
-operands as bf16 rows in device memory, the attention streaming them in
-32-row tiles), float32 through ``csrc/attention_block_wide.cu`` (float32
-products and row passes over chunks of sequences). Other widths raise
+route runs: bfloat16 through ``csrc/attention_block_wide_tc.cu`` (Hopper's
+warpgroup products, ``wgmma``, on operands that ``cp.async.bulk`` copies
+stream through ``mbarrier`` rings as swizzled 64-row tiles; t formed on the
+chip, xa and vo written to device memory once in that layout), float32
+through ``csrc/attention_block_wide.cu`` (float32 products and row passes
+over chunks of sequences). Other widths raise
 ``ValueError``. For a CPU tensor they run the plain
 PyTorch versions ``reference`` and ``reference_bwd``. The kernels replace the
 Pallas TPU kernels ``_fused_block`` (``_kernel``) and ``_fused_block_bwd``
@@ -68,7 +70,7 @@ KERNEL_H = 96  # channels the shared-memory kernels are compiled for
 KERNEL_TMAX = 256  # longest sequence they hold in shared memory
 WIDE_H = (96, 192)  # channels the wide route is compiled for (any T)
 # the wide forward's workspace holds this many bytes; longer calls go in chunks of sequences
-WIDE_TC_WORKSPACE_BYTES = 4 << 30  # bf16: the xa, t and vo rows of a chunk
+WIDE_TC_WORKSPACE_BYTES = 4 << 30  # bf16: the xa and vo tiles of a chunk
 WIDE_WORKSPACE_BYTES = 2 << 30  # float32: a chunk's rows and its [T, T] scores
 
 launches = 0  # forward kernel launches made by attention_block since import

@@ -3,6 +3,7 @@
     python3 -m nbss_tpu_torch.profile_serving
         [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm] [--large]
         [--attention 'mamba(16,4)'|'mhsa(251)'|...] [--fused-ffn]
+        [--seconds 4] [--batch 16]
 
 Serves SpatialNet-small, or OnlineSpatialNet with the time module
 ``--attention`` (default mamba(16,4), the committed run; mhsa(251) is the
@@ -16,6 +17,9 @@ H=192, ffn 384; SpatialNet's squeeze 16; ``configs/SpatialNet.yaml`` and
 ``configs/NBC2.yaml`` comments), whose blocks take the attention block's
 wide route; seeded random weights, bf16
 (``--fused-ffn``: SpatialNet's T-ConvFFN through its kernel, row 3),
+(``--seconds`` and ``--batch``: recordings of another length and count;
+``--seconds 16 --batch 4`` serves whole 16-s recordings, T = 1001, whose
+blocks take the wide route even for SpatialNet-small),
 through ``TrainModule.predict_step`` under ``torch.profiler`` for three
 steps, after two warm-up steps, and prints the device time of the 25
 costliest kernels, the port's kernels' shares and the device's busy share of
@@ -39,7 +43,7 @@ B, C, S, LAYERS = 16, 6, 32000, 8
 WIDTHS = dict(dim_input=2 * C, dim_output=4, num_layers=LAYERS, dim_hidden=96, dim_ffn=192,
               num_heads=4, dim_squeeze=8, num_freqs=129)
 # configs/NBC.yaml: 8 channels, 4 s at 16 kHz (the JAX module's rate for n_fft 512)
-NBC_C, NBC_S = 8, 64000
+NBC_C = 8
 NBC_WIDTHS = dict(dim_input=2 * NBC_C, dim_output=4, n_layers=4, encoder_kernel_size=4,
                   n_heads=8, hidden_size=192, ffn_size=384, inner_conv_kernel_size=3,
                   inner_conv_groups=8, dropout=0.1)
@@ -80,7 +84,9 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
     def counts(kernels):
         return lambda: (kernels.launches, kernels.bwd_launches)
 
-    n, keys = (LARGE_LAYERS, WIDE_KEYS) if large else (LAYERS, BLOCK_KEYS)
+    # the block's kernels of both routes: the wide one runs at H = 192 and past 256 frames
+    keys = (BLOCK_KEYS[0] + WIDE_KEYS[0], BLOCK_KEYS[1] + WIDE_KEYS[1])
+    n = LARGE_LAYERS if large else LAYERS
     if arch == "spatialnet":
         net = SpatialNet(**(LARGE_WIDTHS if large else WIDTHS), dtype=dtype, fused_ffn=fused_ffn,
                          generator=generator, device="cuda")
@@ -128,15 +134,14 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
 # the attention block's forward: attention_block_tc_kernel in bf16, attention_block_kernel in
 # fp32; its backward: attention_block_bwd_tc_* in bf16, attention_block_bwd_* in fp32
 BLOCK_KEYS = (("attention_block_tc_kernel", "attention_block_kernel"), ("attention_block_bwd",))
-# its wide route (H = 192): wide_keys / _proj / _attn in bf16 (the backward recomputes the first
-# two), wide_ln / _gemm / _softmax / _accumulate in fp32 (the backward's too); the backward's
-# own: wide_bwd_query / _key / _dxa, wide_ln_bwd, attention_block_bwd_weights / _reduce (shared
-# with the backward above), wide_ds and wide_sum in fp32
-WIDE_KEYS = (("wide_keys", "wide_proj", "wide_attn"),
-             ("wide_bwd_", "wide_ln_bwd", "attention_block_bwd_"))
+# its wide route (H = 192, or T > 256): wide_prep / wide_ln / wide_vo / wide_attn in bf16 (the
+# backward recomputes all but wide_attn), wide_ln / _gemm / _softmax / _accumulate in fp32 (the
+# backward's too); the backward's own: wide_bwd_query / _key / _dxa / _weights / _extras /
+# _reduce and wide_ln_bwd, wide_ds and wide_sum in fp32 ("wide_ln<" leaves wide_ln_bwd out)
+WIDE_KEYS = (("wide_prep", "wide_ln<", "wide_vo", "wide_attn"), ("wide_bwd_", "wide_ln_bwd"))
 
 
-def parse_args(description: str, dropout: bool = False):
+def parse_args(description: str, dropout: bool = False, serving: bool = False):
     import argparse
 
     parser = argparse.ArgumentParser(description=description)
@@ -147,6 +152,10 @@ def parse_args(description: str, dropout: bool = False):
                         help="SpatialNet only: the T-ConvFFN through its kernel (row 3)")
     parser.add_argument("--large", action="store_true",
                         help="SpatialNet-large or NBC2-large (H 192, 12 layers)")
+    if serving:
+        parser.add_argument("--seconds", type=float, default=S / 8000,
+                            help="length of each recording in seconds (16: whole recordings)")
+        parser.add_argument("--batch", type=int, default=B, help="recordings a step")
     if dropout:
         parser.add_argument("--dropout", type=float, default=None,
                             help="NBC only: its dropout (configs/NBC.yaml: 0.1; at 0 the "
@@ -179,7 +188,7 @@ def main() -> int:
 
     from nbss_tpu_torch.ops import tconvffn
 
-    args = parse_args(__doc__.splitlines()[0])
+    args = parse_args(__doc__.splitlines()[0], serving=True)
     arch = args.arch
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
@@ -190,7 +199,8 @@ def main() -> int:
                                                           attention=args.attention,
                                                           fused_ffn=args.fused_ffn,
                                                           large=args.large)
-    channels, samples, rate = (NBC_C, NBC_S, 16000) if arch == "nbc" else (C, S, 8000)
+    channels, rate = (NBC_C, 16000) if arch == "nbc" else (C, 8000)
+    samples, batch = int(args.seconds * rate), args.batch
     if arch == "online_spatialnet":
         arch = f"{arch} {args.attention}"
     if args.large:
@@ -198,7 +208,7 @@ def main() -> int:
     if args.fused_ffn:
         arch = f"{arch} fused_ffn"
     module.arch.eval()
-    wave = (0.1 * torch.randn(B, channels, samples, generator=gen)).cuda()
+    wave = (0.1 * torch.randn(batch, channels, samples, generator=gen)).cuda()
     for _ in range(2):
         module.predict_step(wave)
     torch.cuda.synchronize()
@@ -231,7 +241,7 @@ def main() -> int:
         print("profile_serving: the profiler recorded no device time", file=sys.stderr)
         return 1
     print(f"{torch.cuda.get_device_name(0)}; {arch}: {STEPS} steps of predict_step, "
-          f"B={B} x {channels} ch x {samples / rate:g} s at {rate} Hz, bf16; {per_fwd} kernel "
+          f"B={batch} x {channels} ch x {samples / rate:g} s at {rate} Hz, bf16; {per_fwd} kernel "
           f"launches a step")
     print(f"wall {wall_us / STEPS / 1e3:.2f} ms/step; device busy "
           f"{device_us / STEPS / 1e3:.2f} ms/step = {100 * device_us / wall_us:.1f}% of wall")

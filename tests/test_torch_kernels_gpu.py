@@ -35,15 +35,19 @@ they refuse dh > 256, dv > 64, H != 96 and T > 256 (the block); and a
 lie within the bf16 rule of the plain path's. The block is also held at
 NBC2-small's two heads of 48 (forward and backward, fp32 and bf16, T = 1 ...
 256 at the tiles' edges), the attention at NBC2's heads of 48 (dh = dv = 48,
-two heads, masked and not), and NBC2-large (H 192), once refused, runs on
+two heads, masked and not), and NBC2-large (H 192) runs on
 the card within the forward bounds of its plain composition.
 
 The wide route of the block (H = 192, and H = 96 past 256 frames; bf16 on
 ``attention_block_wide_tc.cu``, float32 on ``attention_block_wide.cu``) is
-held against the plain versions at one frame, the edges of its 16-row tiles
-and 32-row stages, kept scores in shared and in device memory (T up to
-1001), 4, 3 and 2 heads, with bit-identical relaunches; the counters show
-that (H, T) and the dtype pick the route; H = 128 is refused. A 2-layer
+held against the plain versions at one frame, either side of the bf16
+kernels' 32-row stages, 64-row tiles and 128-row blocks of two warpgroups
+(T = 31-33, 63-65, 127-129, 191-193, 255-257, 319-321, 383-385; an odd
+number of tiles leaves a block's second warpgroup idle), the serving length
+251 and 1001 frames (none of the scores is kept: every pass recomputes
+them, so no length changes the route through memory), 4, 3 and 2 heads, M
+odd or one, with bit-identical relaunches; the counters show that (H, T)
+and the dtype pick the route; H = 128 is refused. A 2-layer
 SpatialNet at the large widths trains through it (float32 gradients within
 5e-3 x max|plain|, bf16 within the bf16 rule), and with a mask or active
 attention dropout SpatialNet's MHSA runs rows 4-5 instead of the block.
@@ -229,11 +233,10 @@ def test_attention_block_kernels_at_two_heads(card, T, dtype):
 
 
 @pytest.mark.gpu
-def test_nbc2_large_is_refused_on_the_card(card):
-    """NBC2-large (H 192, two heads, ``configs/NBC2.yaml``), once refused at
-    H = 192, now runs on the card through the wide route of rows 1-2: one
-    wide launch a layer, and in float32 within the forward bounds of its
-    plain module composition (the name is kept from when it was refused)."""
+def test_nbc2_large_runs_through_the_wide_route(card):
+    """NBC2-large (H 192, two heads, ``configs/NBC2.yaml``) runs on the card
+    through the wide route of rows 1-2: one wide launch a layer, and in
+    float32 within the forward bounds of its plain module composition."""
     from nbss_tpu_torch.models.nbc2 import NBC2
 
     kw = dict(dim_input=12, dim_output=4, n_layers=2, dim_hidden=192, dim_ffn=384, n_heads=2,
@@ -347,13 +350,19 @@ def test_tensor_core_attention_block_bwd_refuses_what_it_does_not_take(card):
 
 
 # The wide route: H = 192 (SpatialNet-large, NBC2-large) at 4, 2 and 3 heads, and H = 96
-# past the shared-memory kernels' 256 frames. One frame, the edges of the 16-row tiles and
-# 32-row stages, the kept scores in shared memory (T <= 352 in the backward, 384 in the
-# forward) and in device memory beyond, one sequence and a few dozen.
-WIDE_SHAPES = [(3, 1, 4, 192), (5, 17, 4, 192), (1, 33, 4, 192), (4, 255, 4, 192),
+# past the shared-memory kernels' 256 frames. One frame; either side of the bf16 kernels'
+# 32-row stages, 64-row tiles and 128-row blocks (two warpgroups of 64 rows; an odd number
+# of tiles leaves the last block's second warpgroup idle); the serving length and 1001
+# frames; one sequence, odd counts and a few dozen.
+WIDE_SHAPES = [(3, 1, 4, 192), (5, 17, 4, 192), (1, 31, 4, 192), (3, 32, 2, 192),
+               (1, 33, 4, 192), (3, 63, 4, 192), (2, 64, 3, 192), (5, 65, 4, 192),
+               (3, 127, 2, 192), (2, 128, 4, 192), (3, 129, 3, 192), (3, 191, 4, 192),
+               (1, 192, 2, 192), (3, 193, 4, 192), (4, 255, 4, 192), (3, 256, 2, 192),
                (3, 257, 2, 192), (2, 300, 4, 192), (2, 400, 4, 192), (2, 1001, 4, 192),
-               (37, 251, 4, 192), (4, 251, 3, 192), (2, 257, 4, 96), (3, 300, 2, 96),
-               (2, 1001, 4, 96), (5, 400, 3, 96)]
+               (3, 1001, 2, 192), (37, 251, 4, 192), (4, 251, 3, 192), (2, 257, 4, 96),
+               (3, 300, 2, 96), (3, 319, 4, 96), (1, 320, 3, 96), (3, 321, 4, 96),
+               (2, 383, 2, 96), (1, 384, 4, 96), (3, 385, 3, 96), (2, 1001, 4, 96),
+               (5, 400, 3, 96)]
 
 
 @pytest.mark.gpu
