@@ -16,7 +16,10 @@ whose T-ConvFFN runs through its kernel; then NBC2-small (``configs/NBC2.yaml``)
 through the attention-block kernels at two heads, NB-BLSTM, the NBSS
 wrapper, and NBC training; then SpatialNet-large (12 layers, H=192, 4
 heads), whole 16-s recordings and NBC2-large through the attention block's
-wide route. Forty-four phases:
+wide route; then the selective scan at state sizes above 16 and
+OnlineSpatialNet as ``configs/onlineSpatialNet.yaml`` builds it: mamba(64,4),
+mamba(16,4) with ``remat_policy='dots'``, and the retention branch
+``ret(2,share_qk)``. Forty-nine phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -241,7 +244,34 @@ wide route. Forty-four phases:
     trained weights held by ``check_gradients.hold``; 3 steps at dropout
     (0.1, 0.1, 0.1), where the block is off and rows 4-5 run at dh 48;
 44. NBC2-large (12 layers, H=192, 2 heads): serving at B=16 through the wide
-    route, fp32 vs plain at B=2 >= 50 dB, and 5 training steps at B=8.
+    route, fp32 vs plain at B=2 >= 50 dB, and 5 training steps at B=8;
+45. rows 6-7 at N = 17, 32, 64 and 128 (passes over groups of 16 states),
+    the forward at the serving shape (M = 16*129) and the backward at the
+    training shape (M = 8*129), T = 251, D = 192: fp32 and bf16 under the
+    rules of phases 10-11, every relaunch bit-identical, one counted launch
+    a call;
+46. their times at N = 32 and 64 and again at N = 16 (the single pass,
+    beside phase 15's reading), against their plain versions and bounds
+    (the larger of the bytes and the exponentials' floor at 16 an SM a
+    clock);
+47. OnlineSpatialNet mamba(64,4): serving at B=16 through ``predict_step``
+    (16 scan launches a forward) and 5 training steps at B=8 with remat
+    (``dots``; 32 + 16 launches a step), rates and peak memory;
+48. mamba(16,4) with ``remat_policy='dots'`` (the config as written): a
+    20-step fit (falling loss, 32 + 16 launches a step: the recompute runs
+    the scan again); fp32 gradients of ``dots`` held by
+    ``check_gradients.hold`` against full recomputation and the plain scan
+    in a float64 arch; the rate and peak memory of full recomputation and
+    ``dots`` in turns;
+49. OnlineSpatialNet ret(2,share_qk) (decays 4, 5, 9, 10; no kernel of the
+    port: the retention's products are plain PyTorch, as they are plain XLA
+    in the JAX package): serving at B=16 in bf16, bf16 vs fp32 SI-SDR
+    reported; ``forward_streaming`` at B=4 against ``forward(inference=True)``
+    with ``chunkwise_recurrent=False`` (fp32 >= 50 dB; against the chunkwise
+    forward reported); a 20-step fit at B=8 with ``dots`` (falling loss);
+    fp32 gradients of ``dots`` held by ``check_gradients.hold`` against
+    ``remat=False`` and a float64 arch; serving, streaming and training
+    rates and peak memory.
 
 Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -308,6 +338,13 @@ M_EDGE = 3
 # NBC2-large (configs/NBC2.yaml comments): 12 layers, H 192, ffn 384, 2 heads (dh 96)
 NBC2_LARGE_CFG = dict(NBC2_CFG, n_layers=12, dim_hidden=192, dim_ffn=384)
 NBC2_LARGE_STEPS = 5
+# rows 6-7 at state sizes above 16 (passes of 16 states; 17 pads its second group), the two
+# timed beside N = 16, and OnlineSpatialNet at mamba(64,4) for WIDE_N_STEPS training steps
+SCAN_N, SCAN_TIMED_N = (17, 32, 64, 128), (32, 64)
+MAMBA_WIDE_N, WIDE_N_STEPS = 64, 5
+# configs/onlineSpatialNet.yaml's retention alternative, its decays as YAML gives them
+RET = dict(FLAGSHIP, attention="ret(2,share_qk)", decay=[4, 5, 9, 10])
+T_FRAMES = int(SECONDS * FS) // 128 + 1
 
 
 def log(msg: str) -> None:
@@ -360,7 +397,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/44 device")
+    log("phase 1/49 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -368,7 +405,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/44 build (plain nvcc, sm_90a)")
+    log("phase 2/49 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -378,7 +415,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/44 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/49 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -430,7 +467,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/44 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/49 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -471,7 +508,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/44 times (CUDA events, after warm-up)")
+    log("phase 5/49 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -534,6 +571,10 @@ def main() -> int:
     row8["training"] = nbc_training_phases(dev)
     fresh_start()
     row1_wide, row2_wide, row3["large"] = large_phases(dev)
+    fresh_start()
+    scan_n_phases(dev, rows67)
+    fresh_start()
+    rows67[0]["online_models"] = {**online_n_phases(dev), "ret_2_share_qk": retention_phase(dev)}
     rows45[0].update(wide4, **nbc2_row4)
     rows45[1].update(wide5, **nbc2_row5)
     row2.update(nbc2_row2)
@@ -614,7 +655,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/44 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/49 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -678,7 +719,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/44 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/49 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     ab.wide_launches = ab.bwd_wide_launches = 0
@@ -710,7 +751,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/44 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/49 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -719,7 +760,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/44 times (CUDA events, after warm-up)")
+    log("phase 9/49 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -830,7 +871,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/44 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/49 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -865,7 +906,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/44 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/49 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -896,7 +937,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/44 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/49 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -933,7 +974,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/44 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/49 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -954,7 +995,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/44 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/49 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1013,7 +1054,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/44 times (CUDA events, after warm-up)")
+    log("phase 15/49 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1152,7 +1193,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/44 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/49 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1210,7 +1251,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/44 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/49 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1268,7 +1309,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/44 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/49 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1307,7 +1348,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/44 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/49 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1329,7 +1370,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/44 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/49 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1393,7 +1434,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/44 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/49 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1540,7 +1581,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/44 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/49 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1622,7 +1663,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/44 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/49 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1683,7 +1724,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/44 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/49 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1732,7 +1773,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/44 times (CUDA events, after warm-up)")
+    log("phase 25/49 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -1953,7 +1994,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/44 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/49 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -2034,7 +2075,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/44 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/49 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2079,7 +2120,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/44 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/49 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -2141,7 +2182,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/44 times (CUDA events, after warm-up)")
+    log("phase 29/49 times (CUDA events, after warm-up)")
     ffn = tconvffn_times(xb, p, G)
     ffn_ms, ffn_plain_ms, ffn_library_ms = ffn["ms"], ffn["plain_ms"], ffn["library_ms"]
     ffn_bound, ffn_by, ffn_bytes, ffn_ops = ffn["bound_ms"], ffn["bound_by"], ffn["bytes"], ffn["ops"]
@@ -2330,7 +2371,7 @@ def nbc2_phases(dev):
     ops = (ln, A, Wvo)
 
     # 30. rows 1-2 at nh 2
-    log(f"phase 30/44 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+    log(f"phase 30/49 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh} (dh {dh})")
     tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2439,7 +2480,7 @@ def nbc2_phases(dev):
     # 31. rows 4-5 at dh = dv = 48
     Ma = 2 * n_freq
     causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
-    log(f"phase 31/44 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+    log(f"phase 31/49 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
         f"dh=dv={dh}, no mask and causal")
     tc0, btc0 = att.tc_launches, att.bwd_tc_launches
     att_errs = {}
@@ -2523,7 +2564,7 @@ def nbc2_phases(dev):
     check_budget("attention at dh 48")
 
     # 32. serving
-    log(f"phase 32/44 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 32/49 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2566,7 +2607,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 serving")
 
     # 33. training
-    log(f"phase 33/44 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 33/49 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2592,7 +2633,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 training")
 
     # 34. rates
-    log("phase 34/44 NBC2-small rates")
+    log("phase 34/49 NBC2-small rates")
     serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
     torch.cuda.reset_peak_memory_stats()
     train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
@@ -2647,7 +2688,7 @@ def blstm_phases(dev):
                 + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
 
     # 35. serving
-    log(f"phase 35/44 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+    log(f"phase 35/49 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
         f"ch, {SECONDS:g} s, bf16 and fp32")
     gen = torch.Generator().manual_seed(8)
     net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -2685,7 +2726,7 @@ def blstm_phases(dev):
     check_budget("nb-blstm serving")
 
     # 36. training
-    log(f"phase 36/44 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 36/49 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2712,7 +2753,7 @@ def nbss_phase(dev):
     from nbss_tpu_torch.models.nbss import NBSS
     from nbss_tpu_torch.ops import attention_block as ab
 
-    log(f"phase 37/44 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+    log(f"phase 37/49 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
         "B=2): one forward for each arch in fp32 and bf16")
     gen = torch.Generator().manual_seed(9)
     wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
@@ -2759,7 +2800,7 @@ def nbc_training_phases(dev):
     out = {}
     for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
         bsz = NBC_B_TRAIN[dropout]
-        log(f"phase {phase}/44 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
+        log(f"phase {phase}/49 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
             f"SyntheticDataset items ({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for "
             f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, bf16")
         batch = fixed_batch(bsz, NBC_CHANNELS, NBC_FS)
@@ -2948,7 +2989,7 @@ def large_phases(dev):
     ops = (ln, A, Wvo)
 
     # 40. rows 1-2 on the wide route
-    log(f"phase 40/44 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
+    log(f"phase 40/49 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh}; M = {M_EDGE}, T = 1 ... {T_long} at H = 96 and 192, nh 2, 3, 4")
     counts0 = wide_counts()
     n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
@@ -3048,7 +3089,7 @@ def large_phases(dev):
     check_budget("wide route")
 
     # 41. SpatialNet-large serving, fused_ffn off and on
-    log(f"phase 41/44 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 41/49 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16, fused_ffn off and on")
     net = SpatialNet(**LARGE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -3095,7 +3136,7 @@ def large_phases(dev):
     check_budget("spatialnet-large serving")
 
     # 42. long utterances: 16 s, T = 1001
-    log(f"phase 42/44 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
+    log(f"phase 42/49 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
         f"{LONG_SECONDS:g} s (T = {T_long}), bf16, through the wide route")
     wave_long = (0.1 * torch.randn(B_LONG, CHANNELS, int(LONG_SECONDS * FS), generator=gen)).to(dev)
     long_rates, long_sdrs = {}, {}
@@ -3133,7 +3174,7 @@ def large_phases(dev):
     check_budget("long-utterance serving")
 
     # 43. SpatialNet-large training
-    log(f"phase 43/44 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 43/49 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"for {TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -3191,7 +3232,7 @@ def large_phases(dev):
 
     # 44. NBC2-large
     nl2 = NBC2_LARGE_CFG["n_layers"]
-    log(f"phase 44/44 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
+    log(f"phase 44/49 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
         f"{NBC2_LARGE_CFG['n_heads']} heads, {nl2} layers): serving B={B} and "
         f"{NBC2_LARGE_STEPS} training steps at B={B_TRAIN}, bf16")
     net2 = NBC2(**NBC2_LARGE_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3277,6 +3318,368 @@ def large_phases(dev):
             "nbc2_large_launches": fit2[1]}
     return row1, row2, {k: ffn_large[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "M", "T", "H", "FF")}
+
+
+def scan_n_phases(dev, rows67):
+    """Phases 45-46: rows 6-7 at state sizes above 16, which run in passes
+    over groups of 16 states (N = 17 pads its second group), at the serving
+    shape (forward) and the training shape (backward). Adds what they were
+    checked at and their times to the two rows of the ``kernels`` line."""
+    import torch
+
+    from nbss_tpu_torch.ops import ssm
+
+    T = int(SECONDS * FS) // 128 + 1
+    Dm = 2 * ONLINE["dim_hidden"]
+    M_serve, M_train = B * ONLINE["num_freqs"], B_TRAIN * ONLINE["num_freqs"]
+    names = ("gx", "gdt", "gA", "gB", "gC", "gD")
+    gen = torch.Generator().manual_seed(45)
+
+    def bf16(ins):
+        return [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins)]
+
+    # 45. kernels vs plain
+    log(f"phase 45/49 selective_scan and its backward at N = {SCAN_N} (passes of "
+        f"{ssm.STATE_GROUP} states) vs plain: forward at M={M_serve}, backward at M={M_train}, "
+        f"T={T}, D={Dm}")
+    checked = {}
+    for N in SCAN_N:
+        ins, gy = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
+        ssm.launches = 0
+        y = ssm.selective_scan(*ins)
+        torch.cuda.synchronize()
+        want = ssm.reference(*ins)
+        e32 = (y - want).abs().max().item()
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=1e-4, msg=f"fp32 scan N={N}")
+        insb = bf16(ins)
+        want = ssm.reference(*[t.float() for t in insb])
+        yb = ssm.selective_scan(*insb)
+        relaunched(f"bf16 scan N={N}", [yb], [ssm.selective_scan(*insb)])
+        ebf, = bf16_rule(f"bf16 scan N={N}", [yb], [want], [ssm.reference(*insb)], 2e-4, 1e-4)
+        if ssm.launches != 3:
+            raise AssertionError(f"scan N={N}: {ssm.launches} kernel calls, expected 3")
+        del y, yb, want, insb, ins, gy
+        ins, gy = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
+        ssm.bwd_launches = 0
+        _, hb = ssm.forward(*ins, boundaries=True)
+        got = ssm.backward(*ins, hb, gy)
+        relaunched(f"fp32 scan backward N={N}", got, ssm.backward(*ins, hb, gy))
+        want = ssm.reference_bwd(*ins, gy)
+        b32 = {}
+        for name, a, w in zip(names, got, want):
+            b32[name] = (a - w).abs().max().item()
+            torch.testing.assert_close(a, w, atol=5e-3 * w.abs().max().item(), rtol=5e-3,
+                                       msg=f"fp32 scan backward N={N} {name}")
+        del got, want, hb
+        insb, gyb = bf16(ins), gy.to(torch.bfloat16)
+        _, hb = ssm.forward(*insb, boundaries=True)
+        got = ssm.backward(*insb, hb, gyb)
+        relaunched(f"bf16 scan backward N={N}", got, ssm.backward(*insb, hb, gyb))
+        want = ssm.reference_bwd(*[t.float() for t in insb], gyb.float())
+        plain = ssm.reference_bwd(*insb, gyb)
+        bbf = {}
+        for name, a, p_, w in zip(names, got, plain, want):
+            e, ep = (a.float() - w).abs().max().item(), (p_.float() - w).abs().max().item()
+            if not e <= max(2 * ep, 5e-3 * w.abs().max().item()):
+                raise AssertionError(f"bf16 scan backward N={N} {name}: error {e} exceeds "
+                                     f"max(2 x {ep}, 5e-3 x max|plain|)")
+            bbf[name] = e
+        if ssm.bwd_launches != 4:
+            raise AssertionError(f"scan backward N={N}: {ssm.bwd_launches} kernel calls, "
+                                 "expected 4")
+        del got, want, plain, hb, ins, gy, insb, gyb
+        torch.cuda.empty_cache()
+        checked[N] = {"fwd_err_fp32": e32, "fwd_err_bf16": ebf, "bwd_err_fp32": b32,
+                      "bwd_err_bf16": bbf}
+        log(f"N={N}: forward fp32 {e32:.2e}, bf16 {ebf:.4f}; backward fp32 worst "
+            f"{max(b32.values()):.2e}, bf16 worst {max(bbf.values()):.3e}; fp32 and bf16 "
+            "relaunches bit-identical: ok")
+    check_budget("scan at any N")
+
+    # 46. times
+    log(f"phase 46/49 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
+        "bf16, after warm-up)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               timeout=60, check=True).stdout.split()[0])
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    times = {}
+    for N in (16, *SCAN_TIMED_N):
+        insb, gyb = scan_inputs(gen, M_serve, T, Dm, N, torch.bfloat16, dev)
+        fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=10)
+        fwd_plain_ms = (cuda_ms(lambda: ssm.reference(*insb), iters=1, warmup=1)
+                        if N != 16 else None)
+        elems = M_serve * T * Dm * N
+        fwd_bytes = nbytes(insb) + nbytes(insb[:1])  # inputs read once, y written once
+        fwd_ops = 7 * elems + 3 * M_serve * T * Dm
+        fwd_exp = elems / (16 * sms * mhz * 1e6) * 1e3  # exp(dt A), 16 an SM a clock
+        del insb, gyb
+        insb, gyb = scan_inputs(gen, M_train, T, Dm, N, torch.bfloat16, dev)
+        _, hb = ssm.forward(*insb, boundaries=True)
+        bwd_ms = cuda_ms(lambda: ssm.backward(*insb, hb, gyb), iters=5)
+        bwd_plain_ms = (cuda_ms(lambda: ssm.reference_bwd(*insb, gyb), iters=1, warmup=0)
+                        if N != 16 else None)
+        elems_t = M_train * T * Dm * N
+        bwd_bytes = 2 * nbytes(insb) + nbytes([gyb, hb])
+        bwd_ops = 22 * elems_t + 6 * M_train * T * Dm
+        bwd_exp = 2 * elems_t / (16 * sms * mhz * 1e6) * 1e3  # the recompute and the walk back
+        del insb, gyb, hb
+        torch.cuda.empty_cache()
+        fb, fb_by = bound(fwd_bytes, fwd_ops, FP32_FLOP_PER_S)
+        bb, bb_by = bound(bwd_bytes, bwd_ops, FP32_FLOP_PER_S)
+        t = {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+             "fwd_bound_ms": max(fb, fwd_exp), "fwd_bound_by": "operations"
+             if fwd_exp > fb or fb_by == "operations" else "bytes",
+             "fwd_exp_floor_ms": fwd_exp, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+             "bwd_bound_ms": max(bb, bwd_exp), "bwd_bound_by": "operations"
+             if bwd_exp > bb or bb_by == "operations" else "bytes",
+             "bwd_exp_floor_ms": bwd_exp, "fwd_mb": fwd_bytes / 1e6, "bwd_mb": bwd_bytes / 1e6}
+        times[N] = t
+        log(f"N={N}: forward {fwd_ms:.3f} ms (plain {fwd_plain_ms}), bound "
+            f"{t['fwd_bound_ms']:.4f} ms ({t['fwd_bound_by']}: {fwd_bytes / 1e6:.0f} MB, "
+            f"{fwd_exp:.4f} ms of exps); backward {bwd_ms:.3f} ms (plain {bwd_plain_ms}), "
+            f"bound {t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']}: {bwd_bytes / 1e6:.0f} MB, "
+            f"{bwd_exp:.4f} ms of exps)")
+    log(f"N=16, the single pass: forward {times[16]['fwd_ms']:.3f} ms, backward "
+        f"{times[16]['bwd_ms']:.3f} ms; phase 15 read {rows67[0]['ms']:.3f} / "
+        f"{rows67[1]['ms']:.3f} ms")
+    check_budget("scan times at any N")
+    for row, key in ((rows67[0], "fwd"), (rows67[1], "bwd")):
+        row["checked_n"] = [4, 8, 16, *SCAN_N]  # phases 10-11 at N <= 16, 45 above
+        row["n_checked"] = {N: {k: v for k, v in c.items() if k.startswith(key)}
+                            for N, c in checked.items()}
+        row["n_times"] = {N: {k[4:]: v for k, v in t.items() if k.startswith(key)}
+                          for N, t in times.items()}
+
+
+def _online_module(net):
+    """OnlineSpatialNet's task: 6 channels, STFT 256/128, online utterance
+    norm, neg-SNR with PIT."""
+    from nbss_tpu_torch.io.loss import Loss
+    from nbss_tpu_torch.io.norm import Norm
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.train.module import TrainModule
+
+    return TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
+                       stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="utterance", online=True),
+                       loss=Loss(name="neg_snr", pit=True))
+
+
+def online_trainer(module, dev, losses):
+    """The config's optimizer: AdamW (1e-3, weight decay 1e-3), clip 5, seed 2."""
+    from nbss_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(module, optimizer=("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}),
+                      gradient_clip_val=5.0, seed=2, device=dev,
+                      logger=lambda k, v, _: losses.append(v) if k.startswith("train/") else None)
+    trainer.init()
+    return trainer
+
+
+def online_n_phases(dev):
+    """Phases 47-48: OnlineSpatialNet mamba(64,4) serving and training, and
+    mamba(16,4) with remat_policy='dots' as configs/onlineSpatialNet.yaml
+    sets it. Returns their rates."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch import check_gradients
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.ops import ssm
+
+    gen = torch.Generator().manual_seed(47)
+    n_layers = ONLINE["num_layers"]
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    batch = fixed_batch(B_TRAIN, CHANNELS, FS)
+    rates = {}
+
+    # 47. mamba(64,4)
+    cfg = dict(FLAGSHIP, attention=f"mamba({MAMBA_WIDE_N},4)")
+    log(f"phase 47/49 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
+        f"{WIDE_N_STEPS} training steps at B={B_TRAIN} (remat, dots), bf16")
+    module = _online_module(OnlineSpatialNet(**cfg, dtype=torch.bfloat16, generator=gen,
+                                             device=dev).eval())
+    ssm.launches = ssm.bwd_launches = 0
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave)
+    torch.cuda.synchronize()
+    served = (ssm.launches, ssm.bwd_launches)
+    check_outputs((("forward", yr_hat), ("predict_step", pred)), (B, 2, wave.shape[-1]))
+    if served != (4 * n_layers, 0):
+        raise AssertionError(f"mamba(64,4) serving: scan launches {served}, expected "
+                             f"({4 * n_layers}, 0)")
+    serve_s = seconds_per_call(lambda: module.predict_step(wave), 3)
+    del module, yr_hat, pred
+    fresh_start()
+    losses = []
+    trainer = online_trainer(_online_module(OnlineSpatialNet(
+        **cfg, dtype=torch.bfloat16, remat=True, remat_policy="dots", device=dev)), dev, losses)
+    torch.cuda.reset_peak_memory_stats()
+    ssm.launches = ssm.bwd_launches = 0
+    trainer.fit([batch], max_epochs=WIDE_N_STEPS)
+    torch.cuda.synchronize()
+    fit = (ssm.launches, ssm.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_s = seconds_per_call(lambda: trainer.train_step(batch), 2)
+    rates["mamba64"] = {"serve_audio_s_per_s": B * SECONDS / serve_s,
+                        "train_audio_s_per_s": B_TRAIN * SECONDS / train_s,
+                        "train_peak_gib": peak, "launches": served[0], "fit_launches": fit}
+    log(f"serving: {served[0]} scan launches in two forwards, predict_step in "
+        f"{serve_s * 1e3:.1f} ms = {B * SECONDS / serve_s:.1f} audio-s/s; training: losses "
+        f"{', '.join(f'{v:.3f}' for v in losses)}; {fit[0]} + {fit[1]} scan launches; "
+        f"train_step in {train_s * 1e3:.1f} ms = {B_TRAIN * SECONDS / train_s:.1f} audio-s/s "
+        f"trained; peak memory {peak:.1f} GiB")
+    want = (WIDE_N_STEPS * 4 * n_layers, WIDE_N_STEPS * 2 * n_layers)
+    if fit != want or len(losses) != WIDE_N_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"mamba(64,4) training: launches {fit}, expected {want}; "
+                             f"losses {losses}")
+    del trainer
+    fresh_start()
+    check_budget("mamba(64,4)")
+
+    # 48. mamba(16,4), remat_policy='dots'
+    log(f"phase 48/49 OnlineSpatialNet {ONLINE['attention']} with remat_policy='dots': "
+        f"{TRAIN_STEPS}-step fit at B={B_TRAIN}, fp32 gradients against full recomputation, "
+        "rates and peak memory of both policies in turns")
+    losses = []
+    trainer = online_trainer(_online_module(OnlineSpatialNet(
+        **ONLINE, dtype=torch.bfloat16, remat=True, remat_policy="dots", device=dev)), dev,
+        losses)
+    ssm.launches = ssm.bwd_launches = 0
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit = (ssm.launches, ssm.bwd_launches)
+    check_losses(losses)
+    want = (TRAIN_STEPS * 4 * n_layers, TRAIN_STEPS * 2 * n_layers)
+    if fit != want:
+        raise AssertionError(f"dots training: scan launches {fit}, expected {want} (the "
+                             "recompute runs the scan again)")
+    log(f"scan launches {fit[0]} + {fit[1]} in {TRAIN_STEPS} steps (16 + 16 recomputed, 16 "
+        "backward a step)")
+    grads = check_gradients.gradients(
+        trainer.module, trainer.to_device(batch), ONLINE, dev, arch_cls=OnlineSpatialNet,
+        kernel=dict(remat=True, remat_policy="dots"), plain=dict(remat=True),
+        plain64=dict(remat=True, fused_scan=False, dtype=torch.float64))
+    log("dots (kernel) vs full recomputation (plain32) and the plain scan in a float64 arch "
+        "(plain64): " + check_gradients.hold(grads))
+    del grads
+    torch.cuda.empty_cache()
+    arch = trainer.module.arch
+    turns = []
+    for policy in (None, "dots", "dots", None):
+        arch.remat_policy = policy
+        torch.cuda.reset_peak_memory_stats()
+        step_s = seconds_per_call(lambda: trainer.train_step(batch), 3)
+        turns.append((policy, B_TRAIN * SECONDS / step_s,
+                      torch.cuda.max_memory_allocated() / 2 ** 30))
+    arch.remat_policy = "dots"
+    log("rates in turns: " + "; ".join(f"{p or 'full'} {r:.1f} audio-s/s trained, peak "
+                                       f"{g:.1f} GiB" for p, r, g in turns))
+    rates["mamba16_remat"] = {p or "full": {"train_audio_s_per_s": [r for q, r, _ in turns
+                                                                     if q == p],
+                                            "train_peak_gib": max(g for q, _, g in turns
+                                                                  if q == p)}
+                              for p in (None, "dots")}
+    del trainer, arch
+    fresh_start()
+    check_budget("dots")
+    return rates
+
+
+def retention_phase(dev):
+    """Phase 49: OnlineSpatialNet ret(2,share_qk) (configs/onlineSpatialNet.yaml's
+    alternative, decays 4, 5, 9, 10): serving, streaming, training with
+    remat_policy='dots', gradients. No kernel of the port runs: the
+    retention's products are plain PyTorch, as they are plain XLA in the JAX
+    package. Returns its rates."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch import check_gradients
+    from nbss_tpu_torch.models.online_spatialnet import OnlineSpatialNet
+    from nbss_tpu_torch.ops.metrics import si_sdr
+
+    gen = torch.Generator().manual_seed(49)
+    log(f"phase 49/49 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
+        f"streaming B={B_STREAM}, {TRAIN_STEPS}-step fit at B={B_TRAIN} with "
+        "remat_policy='dots', fp32 gradients")
+    net = OnlineSpatialNet(**RET, dtype=torch.bfloat16, generator=gen, device=dev).eval()
+    module = _online_module(net)
+    wave = (0.1 * torch.randn(B, CHANNELS, int(SECONDS * FS), generator=gen)).to(dev)
+    yr_hat, _ = module.forward(wave)
+    pred = module.predict_step(wave)
+    torch.cuda.synchronize()
+    check_outputs((("forward", yr_hat), ("predict_step", pred)), (B, 2, wave.shape[-1]))
+    serve_s = seconds_per_call(lambda: module.predict_step(wave), 3)
+    net32 = OnlineSpatialNet(**RET, device=dev).eval()
+    net32.load_state_dict(net.state_dict())
+    y32, _ = _online_module(net32).forward(wave)
+    sdr_bf16 = si_sdr(yr_hat, y32).min().item()
+    log(f"serving: finite [{B}, 2, {wave.shape[-1]}]; predict_step in {serve_s * 1e3:.1f} ms = "
+        f"{B * SECONDS / serve_s:.1f} audio-s/s; bf16 vs fp32 (chunkwise) min SI-SDR "
+        f"{sdr_bf16:.1f} dB (reported)")
+    del yr_hat, pred
+
+    # streaming: the O(1)-state recurrence, frame by frame
+    wave_s = wave[:B_STREAM].contiguous()
+    stream = {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        rec = OnlineSpatialNet(**RET, chunkwise_recurrent=False, dtype=dtype, device=dev).eval()
+        rec.load_state_dict(net.state_dict())
+        m = _online_module(rec)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_str, _ = m.forward_streaming(wave_s)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        y_rec, _ = _online_module(lambda X, arch=rec: arch(X, inference=True)).forward(wave_s)
+        y_chunk, _ = _online_module(net32 if dtype is None else net).forward(wave_s)
+        if not torch.isfinite(y_str).all():
+            raise AssertionError(f"{label} streaming output is not finite")
+        stream[label] = (si_sdr(y_str, y_rec).min().item(), si_sdr(y_str, y_chunk).min().item(),
+                         B_STREAM * SECONDS / seconds)
+        log(f"{label}: streaming vs forward(inference=True) min SI-SDR {stream[label][0]:.1f} dB, "
+            f"vs the chunkwise forward {stream[label][1]:.1f} dB (reported); {T_FRAMES} frames "
+            f"in {seconds:.2f} s = {stream[label][2]:.2f} audio-s/s")
+        del rec, m, y_str, y_rec, y_chunk
+    if not stream["fp32"][0] >= 50.0:
+        raise AssertionError(f"fp32 streaming vs the recurrent forward SI-SDR "
+                             f"{stream['fp32'][0]:.1f} dB < 50")
+    del net, net32, module
+    fresh_start()
+    check_budget("retention serving")
+
+    batch = fixed_batch(B_TRAIN, CHANNELS, FS)
+    losses = []
+    trainer = online_trainer(_online_module(OnlineSpatialNet(
+        **RET, dtype=torch.bfloat16, remat=True, remat_policy="dots", device=dev)), dev, losses)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit([batch], max_epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_losses(losses)
+    train_s = seconds_per_call(lambda: trainer.train_step(batch), 3)
+    log(f"training: train_step in {train_s * 1e3:.1f} ms = {B_TRAIN * SECONDS / train_s:.1f} "
+        f"audio-s/s trained; peak memory {peak:.1f} GiB")
+    grads = check_gradients.gradients(
+        trainer.module, trainer.to_device(batch), RET, dev, arch_cls=OnlineSpatialNet,
+        kernel=dict(remat=True, remat_policy="dots"), plain=dict(remat=False),
+        plain64=dict(remat=True, dtype=torch.float64), parts32=2)
+    log("dots (kernel) vs remat=False (plain32) and a float64 arch (plain64): "
+        + check_gradients.hold(grads))
+    del grads, trainer
+    fresh_start()
+    check_budget("retention training")
+    return {"serve_audio_s_per_s": B * SECONDS / serve_s, "serve_sdr_db_bf16_vs_fp32": sdr_bf16,
+            "stream_audio_s_per_s_fp32": stream["fp32"][2],
+            "stream_audio_s_per_s_bf16": stream["bf16"][2],
+            "stream_sdr_db_fp32": stream["fp32"][0], "stream_sdr_db_bf16": stream["bf16"][0],
+            "stream_vs_chunkwise_sdr_db_fp32": stream["fp32"][1],
+            "train_audio_s_per_s": B_TRAIN * SECONDS / train_s, "train_peak_gib": peak}
 
 
 if __name__ == "__main__":

@@ -31,27 +31,30 @@ B, CHANNELS, SECONDS, FS, STEPS = 8, 6, 4.0, 8000, 20
 
 
 def gradients(module, batch, arch_kwargs: dict, device, parts64: int = 4, arch_cls=None,
-              plain: Optional[dict] = None, parts32: int = 1) -> dict:
+              plain: Optional[dict] = None, parts32: int = 1, kernel: Optional[dict] = None,
+              plain64: Optional[dict] = None) -> dict:
     """One batch's parameter gradients from ``module.arch``'s state dict,
-    as float64, under the keys ``kernel`` (``arch_cls`` with
-    ``fused_block``), ``plain32`` (built with ``plain``) and ``plain64``
-    (with ``plain``, its arch in float64); the batch mean is taken in
-    ``parts32`` parts in float32 and ``parts64`` in float64, to bound the
-    attention's memory. ``arch_cls`` is
-    SpatialNet unless given, built from ``arch_kwargs``; ``plain`` is
-    ``{"fused_block": False}`` unless given. A parameter that gets no
-    gradient gets zeros. ``batch`` is on ``device``."""
+    as float64, under the keys ``kernel`` (``arch_cls`` built with
+    ``kernel``), ``plain32`` (built with ``plain``) and ``plain64`` (with
+    ``plain64``); the batch mean is taken in ``parts32`` parts in float32
+    and ``parts64`` in float64, to bound the attention's memory.
+    ``arch_cls`` is SpatialNet unless given, built from ``arch_kwargs``;
+    ``kernel`` is ``{"fused_block": True}``, ``plain`` ``{"fused_block":
+    False}`` and ``plain64`` ``plain`` with its arch in float64 unless given.
+    A parameter that gets no gradient gets zeros. ``batch`` is on
+    ``device``."""
     import torch
 
     from nbss_tpu_torch.models.spatialnet import SpatialNet
     from nbss_tpu_torch.train.module import TrainModule
 
     arch_cls = arch_cls or SpatialNet
-    plain = plain or dict(fused_block=False)
+    plain = plain if plain is not None else dict(fused_block=False)
+    kernel = kernel if kernel is not None else dict(fused_block=True)
+    plain64 = plain64 if plain64 is not None else dict(plain, dtype=torch.float64)
     n, grads = len(batch[0]), {}
-    for key, kw, parts in (("kernel", dict(fused_block=True), parts32),
-                           ("plain32", plain, parts32),
-                           ("plain64", dict(plain, dtype=torch.float64), parts64)):
+    for key, kw, parts in (("kernel", kernel, parts32), ("plain32", plain, parts32),
+                           ("plain64", plain64, parts64)):
         net = arch_cls(**arch_kwargs, **kw, device=device)
         net.load_state_dict(module.arch.state_dict())
         m = TrainModule(**{**module.__dict__, "arch": net})

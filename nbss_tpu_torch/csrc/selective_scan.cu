@@ -43,6 +43,19 @@
 // shared memory as whole rows. N is padded to 16 with A = B = C = 0, so the
 // padded states stay 0. Sums are taken in a fixed order (no atomics): two
 // launches on the same inputs give the same bits.
+//
+// Any N. A state size above 16 runs in passes over groups of 16 states, one
+// launch each (N = 17 pads its second group to 16): every state's recurrence
+// is independent of the others', and they meet only in C . h. Each pass
+// walks its group exactly as above and leaves its part of C . h, summed in
+// float32, in a float32 buffer ypart [M, T, D]: the first pass writes it, the
+// next ones add to it, and the last adds its own part, rounds the whole sum
+// to x's type once and adds D x, the Pallas kernel's rounding point. The
+// partial sums are added in the order of the groups, so relaunches stay
+// bit-identical. Each extra pass costs the N = 16 walk again plus ypart's
+// float32 read and write (0.8 GB at the serving shape); the exponentials,
+// which bound the walk, grow with N whatever the design. The N <= 16 route
+// is the single pass above, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +65,7 @@
 
 namespace {
 
-constexpr int NMAX = 16;          // largest state size
+constexpr int NMAX = 16;          // states of one pass
 constexpr int CHUNK = 8;          // frames between saved states (ops/ssm.py CHUNK)
 constexpr int NS = 4;             // states a thread
 constexpr int NG = NMAX / NS;     // threads a channel
@@ -127,14 +140,22 @@ struct Stage {
   E y[TS][BD];
 };
 
+// How a launch finishes C . h: ONLY for N <= 16 (round, add D x, write y);
+// for a pass over states n0 .. n0 + 15 of a larger N, FIRST writes its
+// float32 part to ypart, MID adds it there, LAST adds it to ypart's sum, rounds
+// and writes y.
+enum Pass { ONLY, FIRST, MID, LAST };
+
 // One block per (sequence m, tile of 64 channels); thread (channel c, group
-// s) holds states 4s .. 4s + 3 of channel c. ALIGNED: D and N multiples of 8
-// and x, dt, B, C, y starting on 16 bytes, so that every staged row does.
-template <typename E, bool ALIGNED>
+// s) holds states n0 + 4s .. n0 + 4s + 3 of channel c. ALIGNED: D and N
+// multiples of 8 and x, dt, B, C, y starting on 16 bytes, so that every
+// staged row does.
+template <typename E, bool ALIGNED, Pass PASS>
 __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
     const E* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const E* __restrict__ Bm, const E* __restrict__ Cm, const float* __restrict__ Dp,
-    E* __restrict__ y, float* __restrict__ hb, int M, int T, int D, int N) {
+    E* __restrict__ y, float* __restrict__ hb, float* __restrict__ ypart, int M, int T, int D,
+    int N, int group_start) {
   extern __shared__ uint4 smem_raw[];
   Stage<E>& sm = *reinterpret_cast<Stage<E>*>(smem_raw);
   constexpr int EV = 16 / sizeof(E);  // values of E in 16 bytes
@@ -146,11 +167,12 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
   const int d0 = tile * BD, d = d0 + cl;
   const bool live = d < D;
   const size_t row0 = size_t(m) * T;
+  const int n0 = PASS == ONLY ? 0 : group_start;  // the first state of this pass
 
   float a2[NS], h[NS];  // A log2(e), the states
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
-    const int n = grp * NS + k;
+    const int n = n0 + grp * NS + k;
     a2[k] = (live && n < N) ? A[size_t(d) * N + n] * LOG2E : 0.f;
     h[k] = 0.f;
   }
@@ -177,10 +199,10 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
 #pragma unroll
       for (int i = 0; i < (2 * TS * NC + NT - 1) / NT; ++i) {
         const int c = tid + i * NT, w = c / (TS * NC), t = (c / NC) % TS, n = (c % NC) * EV;
-        const bool ok = t < tc && n < N;
+        const bool ok = t < tc && n0 + n < N;
         const E* src = w ? Cm : Bm;
         if (c < 2 * TS * NC)
-          cp_async16(&sm.bc[buf][w][t][n], ok ? src + (row0 + t0 + t) * N + n : src, ok);
+          cp_async16(&sm.bc[buf][w][t][n], ok ? src + (row0 + t0 + t) * N + n0 + n : src, ok);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     } else {
@@ -193,8 +215,8 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
       }
       for (int e = tid; e < 2 * TS * NMAX; e += NT) {
         const int w = e / (TS * NMAX), t = (e / NMAX) % TS, n = e % NMAX;
-        sm.bc[buf][w][t][n] =
-            t < tc && n < N ? (w ? Cm : Bm)[(row0 + t0 + t) * N + n] : Elem<E>::from(0.f);
+        sm.bc[buf][w][t][n] = t < tc && n0 + n < N ? (w ? Cm : Bm)[(row0 + t0 + t) * N + n0 + n]
+                                                    : Elem<E>::from(0.f);
       }
     }
   };
@@ -225,7 +247,8 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
     const int t0 = sp * TS, tc = min(TS, T - t0);
     if constexpr (ALIGNED) cp_async_wait_all();
     __syncthreads();  // span sp's inputs are in; y of span sp - 1 is complete
-    if (sp > 0) write_y(sp - 1);
+    if constexpr (PASS == ONLY || PASS == LAST)
+      if (sp > 0) write_y(sp - 1);
     if constexpr (Stage<E>::CONVERT) {  // B and C of span sp to float32, four a thread
       const int e = 4 * tid;
       const E* src = &sm.bc[buf][0][0][0] + e;
@@ -244,8 +267,17 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
     pb += grp * NS;
     const float* pc = pb + TS * NMAX;
     float* hbp = hb != nullptr && live
-                     ? hb + (size_t(t0 / CHUNK) * M + m) * N * D + size_t(grp * NS) * D + d
+                     ? hb + (size_t(t0 / CHUNK) * M + m) * N * D + size_t(n0 + grp * NS) * D + d
                      : nullptr;
+    // the earlier passes' part of C . h at this thread's frames q + grp
+    float part[TS / NG];
+    if constexpr (PASS == MID || PASS == LAST) {
+#pragma unroll
+      for (int i = 0; i < TS / NG; ++i) {
+        const int t = i * NG + grp;
+        part[i] = live && t < tc ? ypart[(row0 + t0 + t) * D + d] : 0.f;
+      }
+    }
 #pragma unroll
     for (int q = 0; q < TS; q += NG) {
       float p[NG];
@@ -256,7 +288,7 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
           float* dst = hbp + (t / CHUNK) * hb_chunk;
 #pragma unroll
           for (int k = 0; k < NS; ++k)
-            if (grp * NS + k < N) dst[size_t(k) * D] = h[k];
+            if (n0 + grp * NS + k < N) dst[size_t(k) * D] = h[k];
         }
         // frames past T hold zeros (dt = x = B = 0): the states pass unchanged
         const float dtv = pdt[t * BD];
@@ -273,48 +305,80 @@ __global__ void __launch_bounds__(NT, 4) selective_scan_kernel(
         p[u] = acc;
       }
       const float sum = reduce_scatter(p, grp);  // C . h at frame q + grp
-      const float xv = Elem<E>::load(px + (q + grp) * BD);
-      sm.y[q + grp][cl] = Elem<E>::from(Elem<E>::round(sum) + xv * dd);
+      if constexpr (PASS == ONLY) {
+        const float xv = Elem<E>::load(px + (q + grp) * BD);
+        sm.y[q + grp][cl] = Elem<E>::from(Elem<E>::round(sum) + xv * dd);
+      } else if constexpr (PASS == LAST) {
+        const float xv = Elem<E>::load(px + (q + grp) * BD);
+        sm.y[q + grp][cl] = Elem<E>::from(Elem<E>::round(part[q / NG] + sum) + xv * dd);
+      } else if (live && q + grp < tc) {
+        ypart[(row0 + t0 + q + grp) * D + d] = PASS == FIRST ? sum : part[q / NG] + sum;
+      }
     }
   }
-  __syncthreads();
-  write_y(nspans - 1);
+  if constexpr (PASS == ONLY || PASS == LAST) {
+    __syncthreads();
+    write_y(nspans - 1);
+  }
+}
+
+template <typename E, Pass PASS>
+int launch_pass(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+                const void* Dp, void* y, void* hb, void* ypart, int M, int T, int D, int N,
+                int n0, bool aligned, cudaStream_t stream) {
+  auto kernel = aligned ? selective_scan_kernel<E, true, PASS>
+                        : selective_scan_kernel<E, false, PASS>;
+  constexpr int smem = sizeof(Stage<E>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<int((long long)M * ((D + BD - 1) / BD)), NT, smem, stream>>>(
+      static_cast<const E*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const E*>(Bm), static_cast<const E*>(Cm), static_cast<const float*>(Dp),
+      static_cast<E*>(y), static_cast<float*>(hb), static_cast<float*>(ypart), M, T, D, N, n0);
+  return int(cudaGetLastError());
 }
 
 template <typename E>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* Dp, void* y, void* hb, int M, int T, int D, int N,
+           const void* Dp, void* y, void* hb, void* ypart, int M, int T, int D, int N,
            cudaStream_t stream) {
   const long long blocks = (long long)M * ((D + BD - 1) / BD);
   if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   auto on16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool aligned = D % 8 == 0 && N % 8 == 0 && on16(x) && on16(dt) && on16(Bm) &&
                        on16(Cm) && on16(y);
-  auto kernel = aligned ? selective_scan_kernel<E, true> : selective_scan_kernel<E, false>;
-  constexpr int smem = sizeof(Stage<E>);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  kernel<<<int(blocks), NT, smem, stream>>>(
-      static_cast<const E*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const E*>(Bm), static_cast<const E*>(Cm), static_cast<const float*>(Dp),
-      static_cast<E*>(y), static_cast<float*>(hb), M, T, D, N);
-  return int(cudaGetLastError());
+  if (N <= NMAX)
+    return launch_pass<E, ONLY>(x, dt, A, Bm, Cm, Dp, y, hb, ypart, M, T, D, N, 0, aligned,
+                                stream);
+  if (ypart == nullptr) return int(cudaErrorInvalidValue);
+  for (int n0 = 0; n0 < N; n0 += NMAX) {
+    auto pass = n0 == 0 ? launch_pass<E, FIRST>
+                : n0 + NMAX < N ? launch_pass<E, MID> : launch_pass<E, LAST>;
+    const int err = pass(x, dt, A, Bm, Cm, Dp, y, hb, ypart, M, T, D, N, n0, aligned, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace
 
 // y = scan(x, dt, A, B, C) + D x on `stream`; hb (may be null) receives the
 // chunk-start states. x, B, C, y are bfloat16 when is_bf16, else float32.
-// Returns the CUDA error of the launch (0 on success).
+// ypart: float32 scratch [M, T, D] for N > 16 (one pass a group of 16 states),
+// unused (may be null) otherwise. Returns the first CUDA launch error (0 on
+// success).
 extern "C" int nbss_selective_scan_fwd(const void* x, const void* dt, const void* A,
                                        const void* Bm, const void* Cm, const void* Dp,
-                                       void* y, void* hb, int M, int T, int D, int N,
-                                       int is_bf16, void* stream) {
-  if (M < 1 || T < 1 || D < 1 || N < 1 || N > NMAX) return int(cudaErrorInvalidValue);
+                                       void* y, void* hb, void* ypart, int M, int T, int D,
+                                       int N, int is_bf16, void* stream) {
+  if (M < 1 || T < 1 || D < 1 || N < 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, y, hb, M, T, D, N, s)
-                 : launch<float>(x, dt, A, Bm, Cm, Dp, y, hb, M, T, D, N, s);
+  return is_bf16 ? launch<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, y, hb, ypart, M, T, D, N, s)
+                 : launch<float>(x, dt, A, Bm, Cm, Dp, y, hb, ypart, M, T, D, N, s);
 }
 
 extern "C" int nbss_selective_scan_chunk() { return CHUNK; }
+
+// States one pass of either scan kernel holds (ops/ssm.py STATE_GROUP).
+extern "C" int nbss_selective_scan_state_group() { return NMAX; }

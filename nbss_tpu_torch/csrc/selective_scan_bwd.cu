@@ -41,6 +41,18 @@
 // fixed order. The sums over sequences and frames (gA, gD) are per-thread
 // float32 partials added over M by a third kernel in a fixed order. No
 // atomics: two launches on the same inputs give the same bits.
+//
+// Any N. As in the forward, a state size above 16 runs in passes over groups
+// of 16 states, one launch each: a state's adjoint lam and its gA, gB and gC
+// terms involve only that state, so each pass walks its group as above and
+// writes its own columns of the gB, gC partials and of gA's. The two sums
+// over all states, lam . B and sum_n lam h exp(dt A) A, are carried from
+// pass to pass in float32: lam . B in a scratch buffer [M, T, D], the gdt
+// term in gdt itself. The last pass adds its own parts, forms gx = (lam . B)
+// dt + gy D (rounded once to x's type) and gdt = (the sum) + (lam . B) x, in
+// the order of the groups; the first pass alone adds up gD. The finishing
+// kernels run once, over every state. The N <= 16 route is the single pass
+// above, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,7 +61,7 @@
 
 namespace {
 
-constexpr int NMAX = 16;   // largest state size
+constexpr int NMAX = 16;   // states of one pass
 constexpr int CHUNK = 8;   // frames between saved states (ops/ssm.py CHUNK)
 constexpr int NS = 4;      // states a thread
 constexpr int NG = NMAX / NS;  // threads a channel
@@ -105,17 +117,25 @@ __device__ __forceinline__ float channel_sum(float v) {
   return v;
 }
 
+// What a launch does with the sums over states: ONLY for N <= 16 (gx and
+// gdt whole); for a pass over states n0 .. n0 + 15 of a larger N, FIRST
+// writes its parts of lam . B (to lb) and of the gdt sum (to gdt), MID adds
+// them there, LAST adds its own and forms gx and gdt.
+enum Pass { ONLY, FIRST, MID, LAST };
+
 // One block per (sequence m, tile of 64 channels); thread (channel c, group
-// s) holds states 4s .. 4s + 3 of channel c.
+// s) holds states n0 + 4s .. n0 + 4s + 3 of channel c.
 // pbc [ntiles][M][T][2N]: the tile's gB (q < N) and gC (q >= N) sums.
 // pa [M][N][D], pd [M][D]: each thread's gA and gD sums over its frames.
-template <typename E>
+// lb [M][T][D]: lam . B of the earlier passes (N > 16).
+template <typename E, Pass PASS>
 __global__ void __launch_bounds__(NT, 2) selective_scan_bwd_kernel(
     const E* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const E* __restrict__ Bm, const E* __restrict__ Cm, const float* __restrict__ Dp,
     const float* __restrict__ hb, const E* __restrict__ gy, E* __restrict__ gx,
     float* __restrict__ gdt, float* __restrict__ pbc, float* __restrict__ pa,
-    float* __restrict__ pd, int M, int T, int D, int N) {
+    float* __restrict__ pd, float* __restrict__ lb, int M, int T, int D, int N,
+    int group_start) {
   __shared__ float sx[2][CHUNK][BD], sdt[2][CHUNK][BD], sgy[2][CHUNK][BD];
   __shared__ float sbc[2][2][CHUNK][NMAX];  // B, C
   __shared__ float sred[CHUNK][NW][32];
@@ -129,11 +149,12 @@ __global__ void __launch_bounds__(NT, 2) selective_scan_bwd_kernel(
   const bool live = d < D;
   const int nchunks = (T + CHUNK - 1) / CHUNK;
   const size_t row0 = size_t(m) * T;
+  const int n0 = PASS == ONLY ? 0 : group_start;  // the first state of this pass
 
   float a[NS], lam[NS], ga[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
-    const int n = grp * NS + k;
+    const int n = n0 + grp * NS + k;
     a[k] = (live && n < N) ? A[size_t(d) * N + n] : 0.f;
     lam[k] = 0.f;
     ga[k] = 0.f;
@@ -159,12 +180,12 @@ __global__ void __launch_bounds__(NT, 2) selective_scan_bwd_kernel(
       pdt[i] = ok ? dt[off] : 0.f;
       pgy[i] = ok ? Elem<E>::load(gy + off) : 0.f;
     }
-    const int w = tid / (CHUNK * NMAX), t = (tid / NMAX) % CHUNK, n = tid % NMAX;
+    const int w = tid / (CHUNK * NMAX), t = (tid / NMAX) % CHUNK, n = n0 + tid % NMAX;
     pbcv = t < tc && n < N ? Elem<E>::load((w ? Cm : Bm) + (row0 + t0 + t) * N + n) : 0.f;
     const float* src = hb + (size_t(c) * M + m) * N * D + d;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      const int n = grp * NS + k;
+      const int n = n0 + grp * NS + k;
       ph[k] = (live && n < N) ? src[size_t(n) * D] : 0.f;
     }
   };
@@ -227,9 +248,14 @@ __global__ void __launch_bounds__(NT, 2) selective_scan_bwd_kernel(
       lamB = channel_sum(lamB);
       sA = channel_sum(sA);
       if (grp == 0) {
-        sgdt[t][cl] = sA + lamB * xv;
-        sgx[t][cl] = lamB * dtv + gyv * dd;
-        gd += gyv * xv;
+        if constexpr (PASS == ONLY) {
+          sgdt[t][cl] = sA + lamB * xv;
+          sgx[t][cl] = lamB * dtv + gyv * dd;
+        } else {  // this group's parts; the last pass forms gdt and gx
+          sgdt[t][cl] = sA;
+          sgx[t][cl] = lamB;
+        }
+        if constexpr (PASS == ONLY || PASS == FIRST) gd += gyv * xv;
       }
       sred[t][warp][lane] = reduce_scatter(v, lane);
     }
@@ -242,27 +268,41 @@ __global__ void __launch_bounds__(NT, 2) selective_scan_bwd_kernel(
       const int e = tid + i * NT, t = e / BD, dl = e % BD, dc = tile * BD + dl;
       if (t < tc && dc < D) {
         const size_t off = (row0 + t0 + t) * D + dc;
-        gdt[off] = sgdt[t][dl];
-        Elem<E>::store(gx + off, sgx[t][dl]);
+        if constexpr (PASS == ONLY) {
+          gdt[off] = sgdt[t][dl];
+          Elem<E>::store(gx + off, sgx[t][dl]);
+        } else if constexpr (PASS == FIRST) {
+          gdt[off] = sgdt[t][dl];
+          lb[off] = sgx[t][dl];
+        } else if constexpr (PASS == MID) {
+          gdt[off] += sgdt[t][dl];
+          lb[off] += sgx[t][dl];
+        } else {
+          const float lamB = lb[off] + sgx[t][dl];
+          gdt[off] = gdt[off] + sgdt[t][dl] + lamB * sx[buf][t][dl];
+          Elem<E>::store(gx + off, lamB * sdt[buf][t][dl] + sgy[buf][t][dl] * Dp[dc]);
+        }
       }
     }
-    const int q2 = 2 * N;
-    for (int i = tid; i < tc * q2; i += NT) {
-      const int t = i / q2, q = i % q2, n = q < N ? q : q - N;
-      const int l = ((q < N ? 0 : NS) + n % NS) * NG + n / NS;  // the lane holding it
+    const int q2 = 2 * N;  // columns of pbc: gB's N, then gC's
+    const int ng = min(NMAX, N - n0), qg = 2 * ng;  // this pass's states and columns
+    for (int i = tid; i < tc * qg; i += NT) {
+      const int t = i / qg, q = i % qg, n = q < ng ? q : q - ng;  // n: in this group
+      const int l = ((q < ng ? 0 : NS) + n % NS) * NG + n / NS;  // the lane holding it
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) s += sred[t][w][l];
-      pbc[((size_t(tile) * M + m) * T + t0 + t) * q2 + q] = s;
+      pbc[((size_t(tile) * M + m) * T + t0 + t) * q2 + (q < ng ? 0 : N) + n0 + n] = s;
     }
   }
   if (live) {
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      const int n = grp * NS + k;
+      const int n = n0 + grp * NS + k;
       if (n < N) pa[(size_t(m) * N + n) * D + d] = ga[k];
     }
-    if (grp == 0) pd[size_t(m) * D + d] = gd;
+    if constexpr (PASS == ONLY || PASS == FIRST)
+      if (grp == 0) pd[size_t(m) * D + d] = gd;
   }
 }
 
@@ -304,7 +344,22 @@ __global__ void selective_scan_bwd_finish_ad(const float* __restrict__ pa,
 
 long long workspace_floats(int M, int T, int D, int N) {
   const long long ntiles = (D + BD - 1) / BD;
-  return ntiles * M * T * 2 * N + (long long)M * N * D + (long long)M * D;
+  const long long lb = N > NMAX ? (long long)M * T * D : 0;  // lam . B across passes
+  return ntiles * M * T * 2 * N + (long long)M * N * D + (long long)M * D + lb;
+}
+
+template <typename E, Pass PASS>
+int launch_pass(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+                const void* Dp, const void* hb, const void* gy, void* gx, void* gdt,
+                float* pbc, float* pa, float* pd, float* lb, int M, int T, int D, int N, int n0,
+                cudaStream_t stream) {
+  const int blocks = int((long long)M * ((D + BD - 1) / BD));
+  selective_scan_bwd_kernel<E, PASS><<<blocks, NT, 0, stream>>>(
+      static_cast<const E*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const E*>(Bm), static_cast<const E*>(Cm), static_cast<const float*>(Dp),
+      static_cast<const float*>(hb), static_cast<const E*>(gy), static_cast<E*>(gx),
+      static_cast<float*>(gdt), pbc, pa, pd, lb, M, T, D, N, n0);
+  return int(cudaGetLastError());
 }
 
 template <typename E>
@@ -318,13 +373,21 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   float* pbc = static_cast<float*>(ws);
   float* pa = pbc + (long long)ntiles * M * T * 2 * N;
   float* pd = pa + (long long)M * N * D;
-  selective_scan_bwd_kernel<E><<<int(blocks), NT, 0, stream>>>(
-      static_cast<const E*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const E*>(Bm), static_cast<const E*>(Cm), static_cast<const float*>(Dp),
-      static_cast<const float*>(hb), static_cast<const E*>(gy), static_cast<E*>(gx),
-      static_cast<float*>(gdt), pbc, pa, pd, M, T, D, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+  float* lb = pd + (long long)M * D;
+  if (N <= NMAX) {
+    const int e = launch_pass<E, ONLY>(x, dt, A, Bm, Cm, Dp, hb, gy, gx, gdt, pbc, pa, pd,
+                                       lb, M, T, D, N, 0, stream);
+    if (e != 0) return e;
+  } else {
+    for (int n0 = 0; n0 < N; n0 += NMAX) {
+      auto pass = n0 == 0 ? launch_pass<E, FIRST>
+                  : n0 + NMAX < N ? launch_pass<E, MID> : launch_pass<E, LAST>;
+      const int e = pass(x, dt, A, Bm, Cm, Dp, hb, gy, gx, gdt, pbc, pa, pd, lb, M, T, D, N,
+                         n0, stream);
+      if (e != 0) return e;
+    }
+  }
+  cudaError_t err;
   const long long MT = (long long)M * T;
   const long long nbc = MT * 2 * N;
   const int grid_bc = int(nbc / 256 + 1 < 65536 ? nbc / 256 + 1 : 65536);
@@ -354,7 +417,7 @@ extern "C" int nbss_selective_scan_bwd(const void* x, const void* dt, const void
                                        void* gA, void* gB, void* gC, void* gD, void* ws,
                                        int M, int T, int D, int N, int is_bf16,
                                        void* stream) {
-  if (M < 1 || T < 1 || D < 1 || N < 1 || N > NMAX) return int(cudaErrorInvalidValue);
+  if (M < 1 || T < 1 || D < 1 || N < 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(x, dt, A, Bm, Cm, Dp, hb, gy, gx, gdt, gA, gB, gC,
                                          gD, ws, M, T, D, N, s)

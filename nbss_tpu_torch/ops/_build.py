@@ -123,7 +123,7 @@ def library() -> ctypes.CDLL:
         lib.nbss_attention_block_wide_fwd.restype = i
         lib.nbss_attention_block_wide_bwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
         lib.nbss_attention_block_wide_bwd.restype = i
-        lib.nbss_selective_scan_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.nbss_selective_scan_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.nbss_selective_scan_fwd.restype = i
         lib.nbss_selective_scan_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
         lib.nbss_selective_scan_bwd.restype = i
@@ -131,6 +131,8 @@ def library() -> ctypes.CDLL:
         lib.nbss_selective_scan_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.nbss_selective_scan_chunk.argtypes = []
         lib.nbss_selective_scan_chunk.restype = i
+        lib.nbss_selective_scan_state_group.argtypes = []
+        lib.nbss_selective_scan_state_group.restype = i
         ll, f = ctypes.c_longlong, ctypes.c_float
         lib.nbss_narrowband_attention_fwd.argtypes = [p] * 6 + [ll] * 3 + [i] * 6 + [f, p]
         lib.nbss_narrowband_attention_fwd.restype = i

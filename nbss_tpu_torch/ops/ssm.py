@@ -25,6 +25,13 @@ from it before it runs the adjoint backwards through the chunk. Under
 instructions of its state updates (one exponential each) rather than by its
 bytes, the backward by memory traffic (see the sources).
 
+The kernels take any state size N. Up to ``STATE_GROUP`` = 16 states they
+run in one launch; a larger N runs in passes over groups of 16 states, one
+launch each, which carry the sums over states (C . h in the forward; lam . B
+and the gdt term in the backward) from pass to pass in float32 scratch of
+[M, T, D] and round once in the last pass. A call counts one launch in
+``launches`` / ``bwd_launches`` whatever its number of passes.
+
 ``step`` is one frame of the recurrence for streaming, plain code as in the
 JAX package.
 """
@@ -34,7 +41,7 @@ from __future__ import annotations
 import torch
 
 CHUNK = 8  # frames between saved states; csrc/selective_scan*.cu hold the same value
-KERNEL_NMAX = 16  # largest state size N the kernels take
+STATE_GROUP = 16  # states a pass of the kernels; csrc/selective_scan*.cu hold the same value
 
 launches = 0  # forward kernel launches made by selective_scan since import
 bwd_launches = 0  # backward kernel launches made by selective_scan since import
@@ -123,9 +130,8 @@ def _check(name, x, dt, A, Bm, Cm, D, extra=()):
     if A.dim() != 2 or A.shape[0] != Dm:
         raise ValueError(f"{name}: A must be [D, N] with D = {Dm}, got {tuple(A.shape)}")
     N = A.shape[1]
-    if T < 1 or not 1 <= N <= KERNEL_NMAX:
-        raise ValueError(f"{name}: the kernels take T >= 1 and 1 <= N <= {KERNEL_NMAX}, "
-                         f"got T = {T}, N = {N}")
+    if T < 1 or N < 1:
+        raise ValueError(f"{name}: the kernels take T >= 1 and N >= 1, got T = {T}, N = {N}")
     expect = {"dt": (dt, (M, T, Dm), torch.float32), "A": (A, (Dm, N), torch.float32),
               "B": (Bm, (M, T, N), x.dtype), "C": (Cm, (M, T, N), x.dtype),
               "D": (D, (Dm,), torch.float32), **dict(extra)}
@@ -159,12 +165,19 @@ def forward(x, dt, A, Bm, Cm, D, boundaries: bool = False):
     from nbss_tpu_torch.ops import _build
 
     lib = _build.library()
-    if lib.nbss_selective_scan_chunk() != CHUNK:
+    if (lib.nbss_selective_scan_chunk(), lib.nbss_selective_scan_state_group()) != (
+            CHUNK, STATE_GROUP):
         raise RuntimeError(f"csrc/selective_scan.cu saves a state every "
-                           f"{lib.nbss_selective_scan_chunk()} frames, ops/ssm.py expects {CHUNK}")
+                           f"{lib.nbss_selective_scan_chunk()} frames and runs "
+                           f"{lib.nbss_selective_scan_state_group()} states a pass, ops/ssm.py "
+                           f"expects {CHUNK} and {STATE_GROUP}")
+    # float32 scratch for the sum of C . h over the passes of a large N
+    acc = (torch.empty(M, T, Dm, dtype=torch.float32, device=x.device)
+           if N > STATE_GROUP else None)
     err = lib.nbss_selective_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
-        y.data_ptr(), hb.data_ptr() if boundaries else None, M, T, Dm, N,
+        y.data_ptr(), hb.data_ptr() if boundaries else None,
+        acc.data_ptr() if acc is not None else None, M, T, Dm, N,
         int(x.dtype == torch.bfloat16), _stream(x))
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed with CUDA error {err}")

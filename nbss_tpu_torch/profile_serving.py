@@ -2,12 +2,14 @@
 
     python3 -m nbss_tpu_torch.profile_serving
         [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm] [--large]
-        [--attention 'mamba(16,4)'|'mhsa(251)'|...] [--fused-ffn]
-        [--seconds 4] [--batch 16]
+        [--attention 'mamba(16,4)'|'mhsa(251)'|'ret(2,share_qk)'|...] [--d-state N]
+        [--remat-policy none|dots] [--fused-ffn] [--seconds 4] [--batch 16]
 
 Serves SpatialNet-small, or OnlineSpatialNet with the time module
 ``--attention`` (default mamba(16,4), the committed run; mhsa(251) is the
-masked-attention alternative) at 8 layers, H=96, at B=16 x 6 channels x 4 s
+masked-attention alternative, ret(2,share_qk) the retention one with
+configs/onlineSpatialNet.yaml's decays 4, 5, 9, 10; ``--d-state N`` gives
+the mamba branch N states) at 8 layers, H=96, at B=16 x 6 channels x 4 s
 at 8 kHz; or NBC (``configs/NBC.yaml``: 4 layers, H=192, 8 heads) at B=16 x
 8 channels x 4 s at 16 kHz, STFT 512/256; or NBC2-small
 (``configs/NBC2.yaml``: 8 layers, H=96, 2 heads, LN/GBN/GBN) or NB-BLSTM
@@ -26,10 +28,11 @@ costliest kernels, the port's kernels' shares and the device's busy share of
 the profiled wall time. It checks that each step launched the arch's kernel
 once per block (8 attention blocks for SpatialNet-small and NBC2-small, 12
 for the large models, 16
-scans for mamba(16,4), 8 narrow-band attentions for mhsa(N), 4
+scans for mamba(N,4), 8 narrow-band attentions for mhsa(N), 4
 relative-position blocks for NBC, none for NB-BLSTM, whose LSTMs are
-cuDNN's; with ``--fused-ffn`` also a T-ConvFFN kernel a layer, whose share
-it prints) and no backward kernel. Needs a CUDA card.
+cuDNN's, or for ret, whose products are cuBLAS's (their share is printed);
+with ``--fused-ffn`` also a T-ConvFFN kernel a layer, whose share it
+prints) and no backward kernel. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ LARGE_LAYERS = 12
 LARGE_WIDTHS = dict(WIDTHS, num_layers=LARGE_LAYERS, dim_hidden=192, dim_ffn=384, dim_squeeze=16)
 NBC2_LARGE_WIDTHS = dict(NBC2_WIDTHS, n_layers=LARGE_LAYERS, dim_hidden=192, dim_ffn=384)
 ARCHS = ("spatialnet", "online_spatialnet", "nbc", "nbc2", "nb_blstm")
+RET_DECAY = (4, 5, 9, 10)  # configs/onlineSpatialNet.yaml
 
 
 def build(arch: str, dtype, generator, remat: bool = False, attention: str = "mamba(16,4)",
-          fused_ffn: bool = False, dropout: Optional[float] = None, large: bool = False):
+          fused_ffn: bool = False, dropout: Optional[float] = None, large: bool = False,
+          remat_policy: Optional[str] = None):
     """(TrainModule, a function giving the kernel's forward and backward
     launch counts, its launches (per serving forward, per train step forward,
     per train step backward), (forward, backward) tuples of kernel-name
@@ -68,7 +73,8 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
     SpatialNet-small, OnlineSpatialNet with ``attention``, as the committed
     run trains it, NBC (``dropout``: its configuration's 0.1 unless given),
     NBC2-small or NB-BLSTM (``large``: SpatialNet-large, NBC2-large).
-    ``fused_ffn`` routes SpatialNet's T-ConvFFN through its kernel."""
+    ``fused_ffn`` routes SpatialNet's T-ConvFFN through its kernel;
+    ``remat_policy`` is OnlineSpatialNet's."""
     from nbss_tpu_torch.io.loss import Loss
     from nbss_tpu_torch.io.norm import Norm
     from nbss_tpu_torch.io.stft import STFT
@@ -112,11 +118,14 @@ def build(arch: str, dtype, generator, remat: bool = False, attention: str = "ma
         n = widths["n_layers"]
         return (module, lambda: (attention_block.relpos_launches, 0),
                 (n, n if widths["dropout"] == 0 else 0, 0), (("relpos_",), ()))
-    net = OnlineSpatialNet(**WIDTHS, attention=attention, dtype=dtype, remat=remat,
-                           generator=generator, device="cuda")
+    net = OnlineSpatialNet(**WIDTHS, attention=attention, decay=RET_DECAY, dtype=dtype,
+                           remat=remat, remat_policy=remat_policy, generator=generator,
+                           device="cuda")
     module = TrainModule(arch=net, norm=Norm(mode="utterance", online=True),
                          loss=Loss(name="neg_snr", pit=True))
     kind, cfg = parse_attention(attention)
+    if kind == "ret":  # no kernel of the port: the products are cuBLAS's
+        return module, lambda: (0, 0), (0, 0, 0), (("gemm",), ("gemm",))
     if kind == "mhsa":
         # the forward: narrowband_attention_tc_kernel in bf16, the CUDA-core kernels in fp32;
         # the backward: narrowband_attention_bwd_tc_dq / _dkdv in bf16,
@@ -147,7 +156,12 @@ def parse_args(description: str, dropout: bool = False, serving: bool = False):
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--arch", choices=ARCHS, default="spatialnet")
     parser.add_argument("--attention", default="mamba(16,4)",
-                        help="OnlineSpatialNet's time module, e.g. 'mamba(16,4)' or 'mhsa(251)'")
+                        help="OnlineSpatialNet's time module, e.g. 'mamba(16,4)', 'mhsa(251)' "
+                             "or 'ret(2,share_qk)'")
+    parser.add_argument("--d-state", type=int, default=None,
+                        help="OnlineSpatialNet's mamba branch: its state size N")
+    parser.add_argument("--remat-policy", choices=("none", "dots"), default="none",
+                        help="OnlineSpatialNet: what remat keeps (dots: the Linear outputs)")
     parser.add_argument("--fused-ffn", action="store_true",
                         help="SpatialNet only: the T-ConvFFN through its kernel (row 3)")
     parser.add_argument("--large", action="store_true",
@@ -167,6 +181,12 @@ def parse_args(description: str, dropout: bool = False, serving: bool = False):
         parser.error("--large takes --arch spatialnet or nbc2")
     if getattr(args, "dropout", None) is not None and args.arch != "nbc":
         parser.error("--dropout takes --arch nbc")
+    if args.d_state is not None:
+        if not args.attention.startswith("mamba("):
+            parser.error("--d-state takes a mamba(...) --attention")
+        inner = args.attention[6:args.attention.index(")")].split(",")
+        args.attention = f"mamba({args.d_state},{inner[1]}){args.attention.split(')', 1)[1]}"
+    args.remat_policy = None if args.remat_policy == "none" else args.remat_policy
     return args
 
 
@@ -198,7 +218,8 @@ def main() -> int:
     module, counts, (per_fwd, _, _), (fwd_key, _) = build(arch, torch.bfloat16, gen,
                                                           attention=args.attention,
                                                           fused_ffn=args.fused_ffn,
-                                                          large=args.large)
+                                                          large=args.large,
+                                                          remat_policy=args.remat_policy)
     channels, rate = (NBC_C, 16000) if arch == "nbc" else (C, 8000)
     samples, batch = int(args.seconds * rate), args.batch
     if arch == "online_spatialnet":

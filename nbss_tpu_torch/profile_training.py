@@ -2,11 +2,15 @@
 
     python3 -m nbss_tpu_torch.profile_training
         [--arch spatialnet|online_spatialnet|nbc|nbc2|nb_blstm] [--large]
-        [--attention 'mamba(16,4)'|'mhsa(251)'|...] [--fused-ffn] [--dropout P]
+        [--attention 'mamba(16,4)'|'mhsa(251)'|'ret(2,share_qk)'|...] [--d-state N]
+        [--remat-policy none|dots] [--fused-ffn] [--dropout P]
 
 Trains SpatialNet-small (neg-SI-SDR with PIT, Adam), or OnlineSpatialNet
-with the time module ``--attention`` (default mamba(16,4)) as the committed
-run does (neg-SNR with PIT, AdamW with weight decay 1e-3, remat), at 8
+with the time module ``--attention`` (default mamba(16,4); ``--d-state N``
+gives the mamba branch N states; ret(2,share_qk) the retention branch) as
+the committed run does (neg-SNR with PIT, AdamW with weight decay 1e-3,
+remat: full recomputation, or with ``--remat-policy dots``, as
+configs/onlineSpatialNet.yaml sets it, the Linear outputs kept), at 8
 layers, H=96; or NBC (``configs/NBC.yaml``, 8 channels x 4 s at 16 kHz;
 ``--dropout``, 0.1 unless given), NBC2-small (neg-SA-SDR with PIT) or
 NB-BLSTM at their configurations' widths, with Adam (``--large``:
@@ -22,8 +26,9 @@ kernels, the port's kernels' shares, the device's busy share of the
 profiled wall time and the peak device memory. It checks each step's
 launches: 8 attention-block forward and 8 backward for SpatialNet-small and
 NBC2-small, 12 and 12 for the large models; 32 scan forward (16, and 16 more recomputed by remat) and 16
-backward for mamba(16,4); 16 narrow-band attention forward (8 + 8) and 8
-backward for mhsa(N); for NBC 4 relative-position forward at dropout 0 and
+backward for mamba(N,4), with either policy (the scan is recomputed); none
+for ret(...), whose products are cuBLAS's; 16 narrow-band attention forward
+(8 + 8) and 8 backward for mhsa(N); for NBC 4 relative-position forward at dropout 0 and
 none at 0.1, where the block is off while dropout is active, as in the JAX
 package (its backward is autograd's); none for NB-BLSTM; with
 ``--fused-ffn`` (SpatialNet's T-ConvFFN through its kernel) also a T-ConvFFN
@@ -73,12 +78,13 @@ def main() -> int:
     online = arch == "online_spatialnet"
     module, counts, (_, want_fwd, want_bwd), (fwd_key, bwd_key) = build(
         arch, torch.bfloat16, None, remat=online, attention=args.attention,
-        fused_ffn=args.fused_ffn, dropout=args.dropout, large=args.large)
+        fused_ffn=args.fused_ffn, dropout=args.dropout, large=args.large,
+        remat_policy=args.remat_policy)
     optimizer = ("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}) if online else ("Adam", {"lr": 1e-3})
     trainer = Trainer(module, optimizer=optimizer, seed=2)
     trainer.init()
     if online:
-        arch = f"{arch} {args.attention}"
+        arch = f"{arch} {args.attention} remat_policy={args.remat_policy}"
     if args.large:
         arch = f"{arch} large"
     if args.fused_ffn:

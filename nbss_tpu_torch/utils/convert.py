@@ -123,12 +123,34 @@ def mamba_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, t
             f"{prefix}out_proj.weight": _dense(p["out_proj"]["kernel"])}
 
 
+RETENTION_PROJS = ("q_proj", "k_proj", "v_proj", "g_proj", "out_proj")
+
+
+def retention_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX MultiScaleRetention params ->
+    ``nbss_tpu_torch.models.retention.MultiScaleRetention`` state_dict under
+    ``prefix``: each bias-free projection's flax kernel [in, out] becomes a
+    weight [out, in] (no ``k_proj`` under share_qk). Raises on a key that is
+    neither a projection nor its kernel."""
+    p = params.get("params", params)
+    extra = set(p) - set(RETENTION_PROJS)
+    if extra or "q_proj" not in p:
+        raise KeyError(f"retention params: unexpected {sorted(extra)} or no q_proj in {sorted(p)}")
+    sd = {}
+    for name, proj in p.items():
+        if set(proj) != {"kernel"}:
+            raise KeyError(f"retention {name}: expected only a kernel, got {sorted(proj)}")
+        sd[f"{prefix}{name}.weight"] = _dense(proj["kernel"])
+    return sd
+
+
 def online_spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
                                            full_share: int = 0) -> Dict[str, torch.Tensor]:
     """JAX OnlineSpatialNet params ->
     ``nbss_tpu_torch.models.online_spatialnet.OnlineSpatialNet`` state_dict,
-    for each branch the port has: the time module ``mhsa`` is a
-    MultiheadAttention (``mhsa(N)``) or a Mamba block (``mamba(...)``); the FFN
+    for each branch: the time module ``mhsa`` is a MultiheadAttention
+    (``mhsa(N)``), a MultiScaleRetention (``ret(...)``) or a Mamba block
+    (``mamba(...)``); the FFN
     the causal T-ConvFFN, named as SpatialNet's, or the second Mamba block
     (the JAX ``tconvffn_mamba``, the port's ``tconvffn``)."""
     p = params.get("params", params)
@@ -140,6 +162,8 @@ def online_spatialnet_state_dict_from_flax(params: Mapping, num_layers: int,
         sd.update(_norm(lp["norm_mhsa"], f"{t}.norm_mhsa"))
         if "A_log" in lp["mhsa"]:
             sd.update(mamba_state_dict_from_flax(lp["mhsa"], f"{t}.mhsa."))
+        elif "q_proj" in lp["mhsa"]:
+            sd.update(retention_state_dict_from_flax(lp["mhsa"], f"{t}.mhsa."))
         else:
             sd.update(_mhsa(lp["mhsa"], f"{t}.mhsa"))
         if "tconvffn_mamba" in lp:

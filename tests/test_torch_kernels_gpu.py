@@ -572,11 +572,15 @@ def test_spatialnet_mask_or_active_dropout_takes_rows_4_5(card):
 
 # (M, T, D, N): T = 1, 7, 8, 9, 13 around the 8-frame chunk, 15, 16, 17 around half
 # the forward's 32-frame span, 31, 33 around the span, 251, 1000; M = 1, 31, 1032; D = 192 (3 blocks), 64, 100,
-# 70 and 33 (ragged), 40 (one partial block); N = 4, 8, 16
+# 70 and 33 (ragged), 40 (one partial block); N = 4, 8, 16 in one pass, and 17 (a second
+# group of one state), 32, 64 and 128 in passes of 16 states, 24 and 40 (ragged last groups)
 SCAN_SHAPES = [(1, 1, 192, 16), (31, 7, 192, 4), (31, 8, 64, 16), (1, 9, 100, 16),
                (1032, 251, 192, 16), (31, 1000, 192, 4), (1032, 9, 40, 4), (5, 251, 33, 16),
                (7, 251, 192, 8), (3, 13, 70, 8), (2, 15, 192, 16), (3, 16, 100, 16),
-               (4, 17, 192, 4), (2, 31, 33, 8), (1, 33, 64, 16)]
+               (4, 17, 192, 4), (2, 31, 33, 8), (1, 33, 64, 16),
+               (1, 1, 192, 17), (31, 40, 192, 17), (5, 251, 33, 17), (129, 251, 192, 32),
+               (3, 33, 100, 64), (64, 251, 192, 64), (2, 17, 192, 128), (16, 251, 192, 128),
+               (7, 9, 70, 24), (3, 65, 192, 40)]
 
 
 def _scan_inputs(seed, M, T, D, N, dtype):
@@ -668,10 +672,9 @@ def test_selective_scan_kernel_takes_views_off_16_bytes(card, dtype):
 def test_selective_scan_kernels_refuse_what_they_do_not_take(card):
     from nbss_tpu_torch.ops import ssm
 
-    ins, gy = _scan_inputs(0, 2, 9, 32, 17, torch.float32)
-    with pytest.raises(ValueError, match="N <= 16"):
-        ssm.selective_scan(*ins)
     ins, gy = _scan_inputs(0, 2, 9, 32, 4, torch.float32)
+    with pytest.raises(ValueError, match="N >= 1"):  # any N >= 1 runs, in passes above 16
+        ssm.selective_scan(*ins[:2], ins[2][:, :0], ins[3][..., :0], ins[4][..., :0], ins[5])
     with pytest.raises(ValueError, match="dt must be"):
         ssm.selective_scan(ins[0], ins[1].half(), *ins[2:])
     with pytest.raises(ValueError, match="hb must be"):

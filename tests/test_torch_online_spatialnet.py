@@ -60,6 +60,12 @@ def _pair(cfg=CFG, seed=0, frames=10, **kw):
     return params, net
 
 
+def _japply(cfg, params, x, **kw):
+    """The JAX model's forward, jitted."""
+    net = JOnlineSpatialNet(**cfg, **kw.pop("model", {}))
+    return np.asarray(jax.jit(lambda p, x: net.apply(p, x, **kw))(params, jnp.asarray(x)))
+
+
 def _x(seed, T=40, cfg=CFG):
     rng = np.random.default_rng(seed)
     return rng.standard_normal((2, cfg["num_freqs"], T, cfg["dim_input"])).astype(np.float32)
@@ -151,8 +157,8 @@ N_FFT, HOP, FRAMES = 16, 8, 20
 TRAIN_CFG = dict(CFG, dim_input=12)
 
 
-def _train_modules(remat):
-    params, net = _pair(TRAIN_CFG, seed=3, frames=FRAMES, remat=remat)
+def _train_modules(remat, cfg=TRAIN_CFG, remat_policy=None):
+    params, net = _pair(cfg, seed=3, frames=FRAMES, remat=remat, remat_policy=remat_policy)
     module = TrainModule(arch=net, stft=STFT(n_fft=N_FFT, n_hop=HOP),
                          norm=Norm(mode="utterance", online=True),
                          loss=Loss(name="neg_snr", pit=True))
@@ -165,13 +171,9 @@ def _batch(seed, B=2):
     return np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
 
 
-@pytest.fixture(scope="module")
-def jax_step():
-    """The JAX package's loss and gradient on batch 0, computed once: its
-    remat changes no value (tests/test_online_spatialnet.py), so both of the
-    port's settings are held against the same numbers."""
-    params, _ = _train_modules(False)
-    j_module = JTrainModule(arch=JOnlineSpatialNet(**TRAIN_CFG),
+def _jax_step(cfg):
+    params, _ = _train_modules(False, cfg)
+    j_module = JTrainModule(arch=JOnlineSpatialNet(**cfg),
                             stft=JSTFT(n_fft=N_FFT, n_hop=HOP),
                             norm=JNorm(mode="utterance", online=True),
                             loss=JLoss(name="neg_snr", pit=True))
@@ -179,16 +181,33 @@ def jax_step():
         params, tuple(map(jnp.asarray, _batch(0))))
 
 
-@pytest.mark.parametrize("remat", [True, False])
-def test_training_step_loss_and_gradients_match_jax(remat, jax_step):
-    _, module = _train_modules(remat)
+@pytest.fixture(scope="module")
+def jax_step():
+    """The JAX package's loss and gradient on batch 0, computed once: its
+    remat changes no value (tests/test_online_spatialnet.py), so each of the
+    port's settings is held against the same numbers."""
+    return _jax_step(TRAIN_CFG)
+
+
+@pytest.mark.parametrize("remat,remat_policy", [
+    pytest.param(True, None, id="True"),
+    pytest.param(False, None, id="False"),
+    pytest.param(True, "dots", id="dots"),
+])
+def test_training_step_loss_and_gradients_match_jax(remat, remat_policy, jax_step):
+    check_training_step(_train_modules(remat, TRAIN_CFG, remat_policy)[1], TRAIN_CFG, jax_step)
+
+
+def check_training_step(module, cfg, jax_step):
+    """training_step's loss (rtol 1e-4) and every gradient (atol, rtol 5e-3)
+    against the JAX package's."""
     loss_j, grads_j = jax_step
     loss = module.training_step(tuple(torch.from_numpy(b) for b in _batch(0)))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-4)
-    want = online_spatialnet_state_dict_from_flax(grads_j, TRAIN_CFG["num_layers"])
+    want = online_spatialnet_state_dict_from_flax(grads_j, cfg["num_layers"])
     named = list(module.arch.named_parameters())
-    assert len(named) == len(want) - (TRAIN_CFG["num_layers"] - 1) * 2  # shared full-band once
+    assert len(named) == len(want) - (cfg["num_layers"] - 1) * 2  # shared full-band once
     for name, p in named:
         assert p.grad is not None, name
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=5e-3, rtol=5e-3,
@@ -196,9 +215,9 @@ def test_training_step_loss_and_gradients_match_jax(remat, jax_step):
 
 
 def test_trainer_fits_with_adamw_and_remat():
-    """Trainer on the CPU with the committed run's optimizer: AdamW (1e-3,
-    weight decay 1e-3), clip 5, remat; four steps on one batch."""
-    _, module = _train_modules(True)
+    """Trainer on the CPU with the config's optimizer: AdamW (1e-3, weight
+    decay 1e-3), clip 5, remat with the dots policy; four steps on one batch."""
+    _, module = _train_modules(True, remat_policy="dots")
     losses = []
     trainer = Trainer(module, optimizer=("AdamW", {"lr": 1e-3, "weight_decay": 1e-3}),
                       gradient_clip_val=5.0, device="cpu",
@@ -210,16 +229,25 @@ def test_trainer_fits_with_adamw_and_remat():
     assert all(not torch.equal(a, p) for a, p in zip(before, module.arch.parameters()))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(attention="ret(2,share_qk)"), "retention"),
-    (dict(attention="ret(1,not_share_qk)"), "retention"),
-    (dict(attention="mamba(16,4)", remat=True, remat_policy="dots"), "remat_policy"),
-    (dict(attention="mhsa(251)", remat=True, remat_policy="dots"), "remat_policy"),
+@pytest.mark.parametrize("kw,label", [
+    pytest.param(dict(attention="ret(2,share_qk)"), "retention", id="kw0-retention"),
+    pytest.param(dict(attention="ret(1,not_share_qk)"), "retention", id="kw1-retention"),
+    pytest.param(dict(attention="mamba(16,4)", remat=True, remat_policy="dots"), "remat_policy",
+                 id="kw2-remat_policy"),
+    pytest.param(dict(attention="mhsa(251)", remat=True, remat_policy="dots"), "remat_policy",
+                 id="kw3-remat_policy"),
 ])
-def test_refused_settings_raise(kw, match):
+def test_refused_settings_raise(kw, label):
+    """The four settings the port refused before the retention slice: each
+    now builds on the CPU and matches the JAX model's fp32 forward (and
+    none raises)."""
     cfg = {**CFG, **kw}
-    with pytest.raises(NotImplementedError, match=match):
-        OnlineSpatialNet(**cfg, device="cpu")
+    params, net = _pair(cfg, seed=5)
+    x = _x(5, T=12, cfg=cfg)
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    want = _japply(cfg, params, x)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4, err_msg=label)
 
 
 def test_gln_norm_matches_jax():

@@ -200,3 +200,57 @@ def test_mamba_block_init_follows_the_jax_initializers():
     again = MambaBlock(96, d_state=16, d_conv=4, generator=torch.Generator().manual_seed(0))
     for a, b in zip(m.parameters(), again.parameters()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [17, 32])
+def test_reference_matches_pallas_above_one_state_group(N):
+    """State sizes above the kernels' 16-state pass (17 pads the second
+    group): ``reference`` and ``reference_bwd`` against the interpreted Pallas
+    scan and its backward, fp32 and bf16 forward, fp32 backward."""
+    port, jx, gy = _inputs(10 + N, M=2, T=13, D=16, N=N)
+    np.testing.assert_allclose(ssm.reference(*port).numpy(),
+                               np.asarray(selective_scan_pallas(*jx, t_chunk=4)),
+                               atol=2e-4, rtol=1e-4)
+    portb, jxb, _ = _inputs(10 + N, "bf16", M=2, T=13, D=16, N=N)
+    want = _f32(selective_scan_pallas(*jxb, t_chunk=4))
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(_f32(ssm.reference(*portb)) - want) <= step).all()
+    got = ssm.reference_bwd(*port, torch.from_numpy(gy))
+    x, dt, A, Bm, Cm, Dp = jx
+    _, hb = selective_scan_pallas(*jx, t_chunk=4, return_boundaries=True)
+    gx, gdt, gA, gB, gC = _pallas_scan_bwd(x, dt, A, Bm, Cm, hb, jnp.asarray(gy), t_chunk=4)
+    pallas = (gx + jnp.asarray(gy) * Dp, gdt, gA, gB, gC, jnp.einsum("btd,btd->d", gy, x))
+    for name, g, w in zip("x dt A B C D".split(), got, pallas):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_function_takes_any_state_size_on_cpu(dtype):
+    """selective_scan at N = 40 (two full passes of 16 states and a ragged
+    third on the card): on the CPU the plain versions, exactly, no launch."""
+    port, _, gy = _inputs(11, dtype, M=2, T=9, D=8, N=40)
+    leaves = [t.clone().requires_grad_() for t in port]
+    before = (ssm.launches, ssm.bwd_launches)
+    y = ssm.selective_scan(*leaves)
+    assert torch.equal(y, ssm.reference(*port))
+    gyt = torch.from_numpy(gy).to(y.dtype)
+    for g, w in zip(torch.autograd.grad(y, leaves, gyt), ssm.reference_bwd(*port, gyt)):
+        assert torch.equal(g, w)
+    assert (ssm.launches, ssm.bwd_launches) == before
+
+
+def test_mamba_block_with_32_states_matches_jax():
+    """mamba(32, 4): forward and every parameter's gradient against the JAX
+    block."""
+    jm, params, m, x = _mamba_pair(12, d_state=32, T=12)
+    with torch.no_grad():
+        y = m(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y, np.asarray(jm.apply(params, jnp.asarray(x))),
+                               atol=2e-4, rtol=1e-4)
+    w = np.random.default_rng(13).standard_normal(x.shape).astype(np.float32)
+    grads_j = jax.grad(lambda p: jnp.sum(jm.apply(p, jnp.asarray(x)) * w))(params)
+    (m(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
+    want = mamba_state_dict_from_flax(grads_j)
+    for name, p in m.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=5e-3, rtol=5e-3,
+                                   err_msg=name)
