@@ -19,7 +19,11 @@ heads), whole 16-s recordings and NBC2-large through the attention block's
 wide route; then the selective scan at state sizes above 16 and
 OnlineSpatialNet as ``configs/onlineSpatialNet.yaml`` builds it: mamba(64,4),
 mamba(16,4) with ``remat_policy='dots'``, and the retention branch
-``ret(2,share_qk)``. Forty-nine phases:
+``ret(2,share_qk)``; then the two committed training runs as users launch
+them: rooms rendered by ``python -m nbss_tpu_torch.sim.generate``, mixtures
+made on the card by ``data/device_mix.py``, and ``fit``/``validate``/
+``test``/``predict`` through ``nbss_tpu_torch.cli`` with the configs in
+configs/. Fifty-four phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -79,7 +83,7 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     path vs the plain scan, SI-SDR >= 50 dB;
 13. streaming: ``forward_streaming`` (one frame at a time) vs ``forward`` at
     B=4: fp32 SI-SDR >= 50 dB, the bf16 figure printed;
-14. training: ``Trainer`` fits 8 SyntheticDataset items for 20 steps at B=8
+14. training: ``Trainer`` fits 8 SyntheticDataset items for 10 steps at B=8
     (AdamW 1e-3, weight decay 1e-3, clip 5, bf16, remat): finite losses, the
     last 5 below the first 5, 32 forward (16 + 16 recomputed) and 16
     backward scan launches a step; fp32 gradients of every parameter, kernel
@@ -110,7 +114,7 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     attention, SI-SDR >= 50 dB;
 19. streaming (a KV ring buffer of 250 frames) vs ``forward`` at B=4: fp32
     SI-SDR >= 50 dB, the bf16 figure printed;
-20. training: 20 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
+20. training: 10 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
     remat): falling loss, 16 forward (8 + 8 recomputed) and 8 backward
     attention launches a step, all on the tensor-core kernels; fp32
     gradients, kernel path vs plain, within
@@ -165,7 +169,7 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     launches per forward, all on the tensor-core kernels, and no backward
     launch; fp32 kernel path vs the plain module composition, SI-SDR >= 50
     dB;
-28. training: ``Trainer`` fits 8 SyntheticDataset items for 20 steps at B=8
+28. training: ``Trainer`` fits 8 SyntheticDataset items for 10 steps at B=8
     (Adam 1e-3, clip 5, bf16): 8 T-ConvFFN (all on the tensor-core kernel),
     8 attention-block and 8 attention-block backward launches a step, every
     loss finite, the last 5 below the first 5; fp32 gradients of every
@@ -195,7 +199,7 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     launches a forward, all on the tensor-core kernel, and no other kernel;
     fp32 kernel path vs the plain module composition, SI-SDR >= 50 dB; and
     with GBN first norms at B=2 through rows 4-5 (8 launches), >= 50 dB;
-33. training: ``Trainer`` fits 8 SyntheticDataset items for 20 steps at B=8
+33. training: ``Trainer`` fits 8 SyntheticDataset items for 10 steps at B=8
     (Adam 1e-3, clip 5, bf16): falling loss, 8 + 8 attention-block launches
     a step, all on the tensor-core kernels; the fp32 kernel path's gradients
     held by ``check_gradients.hold`` against the plain composition in fp32
@@ -205,12 +209,12 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     at 8 kHz): ``forward`` and ``predict_step`` at B=16 in bf16 and fp32,
     finite, no kernel of the port (its LSTMs are cuDNN's; the first BLSTM's
     time in bf16 and fp32); the serving rates;
-36. training: 20 steps at B=8 (Adam 1e-3, clip 5, bf16), falling loss; the
+36. training: 10 steps at B=8 (Adam 1e-3, clip 5, bf16), falling loss; the
     training rate;
 37. the NBSS wrapper (STFT 512/256, 8 ch x 4 s at 16 kHz, B=2): one forward
     for NB_BLSTM, NBC and NBC2 in fp32 and bf16, finite [2, 2, T], with NBC's
     4 relative-position and NBC2's 8 attention-block launches;
-38. NBC training (``configs/NBC.yaml``, dropout 0.1) for 20 steps at B=8
+38. NBC training (``configs/NBC.yaml``, dropout 0.1) for 10 steps at B=6
     (M = 8*257, T = 248; Adam 1e-3, clip 5, bf16): falling loss, no kernel
     launch (the block and the fused attention are off while dropout is
     active, as in the JAX package), the peak device memory and the rate;
@@ -238,7 +242,7 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     the plain composition at B=2, SI-SDR >= 50 dB; serving rates;
 42. whole recordings: SpatialNet-small and -large at B=4 x 16 s (T = 1001)
     through the wide route, fp32 vs plain at B=1 >= 50 dB, serving rates;
-43. SpatialNet-large training: 20 steps at B=8 (Adam 1e-3, clip 5, bf16),
+43. SpatialNet-large training: 10 steps at B=8 (Adam 1e-3, clip 5, bf16),
     falling loss, 12 + 12 wide tensor-core launches a step, the peak
     memory and the rate; fp32 gradients of its first 2 layers at the
     trained weights held by ``check_gradients.hold``; 3 steps at dropout
@@ -258,7 +262,7 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     (16 scan launches a forward) and 5 training steps at B=8 with remat
     (``dots``; 32 + 16 launches a step), rates and peak memory;
 48. mamba(16,4) with ``remat_policy='dots'`` (the config as written): a
-    20-step fit (falling loss, 32 + 16 launches a step: the recompute runs
+    10-step fit (falling loss, 32 + 16 launches a step: the recompute runs
     the scan again); fp32 gradients of ``dots`` held by
     ``check_gradients.hold`` against full recomputation and the plain scan
     in a float64 arch; the rate and peak memory of full recomputation and
@@ -268,14 +272,41 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
     in the JAX package): serving at B=16 in bf16, bf16 vs fp32 SI-SDR
     reported; ``forward_streaming`` at B=4 against ``forward(inference=True)``
     with ``chunkwise_recurrent=False`` (fp32 >= 50 dB; against the chunkwise
-    forward reported); a 20-step fit at B=8 with ``dots`` (falling loss);
+    forward reported); a 10-step fit at B=8 with ``dots`` (falling loss);
     fp32 gradients of ``dots`` held by ``check_gradients.hold`` against
     ``remat=False`` and a float64 arch; serving, streaming and training
-    rates and peak memory.
+    rates and peak memory;
+50. rooms: ``sim.generate``'s main on the card with the flags of
+    scripts/run_spatialnet_convergence.sh (6 mics, 8 kHz, RT60 0.1-0.6,
+    ``length_round`` 2048, seed 0) and ``--rir_nums 8 2 2``, seconds a room;
+    room 0 rendered again on the CPU by the same code (within 1e-4 x
+    max|rir|) and on the card (bit-identical); the direct path's delay and
+    amplitude against d / c and 1 / (4 pi d);
+51. mixtures: ``DeviceSyntheticDataModule`` at device_synth.yaml's settings
+    over that corpus, preloaded: the first train batch (B=8) on the card
+    against the same batch on the CPU (seeds, rooms, keys, segments and noise
+    types equal; x and ys within atol 2e-5, rtol 1e-4), and mixtures/s;
+52. ``fit`` through ``nbss_tpu_torch.cli.run`` with configs/SpatialNet.yaml +
+    device_synth.yaml at full width in bf16-mixed, 2 epochs of 4 steps at B=8,
+    host metrics STOI/eSTOI every epoch: 8 + 8 tensor-core attention-block
+    launches a step (and 8 a validation forward), finite losses, the version
+    directory's files and metrics.jsonl's host metrics; the training rate
+    with mixing on the card beside phase 9's fixed-batch rate;
+53. ``validate``, ``test`` (the config's metrics: SDR, SI-SDR, NB-PESQ,
+    WB-PESQ, eSTOI; results_*.json, results_mean.json,
+    results_incremental.jsonl, examples) and ``predict`` from the checkpoint
+    ``fit`` wrote, and a resumed ``fit`` into the same version directory;
+54. the moving run: ``sim.generate`` with the flags of
+    scripts/run_moving_convergence.sh (``--trajectory=4points+sin,0.5``) and
+    ``--rir_nums 2 1 1``, then ``fit`` with configs/onlineSpatialNet.yaml +
+    device_synth_moving.yaml for 2 steps at full width (rows 6-7: 32 + 16
+    scan launches a step under ``remat_policy='dots'``).
 
-Prints one ``kernels`` JSON line, the card's ``nvidia-smi`` name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
-without that line, when there is no CUDA card or any phase fails.
+Prints one ``kernels`` JSON line, one ``training_runs`` JSON line (phases
+50-54's seconds a room, mixtures/s and training rate), the card's
+``nvidia-smi`` name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``. Exits non-zero, without that line, when there is no CUDA
+card or any phase fails.
 """
 
 from __future__ import annotations
@@ -294,7 +325,8 @@ BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 B, CHANNELS, SECONDS, FS = 16, 6, 4.0, 8000
-B_TRAIN, TRAIN_STEPS = 8, 20
+B_TRAIN, TRAIN_STEPS = 8, 10  # fits on a fixed batch; 20 until phases 50-54 needed the
+# time (phase 7 keeps check_gradients.fit's 20 steps); every loss falls within 10
 FLAGSHIP = dict(dim_input=12, dim_output=4, num_layers=8, dim_hidden=96, dim_ffn=192,
                 num_heads=4, kernel_size=(5, 3), conv_groups=(8, 8), dim_squeeze=8,
                 num_freqs=129, full_share=0)
@@ -397,7 +429,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/49 device")
+    log("phase 1/54 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -405,7 +437,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/49 build (plain nvcc, sm_90a)")
+    log("phase 2/54 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -415,7 +447,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/49 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/54 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -467,7 +499,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/49 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/54 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -508,7 +540,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/49 times (CUDA events, after warm-up)")
+    log("phase 5/54 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -575,6 +607,11 @@ def main() -> int:
     scan_n_phases(dev, rows67)
     fresh_start()
     rows67[0]["online_models"] = {**online_n_phases(dev), "ret_2_share_qk": retention_phase(dev)}
+    fresh_start()
+    runs = training_runs(dev, row2["train_audio_s_per_s"])
+    row2["launches_cli_fit"] = runs["cli_fit_launches"][2]
+    rows67[0]["launches_moving_fit"], rows67[1]["launches_moving_fit"] = runs["moving_fit_launches"]
+    runs.pop("moving_fit_launches")
     rows45[0].update(wide4, **nbc2_row4)
     rows45[1].update(wide5, **nbc2_row5)
     row2.update(nbc2_row2)
@@ -588,8 +625,10 @@ def main() -> int:
         "launches": launches, "tc_launches": serve_tc, "launches_training": train_launches,
         "max_abs_err": err32, "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms,
         "ms_fp32": ms_fp32, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, **nbc2_row1},
+        "library_ms": library_ms, "launches_cli_fit": runs.pop("cli_fit_launches")[0],
+        **nbc2_row1},
         row2, row1_wide, row2_wide, row3, *rows67, *rows45, row8]}), flush=True)
+    print(json.dumps({"training_runs": runs, "device": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -655,7 +694,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/49 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/54 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -719,8 +758,8 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/49 training: Trainer fits {B_TRAIN} SyntheticDataset items "
-        f"({CHANNELS} ch x {SECONDS:g} s) for {TRAIN_STEPS} steps, bf16")
+    log(f"phase 7/54 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+        f"({CHANNELS} ch x {SECONDS:g} s) for {check_gradients.STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     ab.wide_launches = ab.bwd_wide_launches = 0
     module, trainer, batch, losses = check_gradients.fit(dev)  # data and init launch nothing
@@ -736,12 +775,12 @@ def training_phases(dev):
     fit_fwd, fit_bwd, fit_tc = fit[0], fit[2], fit[3]
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
     log(f"launches: fit {fit[0]} forward ({fit[1]} on the tensor-core kernel) + {fit[2]} "
-        f"backward ({fit[3]} on the tensor-core kernel) in {TRAIN_STEPS} steps; one step "
-        f"{step[0]} ({step[1]}) + {step[2]} ({step[3]})")
-    if fit != (TRAIN_STEPS * n_layers,) * 4 or step != (n_layers,) * 4:
+        f"backward ({fit[3]} on the tensor-core kernel) in {check_gradients.STEPS} steps; "
+        f"one step {step[0]} ({step[1]}) + {step[2]} ({step[3]})")
+    if fit != (check_gradients.STEPS * n_layers,) * 4 or step != (n_layers,) * 4:
         raise AssertionError(f"expected {n_layers} forward and {n_layers} backward launches "
                              "a step, every one on the tensor-core kernels")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    if len(losses) != check_gradients.STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
@@ -751,7 +790,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/49 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/54 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -760,7 +799,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/49 times (CUDA events, after warm-up)")
+    log("phase 9/54 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -871,7 +910,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/49 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/54 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -906,7 +945,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/49 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/54 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -937,7 +976,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/49 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/54 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -974,7 +1013,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/49 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/54 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -995,7 +1034,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/49 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/54 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1054,7 +1093,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/49 times (CUDA events, after warm-up)")
+    log("phase 15/54 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1193,7 +1232,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/49 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/54 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1251,7 +1290,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/49 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/54 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1309,7 +1348,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/49 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/54 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1348,7 +1387,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/49 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/54 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1370,7 +1409,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/49 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/54 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1434,7 +1473,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/49 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/54 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1581,7 +1620,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/49 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/54 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1663,7 +1702,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/49 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/54 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1724,7 +1763,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/49 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/54 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1773,7 +1812,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/49 times (CUDA events, after warm-up)")
+    log("phase 25/54 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -1825,7 +1864,9 @@ def nbc_phases(dev):
     del xb
 
     # rows 4-5 at dh = 216: the forward at the serving count, the backward at Ma
-    qf, kf, vf = (torch.randn(M, T, nh * d, generator=gen).to(dev).to(torch.bfloat16)
+    # drawn on the card: two of these are 1.8 G elements, which the CPU takes half a minute to draw
+    gen_dev = torch.Generator(device=dev).manual_seed(25)
+    qf, kf, vf = (torch.randn(M, T, nh * d, generator=gen_dev, device=dev).to(torch.bfloat16)
                   for d in (dhp, dhp, dv))
     wide_ms = cuda_ms(lambda: att.forward(qf, kf, vf, None, nh), iters=5)
     q32, k32, v32 = (t.float() for t in (qf, kf, vf))
@@ -1994,7 +2035,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/49 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/54 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -2075,7 +2116,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/49 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/54 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2120,7 +2161,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/49 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/54 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -2182,7 +2223,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/49 times (CUDA events, after warm-up)")
+    log("phase 29/54 times (CUDA events, after warm-up)")
     ffn = tconvffn_times(xb, p, G)
     ffn_ms, ffn_plain_ms, ffn_library_ms = ffn["ms"], ffn["plain_ms"], ffn["library_ms"]
     ffn_bound, ffn_by, ffn_bytes, ffn_ops = ffn["bound_ms"], ffn["bound_by"], ffn["bytes"], ffn["ops"]
@@ -2371,7 +2412,7 @@ def nbc2_phases(dev):
     ops = (ln, A, Wvo)
 
     # 30. rows 1-2 at nh 2
-    log(f"phase 30/49 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+    log(f"phase 30/54 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh} (dh {dh})")
     tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2480,7 +2521,7 @@ def nbc2_phases(dev):
     # 31. rows 4-5 at dh = dv = 48
     Ma = 2 * n_freq
     causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
-    log(f"phase 31/49 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+    log(f"phase 31/54 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
         f"dh=dv={dh}, no mask and causal")
     tc0, btc0 = att.tc_launches, att.bwd_tc_launches
     att_errs = {}
@@ -2564,7 +2605,7 @@ def nbc2_phases(dev):
     check_budget("attention at dh 48")
 
     # 32. serving
-    log(f"phase 32/49 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 32/54 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2607,7 +2648,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 serving")
 
     # 33. training
-    log(f"phase 33/49 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 33/54 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2633,7 +2674,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 training")
 
     # 34. rates
-    log("phase 34/49 NBC2-small rates")
+    log("phase 34/54 NBC2-small rates")
     serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
     torch.cuda.reset_peak_memory_stats()
     train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
@@ -2688,7 +2729,7 @@ def blstm_phases(dev):
                 + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
 
     # 35. serving
-    log(f"phase 35/49 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+    log(f"phase 35/54 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
         f"ch, {SECONDS:g} s, bf16 and fp32")
     gen = torch.Generator().manual_seed(8)
     net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -2726,7 +2767,7 @@ def blstm_phases(dev):
     check_budget("nb-blstm serving")
 
     # 36. training
-    log(f"phase 36/49 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 36/54 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2753,7 +2794,7 @@ def nbss_phase(dev):
     from nbss_tpu_torch.models.nbss import NBSS
     from nbss_tpu_torch.ops import attention_block as ab
 
-    log(f"phase 37/49 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+    log(f"phase 37/54 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
         "B=2): one forward for each arch in fp32 and bf16")
     gen = torch.Generator().manual_seed(9)
     wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
@@ -2800,7 +2841,7 @@ def nbc_training_phases(dev):
     out = {}
     for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
         bsz = NBC_B_TRAIN[dropout]
-        log(f"phase {phase}/49 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
+        log(f"phase {phase}/54 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
             f"SyntheticDataset items ({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for "
             f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, bf16")
         batch = fixed_batch(bsz, NBC_CHANNELS, NBC_FS)
@@ -2819,8 +2860,9 @@ def nbc_training_phases(dev):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check_losses(losses)
         per_step = n_layers if dropout == 0 else 0  # the block is off while dropout is active
-        log(f"launches in {TRAIN_STEPS} steps: attention_block_relpos {fit[0]} ({fit[1]} on the "
-            f"tensor-core kernel), the narrow-band attention {fit[2]}; peak memory {peak:.1f} GiB")
+        log(f"launches in {TRAIN_STEPS} steps: attention_block_relpos {fit[0]} ({fit[1]} "
+            f"on the tensor-core kernel), the narrow-band attention {fit[2]}; peak memory "
+            f"{peak:.1f} GiB")
         if fit != (TRAIN_STEPS * per_step,) * 2 + (0,):
             raise AssertionError(f"expected {per_step} relative-position launches a step, all on "
                                  "the tensor-core kernel, and no narrow-band attention")
@@ -2989,7 +3031,7 @@ def large_phases(dev):
     ops = (ln, A, Wvo)
 
     # 40. rows 1-2 on the wide route
-    log(f"phase 40/49 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
+    log(f"phase 40/54 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh}; M = {M_EDGE}, T = 1 ... {T_long} at H = 96 and 192, nh 2, 3, 4")
     counts0 = wide_counts()
     n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
@@ -3089,7 +3131,7 @@ def large_phases(dev):
     check_budget("wide route")
 
     # 41. SpatialNet-large serving, fused_ffn off and on
-    log(f"phase 41/49 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 41/54 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16, fused_ffn off and on")
     net = SpatialNet(**LARGE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -3136,7 +3178,7 @@ def large_phases(dev):
     check_budget("spatialnet-large serving")
 
     # 42. long utterances: 16 s, T = 1001
-    log(f"phase 42/49 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
+    log(f"phase 42/54 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
         f"{LONG_SECONDS:g} s (T = {T_long}), bf16, through the wide route")
     wave_long = (0.1 * torch.randn(B_LONG, CHANNELS, int(LONG_SECONDS * FS), generator=gen)).to(dev)
     long_rates, long_sdrs = {}, {}
@@ -3174,7 +3216,7 @@ def large_phases(dev):
     check_budget("long-utterance serving")
 
     # 43. SpatialNet-large training
-    log(f"phase 43/49 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 43/54 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"for {TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -3232,7 +3274,7 @@ def large_phases(dev):
 
     # 44. NBC2-large
     nl2 = NBC2_LARGE_CFG["n_layers"]
-    log(f"phase 44/49 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
+    log(f"phase 44/54 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
         f"{NBC2_LARGE_CFG['n_heads']} heads, {nl2} layers): serving B={B} and "
         f"{NBC2_LARGE_STEPS} training steps at B={B_TRAIN}, bf16")
     net2 = NBC2(**NBC2_LARGE_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3339,7 +3381,7 @@ def scan_n_phases(dev, rows67):
         return [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins)]
 
     # 45. kernels vs plain
-    log(f"phase 45/49 selective_scan and its backward at N = {SCAN_N} (passes of "
+    log(f"phase 45/54 selective_scan and its backward at N = {SCAN_N} (passes of "
         f"{ssm.STATE_GROUP} states) vs plain: forward at M={M_serve}, backward at M={M_train}, "
         f"T={T}, D={Dm}")
     checked = {}
@@ -3397,7 +3439,7 @@ def scan_n_phases(dev, rows67):
     check_budget("scan at any N")
 
     # 46. times
-    log(f"phase 46/49 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
+    log(f"phase 46/54 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
         "bf16, after warm-up)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -3499,7 +3541,7 @@ def online_n_phases(dev):
 
     # 47. mamba(64,4)
     cfg = dict(FLAGSHIP, attention=f"mamba({MAMBA_WIDE_N},4)")
-    log(f"phase 47/49 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
+    log(f"phase 47/54 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
         f"{WIDE_N_STEPS} training steps at B={B_TRAIN} (remat, dots), bf16")
     module = _online_module(OnlineSpatialNet(**cfg, dtype=torch.bfloat16, generator=gen,
                                              device=dev).eval())
@@ -3542,7 +3584,7 @@ def online_n_phases(dev):
     check_budget("mamba(64,4)")
 
     # 48. mamba(16,4), remat_policy='dots'
-    log(f"phase 48/49 OnlineSpatialNet {ONLINE['attention']} with remat_policy='dots': "
+    log(f"phase 48/54 OnlineSpatialNet {ONLINE['attention']} with remat_policy='dots': "
         f"{TRAIN_STEPS}-step fit at B={B_TRAIN}, fp32 gradients against full recomputation, "
         "rates and peak memory of both policies in turns")
     losses = []
@@ -3604,7 +3646,7 @@ def retention_phase(dev):
     from nbss_tpu_torch.ops.metrics import si_sdr
 
     gen = torch.Generator().manual_seed(49)
-    log(f"phase 49/49 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
+    log(f"phase 49/54 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
         f"streaming B={B_STREAM}, {TRAIN_STEPS}-step fit at B={B_TRAIN} with "
         "remat_policy='dots', fp32 gradients")
     net = OnlineSpatialNet(**RET, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3680,6 +3722,288 @@ def retention_phase(dev):
             "stream_sdr_db_fp32": stream["fp32"][0], "stream_sdr_db_bf16": stream["bf16"][0],
             "stream_vs_chunkwise_sdr_db_fp32": stream["fp32"][1],
             "train_audio_s_per_s": B_TRAIN * SECONDS / train_s, "train_peak_gib": peak}
+
+
+# configs/datasets/device_synth.yaml's corpus as scripts/run_spatialnet_convergence.sh:23-26
+# renders it, and configs/datasets/device_synth_moving.yaml's as
+# scripts/run_moving_convergence.sh:28-30 does; RIR_NUMS rooms of each (train, val, test)
+STATIC_SIM = ["--spk_num=2", "--noise_num=0", "--arr_geometry=circular+cm", "--mic_num=6",
+              "--fs=8000", "--RT60_lim", "0.1", "0.6", "--length_round=2048", "--seed=0"]
+MOVING_SIM = ["--spk_num=2", "--fs=8000", "--trajectory=4points+sin,0.5", "--seed=0"]
+RIR_NUMS, MOVING_RIR_NUMS = (8, 2, 2), (2, 1, 1)
+CLI_ITEMS, CLI_EPOCHS = [32, 8, 4, 4], 2  # items a stage; 4 steps of B=8 an epoch
+MOVING_STEPS = 2
+MIX_EPOCHS = 3  # train loaders timed by phase 51 (4 batches of 8 each)
+
+
+def _sim_args(rir_dir: str, flags, nums) -> list:
+    return [f"--rir_dir={rir_dir}", *flags, "--rir_nums", *map(str, nums)]
+
+
+def _rendered(rir_dir: str, flags, nums, label: str) -> float:
+    """Render a corpus through ``python -m nbss_tpu_torch.sim.generate``'s
+    main on the card; returns seconds a room."""
+    import torch
+
+    from nbss_tpu_torch.sim.generate import main as generate
+
+    t1 = time.perf_counter()
+    generate(_sim_args(rir_dir, flags, nums))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    n = sum(nums)
+    log(f"{label}: {n} rooms rendered on the card in {seconds:.2f} s = {seconds / n:.3f} s a room")
+    return seconds / n
+
+
+def _cli(sub: str, args: list, extra=()) -> dict:
+    from nbss_tpu_torch.cli.main import run
+
+    return run([sub, *args, *extra])
+
+
+def _ab_counts():
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    return (ab.launches, ab.tc_launches, ab.bwd_launches, ab.bwd_tc_launches,
+            ab.wide_launches + ab.bwd_wide_launches)
+
+
+def _zero_counts() -> None:
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops import ssm
+
+    ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
+    ab.wide_launches = ab.bwd_wide_launches = 0
+    ssm.launches = ssm.bwd_launches = 0
+
+
+def training_runs(dev, fixed_rate: float) -> dict:
+    """Phases 50-54: the two committed training runs as users launch them.
+    Rooms rendered on the card, mixtures made on the card, ``fit`` through
+    the command line with SpatialNet-small, then ``validate``/``test``/
+    ``predict`` and a resumed ``fit``, then OnlineSpatialNet on the moving
+    corpus. Returns numbers for the ``kernels`` line."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch.cli import yamlio
+    from nbss_tpu_torch.cli.config import instantiate, load_configs
+    from nbss_tpu_torch.cli.main import build_module
+    from nbss_tpu_torch.data.device_mix import DeviceSyntheticDataModule, mix_draws
+    from nbss_tpu_torch.ops import ssm
+    from nbss_tpu_torch.sim.config import RirConfigSampler
+    from nbss_tpu_torch.sim.ism import simulate_direct_path, simulate_rir
+    from nbss_tpu_torch.train.loop import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="nbss_chip_smoke_") as tmp:
+        rir_dir = os.path.join(tmp, "rir8k")
+        # 50. rooms
+        log(f"phase 50/54 rooms: nbss_tpu_torch.sim.generate with "
+            f"run_spatialnet_convergence.sh's flags, --rir_nums {' '.join(map(str, RIR_NUMS))}")
+        out["sim_s_per_room"] = _rendered(rir_dir, STATIC_SIM, RIR_NUMS, "static corpus")
+        par = RirConfigSampler(spk_num=2, noise_num=0, arr_geometry="circular+cm", mic_num=6,
+                               fs=FS, RT60_lim=(0.1, 0.6), seed=0).sample(0)
+        args = (par["room_sz"], par["pos_src"], par["pos_rcv"], par["RT60"], FS)
+        kw = dict(beta=par.get("beta"), length_round=2048)
+        card = np.load(os.path.join(rir_dir, "train", "0.npz"), allow_pickle=True)["rir"]
+        t1 = time.perf_counter()
+        cpu = simulate_rir(*args, **kw, device="cpu")
+        cpu_s = time.perf_counter() - t1
+        again = simulate_rir(*args, **kw, device=dev)
+        err, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
+        log(f"room 0 (RT60 {par['RT60']:.3f} s, rir {card.shape}): card vs CPU max |diff| "
+            f"{err:.3e} = {err / scale:.2e} x max|rir| (bound 1e-4); the CPU took {cpu_s:.1f} s; "
+            f"a second render on the card bit-identical: {np.array_equal(card, again)}")
+        if card.shape != cpu.shape or not err <= 1e-4 * scale:
+            raise AssertionError(f"room 0: card vs CPU {err} > 1e-4 x {scale}")
+        if not np.array_equal(card, again):
+            raise AssertionError("room 0: two renders on the card differ")
+        d, c = 2.0, 343.0
+        dp = simulate_direct_path([5.0, 4.0, 3.0], [1.0, 2.0, 1.5], [[3.0, 2.0, 1.5]], FS,
+                                  device=dev)[0, 0]
+        peak, gain = int(np.argmax(np.abs(dp))), float(dp.sum())
+        log(f"direct path at {d} m: peak at sample {peak} (d / c = {d / c * FS:.2f}), sum "
+            f"{gain:.6f} (1 / (4 pi d) = {1 / (4 * np.pi * d):.6f})")
+        if abs(peak - d / c * FS) > 1 or abs(gain * 4 * np.pi * d - 1) > 1e-3:
+            raise AssertionError("direct path: delay or amplitude off")
+        check_budget("rooms")
+
+        # 51. mixtures
+        log("phase 51/54 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
+            "preloaded, B=8 on the card against the CPU")
+        init = load_configs(["configs/datasets/device_synth.yaml"])["data"]["init_args"]
+        kw = dict(init, rir_dir=rir_dir, num_items=CLI_ITEMS, preload_rir=True,
+                  seeds=(5, 2, 3, 3))
+        dms = {name: DeviceSyntheticDataModule(**kw, device=name) for name in ("cuda", "cpu")}
+        batches = {name: next(iter(dm.train_dataloader())) for name, dm in dms.items()}
+        (x, ys, paras), (xc, ysc, parasc) = batches["cuda"], batches["cpu"]
+        if [p["seed"] for p in paras] != [p["seed"] for p in parasc] or \
+                [p["rir_file"] for p in paras] != [p["rir_file"] for p in parasc]:
+            raise AssertionError("host picks (seeds, rooms) differ between the card and the CPU")
+        seeds = torch.tensor([p["seed"] % 2 ** 31 for p in paras])
+        draws = {name: mix_draws(dm.stage_key(0), seeds, dm.ovlp, dm.speech_overlap_ratio,
+                                 int(4.0 * FS), len(dm.noise_type)) for name, dm in dms.items()}
+        for k in ("keys", "ks", "lens", "shifts", "noise_type"):
+            if not torch.equal(draws["cuda"][k].cpu(), draws["cpu"][k]):
+                raise AssertionError(f"draw {k} differs between the card and the CPU")
+        errs = {n: float((a.cpu() - b).abs().max()) for n, a, b in (("x", x, xc), ("ys", ys, ysc))}
+        log(f"train batch {tuple(x.shape)}, {tuple(ys.shape)}: seeds, rooms, keys, segments and "
+            f"noise types equal; card vs CPU max |diff| x {errs['x']:.2e}, ys {errs['ys']:.2e} "
+            "(atol 2e-5, rtol 1e-4)")
+        torch.testing.assert_close(x.cpu(), xc, atol=2e-5, rtol=1e-4)
+        torch.testing.assert_close(ys.cpu(), ysc, atol=2e-5, rtol=1e-4)
+        out["mix_max_abs_err"] = max(errs.values())
+        dm = dms["cuda"]
+        for _ in dm.train_dataloader(0):  # warm-up
+            pass
+        torch.cuda.synchronize()
+        n, t1 = 0, time.perf_counter()
+        for epoch in range(MIX_EPOCHS):
+            for xb, _, _ in dm.train_dataloader(epoch):
+                n += xb.shape[0]
+        torch.cuda.synchronize()
+        out["mixtures_per_s"] = n / (time.perf_counter() - t1)
+        log(f"{n} mixtures (B=8, 6 ch x 4 s) made at {out['mixtures_per_s']:.1f} mixtures/s "
+            "(host picks, index upload and mixing)")
+        del dms, dm, batches, x, ys, xc, ysc
+        fresh_start()
+        check_budget("mixtures")
+
+        # 52. fit through the command line
+        logs = os.path.join(tmp, "logs")
+        args = ["--config=configs/SpatialNet.yaml", "--config=configs/datasets/device_synth.yaml",
+                "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={rir_dir}",
+                f"--data.init_args.num_items={CLI_ITEMS}", f"--log_root={logs}",
+                "--model.val_host_metrics=[STOI, eSTOI]", "--model.val_host_metrics_every=1"]
+        steps = CLI_EPOCHS * CLI_ITEMS[0] // 8
+        log(f"phase 52/54 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
+            f"--config=configs/datasets/device_synth.yaml, full width, bf16-mixed, {CLI_EPOCHS} "
+            f"epochs of {CLI_ITEMS[0] // 8} steps at B=8, host metrics STOI/eSTOI every epoch")
+        _zero_counts()
+        fit = _cli("fit", args, [f"--trainer.max_epochs={CLI_EPOCHS}"])
+        torch.cuda.synchronize()
+        counts = _ab_counts()
+        log_dir = fit["log_dir"]
+        n_layers = FLAGSHIP["num_layers"]
+        val_forwards = CLI_EPOCHS * 2  # one validation batch and one host-metric batch an epoch
+        want = (n_layers * (steps + val_forwards),) * 2 + (n_layers * steps,) * 2 + (0,)
+        log(f"attention_block launches: {counts[0]} forward ({counts[1]} tensor-core), "
+            f"{counts[2]} backward ({counts[3]} tensor-core), {counts[4]} wide; "
+            f"{steps} steps and {val_forwards} validation forwards: {n_layers} + {n_layers} a step")
+        if counts != want:
+            raise AssertionError(f"CLI fit launches {counts}, expected {want}")
+        records = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+        losses = [r["value"] for r in records if r["key"] == "train/neg_si_sdr"]
+        host = {r["key"]: r["value"] for r in records if r["key"] in ("val/STOI", "val/eSTOI")}
+        files = ["config.yaml", "provenance.txt", "model.txt", "metrics.jsonl",
+                 "checkpoints/epoch0/params", "checkpoints/epoch1/params"]
+        missing = [f for f in files if not os.path.exists(os.path.join(log_dir, f))]
+        log(f"{os.path.basename(log_dir)}: epoch losses {losses}, {host}, files present: "
+            f"{not missing}")
+        if len(losses) != CLI_EPOCHS or not np.isfinite(losses).all() or missing or \
+                set(host) != {"val/STOI", "val/eSTOI"}:
+            raise AssertionError(f"CLI fit: losses {losses}, host metrics {host}, "
+                                 f"missing {missing}")
+        if yamlio.load(os.path.join(log_dir, "config.yaml"))["data"]["init_args"]["rir_dir"] != \
+                rir_dir:
+            raise AssertionError("config.yaml does not hold the run's config")
+        out["cli_fit_launches"] = counts
+        # the rate of the path the CLI runs: mixing on the card and the train step, B=8
+        cfg = load_configs(["configs/SpatialNet.yaml", "configs/datasets/device_synth.yaml"],
+                           {"data.init_args.rir_dir": rir_dir,
+                            "data.init_args.num_items": CLI_ITEMS})
+        data = instantiate(cfg["data"], device=str(dev))
+        trainer = Trainer(build_module(cfg, dev), device=dev)
+        trainer.init()
+        for batch in data.train_dataloader(0):  # warm-up epoch
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        n, t1 = 0, time.perf_counter()
+        for epoch in (1, 2):
+            for batch in data.train_dataloader(epoch):
+                trainer.train_step(batch)
+                n += batch[0].shape[0]
+        torch.cuda.synchronize()
+        out["cli_train_audio_s_per_s"] = n * SECONDS / (time.perf_counter() - t1)
+        log(f"training rate with mixing on the card: {out['cli_train_audio_s_per_s']:.1f} "
+            f"audio-s/s ({n} items); phase 9's fixed batch: {fixed_rate:.1f} audio-s/s")
+        del trainer, data
+        fresh_start()
+        check_budget("CLI fit")
+
+        # 53. validate, test, predict, resume
+        ckpt = os.path.join(log_dir, "checkpoints", f"epoch{CLI_EPOCHS - 1}")
+        log(f"phase 53/54 validate, test (the config's metrics), predict and a resumed fit "
+            f"from {os.path.relpath(ckpt, tmp)}")
+        _zero_counts()
+        val = _cli("validate", args, ["--ckpt_path", ckpt])
+        test = _cli("test", args, ["--ckpt_path", ckpt])
+        pred = _cli("predict", args, ["--ckpt_path", ckpt])
+        resumed = _cli("fit", args, ["--ckpt_path", ckpt, f"--trainer.max_epochs={CLI_EPOCHS + 1}"])
+        torch.cuda.synchronize()
+        counts = _ab_counts()
+        test_dir = test["log_dir"]
+        results = [f for f in os.listdir(test_dir) if f.startswith("results_")]
+        wavs = [f for f in os.listdir(os.path.join(pred["log_dir"], "examples"))
+                if f.endswith(".wav")]
+        shown = {k: round(v, 3) for k, v in test.items() if isinstance(v, float)
+                 and k != "id" and not k.startswith("input_") and not k.endswith("_i")}
+        log(f"validate: val/metric {val['val/metric']:.3f}; test over {test['num_items']} items: "
+            f"{shown}; files {sorted(results)}; predict wrote {len(wavs)} WAVs; resumed fit in "
+            f"{os.path.basename(resumed['log_dir'])}, train loss {resumed['train_loss']:.3f}; "
+            f"attention_block launches {counts}")
+        need = {"SDR", "SI_SDR", "eSTOI"}
+        if not (np.isfinite(val["val/metric"]) and test["num_items"] == CLI_ITEMS[2]
+                and need <= set(test) and ("NB_PESQ" in test or "NB_PESQ_est" in test)
+                and "results_mean.json" in results and "results_incremental.jsonl" in results
+                and len(results) == 3 and len(wavs) == 2 * CLI_ITEMS[3]
+                and os.path.abspath(resumed["log_dir"]) == os.path.abspath(log_dir)
+                and os.path.exists(os.path.join(log_dir, "checkpoints",
+                                                f"epoch{CLI_EPOCHS}", "params"))
+                and np.isfinite(resumed["train_loss"])):
+            raise AssertionError(f"subcommands: validate {val}, test {test}, predict {pred}, "
+                                 f"resumed {resumed}, results {results}, wavs {len(wavs)}")
+        if counts[1] != counts[0] or counts[3] != counts[2] or counts[2] != \
+                n_layers * CLI_ITEMS[0] // 8:
+            raise AssertionError(f"subcommands' launches {counts}: not all on the tensor-core "
+                                 "kernels, or not one epoch of backward launches")
+        fresh_start()
+        check_budget("subcommands")
+
+        # 54. the moving run
+        mdir = os.path.join(tmp, "rir8k_moving")
+        log(f"phase 54/54 moving run: sim.generate with run_moving_convergence.sh's flags, "
+            f"--rir_nums {' '.join(map(str, MOVING_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml "
+            f"+ device_synth_moving.yaml, {MOVING_STEPS} steps at B=8")
+        out["moving_sim_s_per_room"] = _rendered(mdir, MOVING_SIM, MOVING_RIR_NUMS,
+                                                 "moving corpus")
+        margs = ["--config=configs/onlineSpatialNet.yaml",
+                 "--config=configs/datasets/device_synth_moving.yaml",
+                 "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={mdir}",
+                 "--data.init_args.num_items=[16, 8, 4, 4]", "--trainer.max_epochs=1",
+                 f"--trainer.limit_train_batches={MOVING_STEPS}", f"--log_root={logs}"]
+        _zero_counts()
+        moving = _cli("fit", margs)
+        torch.cuda.synchronize()
+        scans = (ssm.launches, ssm.bwd_launches)
+        want = (4 * n_layers * MOVING_STEPS + 2 * n_layers, 2 * n_layers * MOVING_STEPS)
+        log(f"{os.path.basename(os.path.dirname(moving['log_dir']))}/"
+            f"{os.path.basename(moving['log_dir'])}: train loss {moving['train_loss']:.3f}, "
+            f"val/metric {moving['val/metric']:.3f}; scan launches {scans[0]} + {scans[1]} "
+            f"({4 * n_layers} + {2 * n_layers} a step under remat_policy='dots', "
+            f"{2 * n_layers} for the validation batch)")
+        if scans != want or not np.isfinite(moving["train_loss"]):
+            raise AssertionError(f"moving fit: scan launches {scans}, expected {want}; "
+                                 f"loss {moving['train_loss']}")
+        out["moving_fit_launches"] = scans
+        fresh_start()
+        check_budget("moving run")
+    return out
 
 
 if __name__ == "__main__":

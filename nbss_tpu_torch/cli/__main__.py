@@ -1,0 +1,4 @@
+from nbss_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    main()

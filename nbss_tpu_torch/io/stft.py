@@ -18,6 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+PARAS_16K = dict(n_fft=512, n_hop=256, win_len=512)
+PARAS_8K = dict(n_fft=256, n_hop=128, win_len=256)
+
 
 def periodic_hann(n: int, dtype=np.float32) -> np.ndarray:
     """torch.hann_window(n, periodic=True) == 0.5 * (1 - cos(2*pi*k/n))."""

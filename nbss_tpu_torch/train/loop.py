@@ -4,22 +4,27 @@ Counterpart of ``nbss_tpu/train/loop.py`` for one device: a train step is
 forward + uPIT loss + backward + the clipped optimizer step; the learning
 rate is scheduled per epoch on the host (ExponentialLR or ReduceLROnPlateau
 on the validation metric); every epoch is checkpointed; early stopping
-watches the validation metric; and each epoch ends with a summary line.
-Parameters are drawn from a ``torch.Generator`` seeded with ``seed``.
+watches the validation metric; host metrics (PESQ, STOI) are taken on the
+validation set every few epochs; a profiler trace of a few steps can be
+written; and each epoch ends with a summary line. Parameters are drawn from
+a ``torch.Generator`` seeded with ``seed``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from nbss_tpu_torch.models.base import init_parameters
 from nbss_tpu_torch.train.ckpt import CheckpointManager
 from nbss_tpu_torch.train.module import TrainModule
 from nbss_tpu_torch.train.optim import LRSchedule, Optimizer
+from nbss_tpu_torch.utils.device import resolve
 
 
 class Trainer:
@@ -35,10 +40,21 @@ class Trainer:
         val_metric_mode: str = "max",
         early_stopping: Optional[Dict[str, Any]] = None,
         detect_unused_parameters: bool = False,
+        val_host_metrics: Optional[Sequence[str]] = None,
+        val_host_metrics_every: int = 5,
+        val_host_metrics_batches: Optional[int] = None,
+        profile_dir: Optional[str] = None,
+        profile_steps: Tuple[int, int] = (10, 15),
         device="cuda",
     ):
         """early_stopping: e.g. {'monitor': 'val/metric', 'patience': 10,
-        'mode': 'max', 'min_delta': 0.1}; disabled when None."""
+        'mode': 'max', 'min_delta': 0.1}; disabled when None.
+
+        val_host_metrics: e.g. ('NB_PESQ', 'STOI'), host metrics taken every
+        ``val_host_metrics_every`` epochs over the validation set (at most
+        ``val_host_metrics_batches`` batches when set). profile_dir: a
+        ``torch.profiler`` trace of train steps [a, b) = ``profile_steps`` of
+        the first epoch is written there as Chrome trace JSON."""
         self.module = module
         self.optimizer_spec = optimizer
         self.gradient_clip_val = gradient_clip_val
@@ -51,7 +67,13 @@ class Trainer:
         self.val_metric_mode = val_metric_mode
         self.early_stopping = early_stopping
         self.detect_unused_parameters = detect_unused_parameters
-        self.device = torch.device(device)
+        self.val_host_metrics = tuple(val_host_metrics) if val_host_metrics else None
+        self.val_host_metrics_every = val_host_metrics_every
+        self.val_host_metrics_batches = val_host_metrics_batches
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
+        self._profiler = None
+        self.device = resolve(device)
         self.epoch = 0
         self.opt: Optional[Optimizer] = None
         self._es_best: Optional[float] = None
@@ -115,6 +137,7 @@ class Trainer:
             self.init()
         history: Dict[str, float] = {}
         checked_unused = self.epoch > 0 or not self.detect_unused_parameters
+        first_epoch = self.epoch  # the profiler captures only this epoch
         for epoch in range(self.epoch, max_epochs):
             t0 = time.time()
             losses = []
@@ -122,12 +145,15 @@ class Trainer:
             for step, batch in enumerate(it):
                 if steps_per_epoch is not None and step >= steps_per_epoch:
                     break
+                if self.profile_dir and epoch == first_epoch:
+                    self._profile_hook(step)
                 losses.append(self.train_step(batch))
                 if not checked_unused:
                     self._warn_unused_parameters()
                     checked_unused = True
                 if (step + 1) % log_every == 0:
                     self.logger(f"train/{self.module.loss.name}", float(losses[-1]), epoch)
+            self._stop_profiler()
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             history["train_loss"] = train_loss
             self.logger(f"train/{self.module.loss.name}", train_loss, epoch)
@@ -135,6 +161,8 @@ class Trainer:
             val_metric = None
             if val_data is not None:
                 val_logs = self.validate(val_data)
+                if self.val_host_metrics and (epoch + 1) % self.val_host_metrics_every == 0:
+                    val_logs.update(self._host_metrics(val_data))
                 for k, v in val_logs.items():
                     self.logger(k, v, epoch)
                 history.update(val_logs)
@@ -159,6 +187,56 @@ class Trainer:
             if self.early_stopping and val_metric is not None and self._should_stop(val_metric):
                 break
         return history
+
+    def _profile_hook(self, step: int) -> None:
+        """Start ``torch.profiler`` at the first profiled step, stop it at the last."""
+        a, b = self.profile_steps
+        if step == a:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif step == b:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        if self._profiler is None:
+            return
+        self._profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_epoch{self.epoch}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        print(f"profiler trace written to {path}", flush=True)
+
+    def _host_metrics(self, val_data) -> Dict[str, float]:
+        """Host metrics (PESQ/STOI/...) over validation batches; an item whose
+        metric is missing or not finite (say STOI of a near-silent segment)
+        is left out of that metric's mean."""
+        from nbss_tpu_torch.eval.metrics import cal_metrics
+
+        self.arch.eval()
+        it = val_data() if callable(val_data) else iter(val_data)
+        sums: Dict[str, float] = {}
+        counts: Dict[str, int] = {}
+        for bi, batch in enumerate(it):
+            if (self.val_host_metrics_batches is not None
+                    and bi >= self.val_host_metrics_batches):
+                break
+            x, ys = self.to_device(batch)
+            paras = batch[2] if len(batch) > 2 else [{}]
+            fs = paras[0].get("sample_rate", 8000) if paras else 8000
+            yhat = self.module.predict_step(x, norm_if_exceed_1=False).float().cpu().numpy()
+            yr = ys[:, :, self.module.ref_channel, :].float().cpu().numpy()
+            for b in range(yhat.shape[0]):
+                m, _, _ = cal_metrics(self.val_host_metrics, yhat[b], yr[b], yr[b], fs,
+                                      device_only="host")
+                for k, v in m.items():
+                    if isinstance(v, (int, float)) and np.isfinite(v):
+                        sums[k] = sums.get(k, 0.0) + v
+                        counts[k] = counts.get(k, 0) + 1
+        return {f"val/{k}": sums[k] / counts[k] for k in sums}
 
     def _warn_unused_parameters(self) -> None:
         """After the first step: warn for each parameter whose gradient is

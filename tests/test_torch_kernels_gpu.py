@@ -1311,3 +1311,45 @@ def test_spatialnet_fused_ffn_gradients_match_plain_path(card, dtype):
             gp = grads[1][name]
             torch.testing.assert_close(gk, gp, atol=5e-3 * gp.abs().max().item(), rtol=0,
                                        msg=name)
+
+
+# ---------------------------------------------------------------- rooms and mixtures
+@pytest.mark.gpu
+def test_room_render_on_the_card_matches_the_cpu(card):
+    """sim/ism.py on the card against the same code on the CPU: within 1e-4
+    x max|rir|, and two renders on the card bit-identical."""
+    from nbss_tpu_torch.sim import RirConfigSampler, simulate_rir
+
+    par = RirConfigSampler(spk_num=2, noise_num=0, RT60_lim=(0.2, 0.4), seed=4).sample(0)
+    args = (par["room_sz"], par["pos_src"], par["pos_rcv"], par["RT60"], 8000)
+    kw = dict(beta=par.get("beta"), length_round=2048)
+    cpu = simulate_rir(*args, **kw, device="cpu")
+    got = simulate_rir(*args, **kw, device="cuda")
+    np.testing.assert_allclose(got, cpu, atol=1e-4 * np.abs(cpu).max(), rtol=0)
+    np.testing.assert_array_equal(simulate_rir(*args, **kw, device="cuda"), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moving", [False, True])
+def test_mixed_batch_on_the_card_matches_the_cpu(card, tmp_path, moving):
+    """data/device_mix.py on the card against the CPU over a corpus the
+    card rendered: the same host picks and draws, x and ys within atol 2e-5
+    and rtol 1e-4."""
+    from nbss_tpu_torch.data.device_mix import DeviceSyntheticDataModule
+    from nbss_tpu_torch.sim.generate import main as generate
+
+    flags = ["--trajectory=4points+sin,0.5"] if moving else []
+    generate([f"--rir_dir={tmp_path}", "--spk_num=2", "--noise_num=0", "--rir_nums", "2", "1",
+              "1", "--RT60_lim", "0.1", "0.3", "--mic_num=4", "--arr_geometry=circular",
+              "--seed=3", *flags])
+    kw = dict(rir_dir=str(tmp_path), audio_time_len=(2.0,) * 4, num_items=(8, 4, 4, 4),
+              rir_len=4096, batch_size=(4, 4), seeds=(5, 2, 3, 3), preload_rir=True,
+              trajectory_points=4 if moving else 0, ovlp="full" if moving else "mid")
+    for stage in ("train_dataloader", "val_dataloader"):
+        x, ys, p = next(iter(getattr(DeviceSyntheticDataModule(**kw, device="cuda"), stage)()))
+        xc, ysc, pc = next(iter(getattr(DeviceSyntheticDataModule(**kw, device="cpu"), stage)()))
+        assert x.device.type == "cuda" and x.shape == xc.shape
+        assert [q["seed"] for q in p] == [q["seed"] for q in pc]
+        assert [q["rir_file"] for q in p] == [q["rir_file"] for q in pc]
+        torch.testing.assert_close(x.cpu(), xc, atol=2e-5, rtol=1e-4)
+        torch.testing.assert_close(ys.cpu(), ysc, atol=2e-5, rtol=1e-4)
