@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch port runs on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --corpus-rates
 
 Drives ``nbss_tpu_torch`` only (no JAX, nothing of ``nbss_tpu``) through its
 serving path and its training path at the full width of SpatialNet-small
@@ -23,7 +24,9 @@ mamba(16,4) with ``remat_policy='dots'``, and the retention branch
 them: rooms rendered by ``python -m nbss_tpu_torch.sim.generate``, mixtures
 made on the card by ``data/device_mix.py``, and ``fit``/``validate``/
 ``test``/``predict`` through ``nbss_tpu_torch.cli`` with the configs in
-configs/. Fifty-four phases:
+configs/; then the public corpora, from fixtures written in their layouts,
+through the host loaders with threaded prefetch and the command line.
+Fifty-seven phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -300,20 +303,48 @@ configs/. Fifty-four phases:
     scripts/run_moving_convergence.sh (``--trajectory=4points+sin,0.5``) and
     ``--rir_nums 2 1 1``, then ``fit`` with configs/onlineSpatialNet.yaml +
     device_synth_moving.yaml for 2 steps at full width (rows 6-7: 32 + 16
-    scan launches a step under ``remat_policy='dots'``).
+    scan launches a step under ``remat_policy='dots'``);
+55. SMS-WSJ-Plus: a fixture corpus (sms_wsj.json, wsj_8k_zeromean/ with
+    utterances of 3-10 s, 12 items a split; phase 50's rooms), the host
+    loader's items/s at ``num_workers`` 0 and 2, ``fit`` with
+    configs/SpatialNet.yaml + sms_wsj_plus.yaml at full width in bf16-mixed
+    (6 steps at its B=2, its whole validation split: 8 + 8 tensor-core
+    launches a step, 8 a validation forward), ``test`` on the 12 whole
+    utterances at B=1 (8 launches each, on the wide route past 4 s), and the
+    train rate fed by the loader at 2 workers beside one fixed batch
+    (each rate over 32 items, after a first batch that starts the loader);
+56. CHiME3-moving: single-speaker trajectory rooms from ``sim.generate``
+    (5-cm points), wsj0 speakers and six 16-kHz background channels, ``fit``
+    with configs/onlineSpatialNet.yaml + chime3_moving.yaml (3 steps at B=4,
+    one validation batch of 8 x 32 s; rows 6-7: 32 + 16 a step, 16 a
+    forward), ``test`` on one 32-s item;
+57. the other corpora (SMS-WSJ, spatialized WSJ0-2mix with 8 channels,
+    WHAMR!, LibriCSS, the 4-speaker WSJ0 pairs, REVERB train/val and ET):
+    the first train and test batch of each through ``ThreadedLoader``, with
+    the shapes their modules document; ``fit`` with configs/NBC2.yaml +
+    spatialized_wsj0_mix.yaml for one step (rows 1-2 at two heads).
 
 Prints one ``kernels`` JSON line, one ``training_runs`` JSON line (phases
-50-54's seconds a room, mixtures/s and training rate), the card's
+50-54's seconds a room, mixtures/s and training rate), one ``corpus_runs``
+JSON line (phases 55-57's loader and training rates), the card's
 ``nvidia-smi`` name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, without that line, when there is no CUDA
 card or any phase fails.
+
+``--corpus-rates`` runs phase 55's rates alone and longer: the kernels
+built, phase 50's rooms and phase 55's fixture, then the loader at 0, 2 and
+4 workers and the train step fed by it and on a fixed batch over 288 items
+each, and the card's busy share under ``torch.profiler`` over 16 more; it
+prints a ``corpus_rates`` JSON line and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.monotonic()
@@ -429,7 +460,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/54 device")
+    log("phase 1/57 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -437,7 +468,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/54 build (plain nvcc, sm_90a)")
+    log("phase 2/57 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -447,7 +478,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/54 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/57 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -499,7 +530,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/54 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/57 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -540,7 +571,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/54 times (CUDA events, after warm-up)")
+    log("phase 5/57 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -608,10 +639,21 @@ def main() -> int:
     fresh_start()
     rows67[0]["online_models"] = {**online_n_phases(dev), "ret_2_share_qk": retention_phase(dev)}
     fresh_start()
-    runs = training_runs(dev, row2["train_audio_s_per_s"])
+    with tempfile.TemporaryDirectory(prefix="nbss_chip_smoke_") as tmp:
+        runs = training_runs(dev, row2["train_audio_s_per_s"], tmp)
+        fresh_start()
+        corpora = corpus_runs(dev, tmp, row2["train_audio_s_per_s"])
     row2["launches_cli_fit"] = runs["cli_fit_launches"][2]
     rows67[0]["launches_moving_fit"], rows67[1]["launches_moving_fit"] = runs["moving_fit_launches"]
     runs.pop("moving_fit_launches")
+    sms_fit, sms_test = corpora.pop("sms_wsj_plus_fit_launches"), corpora.pop(
+        "sms_wsj_plus_test_launches")
+    nbc2_fit = corpora.pop("nbc2_fit_launches")
+    row2.update(launches_sms_wsj_plus_fit=sms_fit[1], launches_nbc2_wsj0mix_fit=nbc2_fit[2])
+    row1_wide["launches_sms_wsj_plus_test"] = sms_test[2]
+    chime3 = corpora.pop("chime3_launches")
+    rows67[0].update(launches_chime3_fit=chime3[0], launches_chime3_test=chime3[2])
+    rows67[1]["launches_chime3_fit"] = chime3[1]
     rows45[0].update(wide4, **nbc2_row4)
     rows45[1].update(wide5, **nbc2_row5)
     row2.update(nbc2_row2)
@@ -626,9 +668,12 @@ def main() -> int:
         "max_abs_err": err32, "max_err_fp32": err32, "max_err_bf16": errbf, "ms": ms,
         "ms_fp32": ms_fp32, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "launches_cli_fit": runs.pop("cli_fit_launches")[0],
-        **nbc2_row1},
+        "launches_sms_wsj_plus_fit": sms_fit[0],
+        "launches_sms_wsj_plus_test": sms_test[0] - sms_test[2],
+        "launches_nbc2_wsj0mix_fit": nbc2_fit[0], **nbc2_row1},
         row2, row1_wide, row2_wide, row3, *rows67, *rows45, row8]}), flush=True)
     print(json.dumps({"training_runs": runs, "device": smi}), flush=True)
+    print(json.dumps({"corpus_runs": corpora, "device": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -694,7 +739,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/54 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/57 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -758,7 +803,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/54 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/57 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {check_gradients.STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     ab.wide_launches = ab.bwd_wide_launches = 0
@@ -790,7 +835,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/54 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/57 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -799,7 +844,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/54 times (CUDA events, after warm-up)")
+    log("phase 9/57 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -910,7 +955,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/54 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/57 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -945,7 +990,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/54 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/57 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -976,7 +1021,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/54 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/57 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1013,7 +1058,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/54 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
+    log(f"phase 13/57 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
@@ -1034,7 +1079,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/54 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/57 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1057,19 +1102,13 @@ def online_phases(dev):
     torch.cuda.synchronize()
     step_fwd, step_bwd = ssm.launches, ssm.bwd_launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
     log(f"launches: fit {fit_fwd} forward + {fit_bwd} backward in {TRAIN_STEPS} steps; one step "
         f"{step_fwd} + {step_bwd} (forward {2 * n_layers} + {2 * n_layers} recomputed by remat, "
         f"backward {2 * n_layers}); peak memory {peak:.1f} GiB")
     want = (4 * n_layers, 2 * n_layers)
     if (step_fwd, step_bwd) != want or (fit_fwd, fit_bwd) != tuple(TRAIN_STEPS * w for w in want):
         raise AssertionError(f"expected {want[0]} forward and {want[1]} backward launches a step")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"losses: {losses}")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
-    if not last < first:
-        raise AssertionError("the loss did not fall")
+    check_losses(losses)
     grads = []
     for fused in (True, False):
         net = OnlineSpatialNet(**ONLINE, remat=True, fused_scan=fused, device=dev)
@@ -1093,7 +1132,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/54 times (CUDA events, after warm-up)")
+    log("phase 15/57 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1232,7 +1271,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/54 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/57 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1290,7 +1329,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/54 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/57 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1348,7 +1387,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/54 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/57 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1387,7 +1426,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/54 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/57 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1409,7 +1448,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/54 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/57 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1434,7 +1473,6 @@ def mhsa_phases(dev):
     step_fwd, step_bwd, step_tc, step_btc = (att.launches, att.bwd_launches, att.tc_launches,
                                              att.bwd_tc_launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
     log(f"launches: fit {fit_fwd} forward ({fit_tc} tensor-core) + {fit_bwd} backward "
         f"({fit_btc} tensor-core) in {TRAIN_STEPS} steps; one step {step_fwd} ({step_tc}) + "
         f"{step_bwd} ({step_btc}) (forward {n_layers} + {n_layers} recomputed by remat, "
@@ -1444,12 +1482,7 @@ def mhsa_phases(dev):
             or (fit_fwd, fit_tc, fit_bwd, fit_btc) != tuple(TRAIN_STEPS * w for w in want)):
         raise AssertionError(f"expected {want[0]} forward and {want[2]} backward launches a "
                              "step, all on the tensor-core kernels")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"losses: {losses}")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
-    if not last < first:
-        raise AssertionError("the loss did not fall")
+    check_losses(losses)
     grads = []
     for fused in (True, False):
         net = OnlineSpatialNet(**MHSA, remat=True, fused_attention=fused, device=dev)
@@ -1473,7 +1506,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/54 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/57 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1620,7 +1653,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/54 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/57 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1702,7 +1735,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/54 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/57 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1763,7 +1796,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/54 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/57 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1812,7 +1845,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/54 times (CUDA events, after warm-up)")
+    log("phase 25/57 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -2035,7 +2068,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/54 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/57 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -2116,7 +2149,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/54 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/57 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2161,7 +2194,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/54 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/57 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -2189,17 +2222,11 @@ def tconvffn_phases(dev):
     if tc.tc_launches != tc.launches:
         raise AssertionError(f"{tc.launches - tc.tc_launches} bf16 T-ConvFFN launches in "
                              "training missed the tensor-core kernel")
-    log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
     log(f"launches (tconvffn, attention block, its backward) in {TRAIN_STEPS} steps: {fit}, "
         "the T-ConvFFN's all on its tensor-core kernel")
     if fit != (TRAIN_STEPS * n_layers,) * 3:
         raise AssertionError(f"expected {n_layers} launches of each a step")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"losses: {losses}")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
-    if not last < first:
-        raise AssertionError("the loss did not fall")
+    check_losses(losses)
     grads = []  # row 3 against the plain T-ConvFFN; phase 8 holds the attention block's path
     for fused_ffn in (True, False):
         net32 = SpatialNet(**FLAGSHIP, fused_ffn=fused_ffn, device=dev)
@@ -2223,7 +2250,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/54 times (CUDA events, after warm-up)")
+    log("phase 29/57 times (CUDA events, after warm-up)")
     ffn = tconvffn_times(xb, p, G)
     ffn_ms, ffn_plain_ms, ffn_library_ms = ffn["ms"], ffn["plain_ms"], ffn["library_ms"]
     ffn_bound, ffn_by, ffn_bytes, ffn_ops = ffn["bound_ms"], ffn["bound_by"], ffn["bytes"], ffn["ops"]
@@ -2342,14 +2369,16 @@ def trainer_of(module, dev, losses):
 
 
 def check_losses(losses) -> None:
-    """Every loss finite and the mean of the last 5 below the first 5's."""
+    """TRAIN_STEPS losses, every one finite, and the mean of the last half
+    below the first half's."""
     import numpy as np
 
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
+    half = TRAIN_STEPS // 2
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"mean loss of the first 5 steps {first:.3f}, of the last 5 {last:.3f}")
+    first, last = float(np.mean(losses[:half])), float(np.mean(losses[-half:]))
+    log(f"mean loss of the first {half} steps {first:.3f}, of the last {half} {last:.3f}")
     if not last < first:
         raise AssertionError("the loss did not fall")
 
@@ -2412,7 +2441,7 @@ def nbc2_phases(dev):
     ops = (ln, A, Wvo)
 
     # 30. rows 1-2 at nh 2
-    log(f"phase 30/54 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+    log(f"phase 30/57 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh} (dh {dh})")
     tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2521,7 +2550,7 @@ def nbc2_phases(dev):
     # 31. rows 4-5 at dh = dv = 48
     Ma = 2 * n_freq
     causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
-    log(f"phase 31/54 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+    log(f"phase 31/57 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
         f"dh=dv={dh}, no mask and causal")
     tc0, btc0 = att.tc_launches, att.bwd_tc_launches
     att_errs = {}
@@ -2605,7 +2634,7 @@ def nbc2_phases(dev):
     check_budget("attention at dh 48")
 
     # 32. serving
-    log(f"phase 32/54 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 32/57 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2648,7 +2677,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 serving")
 
     # 33. training
-    log(f"phase 33/54 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 33/57 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2674,7 +2703,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 training")
 
     # 34. rates
-    log("phase 34/54 NBC2-small rates")
+    log("phase 34/57 NBC2-small rates")
     serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
     torch.cuda.reset_peak_memory_stats()
     train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
@@ -2729,7 +2758,7 @@ def blstm_phases(dev):
                 + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
 
     # 35. serving
-    log(f"phase 35/54 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+    log(f"phase 35/57 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
         f"ch, {SECONDS:g} s, bf16 and fp32")
     gen = torch.Generator().manual_seed(8)
     net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -2767,7 +2796,7 @@ def blstm_phases(dev):
     check_budget("nb-blstm serving")
 
     # 36. training
-    log(f"phase 36/54 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 36/57 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2794,7 +2823,7 @@ def nbss_phase(dev):
     from nbss_tpu_torch.models.nbss import NBSS
     from nbss_tpu_torch.ops import attention_block as ab
 
-    log(f"phase 37/54 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+    log(f"phase 37/57 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
         "B=2): one forward for each arch in fp32 and bf16")
     gen = torch.Generator().manual_seed(9)
     wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
@@ -2841,7 +2870,7 @@ def nbc_training_phases(dev):
     out = {}
     for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
         bsz = NBC_B_TRAIN[dropout]
-        log(f"phase {phase}/54 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
+        log(f"phase {phase}/57 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
             f"SyntheticDataset items ({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for "
             f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, bf16")
         batch = fixed_batch(bsz, NBC_CHANNELS, NBC_FS)
@@ -3031,7 +3060,7 @@ def large_phases(dev):
     ops = (ln, A, Wvo)
 
     # 40. rows 1-2 on the wide route
-    log(f"phase 40/54 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
+    log(f"phase 40/57 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh}; M = {M_EDGE}, T = 1 ... {T_long} at H = 96 and 192, nh 2, 3, 4")
     counts0 = wide_counts()
     n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
@@ -3131,7 +3160,7 @@ def large_phases(dev):
     check_budget("wide route")
 
     # 41. SpatialNet-large serving, fused_ffn off and on
-    log(f"phase 41/54 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 41/57 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16, fused_ffn off and on")
     net = SpatialNet(**LARGE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -3178,7 +3207,7 @@ def large_phases(dev):
     check_budget("spatialnet-large serving")
 
     # 42. long utterances: 16 s, T = 1001
-    log(f"phase 42/54 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
+    log(f"phase 42/57 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
         f"{LONG_SECONDS:g} s (T = {T_long}), bf16, through the wide route")
     wave_long = (0.1 * torch.randn(B_LONG, CHANNELS, int(LONG_SECONDS * FS), generator=gen)).to(dev)
     long_rates, long_sdrs = {}, {}
@@ -3216,7 +3245,7 @@ def large_phases(dev):
     check_budget("long-utterance serving")
 
     # 43. SpatialNet-large training
-    log(f"phase 43/54 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 43/57 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"for {TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -3274,7 +3303,7 @@ def large_phases(dev):
 
     # 44. NBC2-large
     nl2 = NBC2_LARGE_CFG["n_layers"]
-    log(f"phase 44/54 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
+    log(f"phase 44/57 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
         f"{NBC2_LARGE_CFG['n_heads']} heads, {nl2} layers): serving B={B} and "
         f"{NBC2_LARGE_STEPS} training steps at B={B_TRAIN}, bf16")
     net2 = NBC2(**NBC2_LARGE_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3381,7 +3410,7 @@ def scan_n_phases(dev, rows67):
         return [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins)]
 
     # 45. kernels vs plain
-    log(f"phase 45/54 selective_scan and its backward at N = {SCAN_N} (passes of "
+    log(f"phase 45/57 selective_scan and its backward at N = {SCAN_N} (passes of "
         f"{ssm.STATE_GROUP} states) vs plain: forward at M={M_serve}, backward at M={M_train}, "
         f"T={T}, D={Dm}")
     checked = {}
@@ -3439,7 +3468,7 @@ def scan_n_phases(dev, rows67):
     check_budget("scan at any N")
 
     # 46. times
-    log(f"phase 46/54 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
+    log(f"phase 46/57 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
         "bf16, after warm-up)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -3541,7 +3570,7 @@ def online_n_phases(dev):
 
     # 47. mamba(64,4)
     cfg = dict(FLAGSHIP, attention=f"mamba({MAMBA_WIDE_N},4)")
-    log(f"phase 47/54 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
+    log(f"phase 47/57 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
         f"{WIDE_N_STEPS} training steps at B={B_TRAIN} (remat, dots), bf16")
     module = _online_module(OnlineSpatialNet(**cfg, dtype=torch.bfloat16, generator=gen,
                                              device=dev).eval())
@@ -3584,7 +3613,7 @@ def online_n_phases(dev):
     check_budget("mamba(64,4)")
 
     # 48. mamba(16,4), remat_policy='dots'
-    log(f"phase 48/54 OnlineSpatialNet {ONLINE['attention']} with remat_policy='dots': "
+    log(f"phase 48/57 OnlineSpatialNet {ONLINE['attention']} with remat_policy='dots': "
         f"{TRAIN_STEPS}-step fit at B={B_TRAIN}, fp32 gradients against full recomputation, "
         "rates and peak memory of both policies in turns")
     losses = []
@@ -3646,7 +3675,7 @@ def retention_phase(dev):
     from nbss_tpu_torch.ops.metrics import si_sdr
 
     gen = torch.Generator().manual_seed(49)
-    log(f"phase 49/54 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
+    log(f"phase 49/57 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
         f"streaming B={B_STREAM}, {TRAIN_STEPS}-step fit at B={B_TRAIN} with "
         "remat_policy='dots', fp32 gradients")
     net = OnlineSpatialNet(**RET, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3778,15 +3807,12 @@ def _zero_counts() -> None:
     ssm.launches = ssm.bwd_launches = 0
 
 
-def training_runs(dev, fixed_rate: float) -> dict:
+def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
     """Phases 50-54: the two committed training runs as users launch them.
     Rooms rendered on the card, mixtures made on the card, ``fit`` through
     the command line with SpatialNet-small, then ``validate``/``test``/
     ``predict`` and a resumed ``fit``, then OnlineSpatialNet on the moving
-    corpus. Returns numbers for the ``kernels`` line."""
-    import os
-    import tempfile
-
+    corpus; files go under ``tmp``. Returns numbers for the ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -3800,211 +3826,789 @@ def training_runs(dev, fixed_rate: float) -> dict:
     from nbss_tpu_torch.train.loop import Trainer
 
     out = {}
+    rir_dir = os.path.join(tmp, "rir8k")
+    # 50. rooms
+    log(f"phase 50/57 rooms: nbss_tpu_torch.sim.generate with "
+        f"run_spatialnet_convergence.sh's flags, --rir_nums {' '.join(map(str, RIR_NUMS))}")
+    out["sim_s_per_room"] = _rendered(rir_dir, STATIC_SIM, RIR_NUMS, "static corpus")
+    par = RirConfigSampler(spk_num=2, noise_num=0, arr_geometry="circular+cm", mic_num=6,
+                           fs=FS, RT60_lim=(0.1, 0.6), seed=0).sample(0)
+    args = (par["room_sz"], par["pos_src"], par["pos_rcv"], par["RT60"], FS)
+    kw = dict(beta=par.get("beta"), length_round=2048)
+    card = np.load(os.path.join(rir_dir, "train", "0.npz"), allow_pickle=True)["rir"]
+    t1 = time.perf_counter()
+    cpu = simulate_rir(*args, **kw, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    again = simulate_rir(*args, **kw, device=dev)
+    err, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
+    log(f"room 0 (RT60 {par['RT60']:.3f} s, rir {card.shape}): card vs CPU max |diff| "
+        f"{err:.3e} = {err / scale:.2e} x max|rir| (bound 1e-4); the CPU took {cpu_s:.1f} s; "
+        f"a second render on the card bit-identical: {np.array_equal(card, again)}")
+    if card.shape != cpu.shape or not err <= 1e-4 * scale:
+        raise AssertionError(f"room 0: card vs CPU {err} > 1e-4 x {scale}")
+    if not np.array_equal(card, again):
+        raise AssertionError("room 0: two renders on the card differ")
+    d, c = 2.0, 343.0
+    dp = simulate_direct_path([5.0, 4.0, 3.0], [1.0, 2.0, 1.5], [[3.0, 2.0, 1.5]], FS,
+                              device=dev)[0, 0]
+    peak, gain = int(np.argmax(np.abs(dp))), float(dp.sum())
+    log(f"direct path at {d} m: peak at sample {peak} (d / c = {d / c * FS:.2f}), sum "
+        f"{gain:.6f} (1 / (4 pi d) = {1 / (4 * np.pi * d):.6f})")
+    if abs(peak - d / c * FS) > 1 or abs(gain * 4 * np.pi * d - 1) > 1e-3:
+        raise AssertionError("direct path: delay or amplitude off")
+    check_budget("rooms")
+
+    # 51. mixtures
+    log("phase 51/57 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
+        "preloaded, B=8 on the card against the CPU")
+    init = load_configs(["configs/datasets/device_synth.yaml"])["data"]["init_args"]
+    kw = dict(init, rir_dir=rir_dir, num_items=CLI_ITEMS, preload_rir=True,
+              seeds=(5, 2, 3, 3))
+    dms = {name: DeviceSyntheticDataModule(**kw, device=name) for name in ("cuda", "cpu")}
+    batches = {name: next(iter(dm.train_dataloader())) for name, dm in dms.items()}
+    (x, ys, paras), (xc, ysc, parasc) = batches["cuda"], batches["cpu"]
+    if [p["seed"] for p in paras] != [p["seed"] for p in parasc] or \
+            [p["rir_file"] for p in paras] != [p["rir_file"] for p in parasc]:
+        raise AssertionError("host picks (seeds, rooms) differ between the card and the CPU")
+    seeds = torch.tensor([p["seed"] % 2 ** 31 for p in paras])
+    draws = {name: mix_draws(dm.stage_key(0), seeds, dm.ovlp, dm.speech_overlap_ratio,
+                             int(4.0 * FS), len(dm.noise_type)) for name, dm in dms.items()}
+    for k in ("keys", "ks", "lens", "shifts", "noise_type"):
+        if not torch.equal(draws["cuda"][k].cpu(), draws["cpu"][k]):
+            raise AssertionError(f"draw {k} differs between the card and the CPU")
+    errs = {n: float((a.cpu() - b).abs().max()) for n, a, b in (("x", x, xc), ("ys", ys, ysc))}
+    log(f"train batch {tuple(x.shape)}, {tuple(ys.shape)}: seeds, rooms, keys, segments and "
+        f"noise types equal; card vs CPU max |diff| x {errs['x']:.2e}, ys {errs['ys']:.2e} "
+        "(atol 2e-5, rtol 1e-4)")
+    torch.testing.assert_close(x.cpu(), xc, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(ys.cpu(), ysc, atol=2e-5, rtol=1e-4)
+    out["mix_max_abs_err"] = max(errs.values())
+    dm = dms["cuda"]
+    for _ in dm.train_dataloader(0):  # warm-up
+        pass
+    torch.cuda.synchronize()
+    n, t1 = 0, time.perf_counter()
+    for epoch in range(MIX_EPOCHS):
+        for xb, _, _ in dm.train_dataloader(epoch):
+            n += xb.shape[0]
+    torch.cuda.synchronize()
+    out["mixtures_per_s"] = n / (time.perf_counter() - t1)
+    log(f"{n} mixtures (B=8, 6 ch x 4 s) made at {out['mixtures_per_s']:.1f} mixtures/s "
+        "(host picks, index upload and mixing)")
+    del dms, dm, batches, x, ys, xc, ysc
+    fresh_start()
+    check_budget("mixtures")
+
+    # 52. fit through the command line
+    logs = os.path.join(tmp, "logs")
+    args = ["--config=configs/SpatialNet.yaml", "--config=configs/datasets/device_synth.yaml",
+            "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={rir_dir}",
+            f"--data.init_args.num_items={CLI_ITEMS}", f"--log_root={logs}",
+            "--model.val_host_metrics=[STOI, eSTOI]", "--model.val_host_metrics_every=1"]
+    steps = CLI_EPOCHS * CLI_ITEMS[0] // 8
+    log(f"phase 52/57 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
+        f"--config=configs/datasets/device_synth.yaml, full width, bf16-mixed, {CLI_EPOCHS} "
+        f"epochs of {CLI_ITEMS[0] // 8} steps at B=8, host metrics STOI/eSTOI every epoch")
+    _zero_counts()
+    fit = _cli("fit", args, [f"--trainer.max_epochs={CLI_EPOCHS}"])
+    torch.cuda.synchronize()
+    counts = _ab_counts()
+    log_dir = fit["log_dir"]
+    n_layers = FLAGSHIP["num_layers"]
+    val_forwards = CLI_EPOCHS * 2  # one validation batch and one host-metric batch an epoch
+    want = (n_layers * (steps + val_forwards),) * 2 + (n_layers * steps,) * 2 + (0,)
+    log(f"attention_block launches: {counts[0]} forward ({counts[1]} tensor-core), "
+        f"{counts[2]} backward ({counts[3]} tensor-core), {counts[4]} wide; "
+        f"{steps} steps and {val_forwards} validation forwards: {n_layers} + {n_layers} a step")
+    if counts != want:
+        raise AssertionError(f"CLI fit launches {counts}, expected {want}")
+    records = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+    losses = [r["value"] for r in records if r["key"] == "train/neg_si_sdr"]
+    host = {r["key"]: r["value"] for r in records if r["key"] in ("val/STOI", "val/eSTOI")}
+    files = ["config.yaml", "provenance.txt", "model.txt", "metrics.jsonl",
+             "checkpoints/epoch0/params", "checkpoints/epoch1/params"]
+    missing = [f for f in files if not os.path.exists(os.path.join(log_dir, f))]
+    log(f"{os.path.basename(log_dir)}: epoch losses {losses}, {host}, files present: "
+        f"{not missing}")
+    if len(losses) != CLI_EPOCHS or not np.isfinite(losses).all() or missing or \
+            set(host) != {"val/STOI", "val/eSTOI"}:
+        raise AssertionError(f"CLI fit: losses {losses}, host metrics {host}, "
+                             f"missing {missing}")
+    if yamlio.load(os.path.join(log_dir, "config.yaml"))["data"]["init_args"]["rir_dir"] != \
+            rir_dir:
+        raise AssertionError("config.yaml does not hold the run's config")
+    out["cli_fit_launches"] = counts
+    # the rate of the path the CLI runs: mixing on the card and the train step, B=8
+    cfg = load_configs(["configs/SpatialNet.yaml", "configs/datasets/device_synth.yaml"],
+                       {"data.init_args.rir_dir": rir_dir,
+                        "data.init_args.num_items": CLI_ITEMS})
+    data = instantiate(cfg["data"], device=str(dev))
+    trainer = Trainer(build_module(cfg, dev), device=dev)
+    trainer.init()
+    for batch in data.train_dataloader(0):  # warm-up epoch
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    n, t1 = 0, time.perf_counter()
+    for epoch in (1, 2):
+        for batch in data.train_dataloader(epoch):
+            trainer.train_step(batch)
+            n += batch[0].shape[0]
+    torch.cuda.synchronize()
+    out["cli_train_audio_s_per_s"] = n * SECONDS / (time.perf_counter() - t1)
+    log(f"training rate with mixing on the card: {out['cli_train_audio_s_per_s']:.1f} "
+        f"audio-s/s ({n} items); phase 9's fixed batch: {fixed_rate:.1f} audio-s/s")
+    del trainer, data
+    fresh_start()
+    check_budget("CLI fit")
+
+    # 53. validate, test, predict, resume
+    ckpt = os.path.join(log_dir, "checkpoints", f"epoch{CLI_EPOCHS - 1}")
+    log(f"phase 53/57 validate, test (the config's metrics), predict and a resumed fit "
+        f"from {os.path.relpath(ckpt, tmp)}")
+    _zero_counts()
+    val = _cli("validate", args, ["--ckpt_path", ckpt])
+    test = _cli("test", args, ["--ckpt_path", ckpt])
+    pred = _cli("predict", args, ["--ckpt_path", ckpt])
+    resumed = _cli("fit", args, ["--ckpt_path", ckpt, f"--trainer.max_epochs={CLI_EPOCHS + 1}"])
+    torch.cuda.synchronize()
+    counts = _ab_counts()
+    test_dir = test["log_dir"]
+    results = [f for f in os.listdir(test_dir) if f.startswith("results_")]
+    wavs = [f for f in os.listdir(os.path.join(pred["log_dir"], "examples"))
+            if f.endswith(".wav")]
+    shown = {k: round(v, 3) for k, v in test.items() if isinstance(v, float)
+             and k != "id" and not k.startswith("input_") and not k.endswith("_i")}
+    log(f"validate: val/metric {val['val/metric']:.3f}; test over {test['num_items']} items: "
+        f"{shown}; files {sorted(results)}; predict wrote {len(wavs)} WAVs; resumed fit in "
+        f"{os.path.basename(resumed['log_dir'])}, train loss {resumed['train_loss']:.3f}; "
+        f"attention_block launches {counts}")
+    need = {"SDR", "SI_SDR", "eSTOI"}
+    if not (np.isfinite(val["val/metric"]) and test["num_items"] == CLI_ITEMS[2]
+            and need <= set(test) and ("NB_PESQ" in test or "NB_PESQ_est" in test)
+            and "results_mean.json" in results and "results_incremental.jsonl" in results
+            and len(results) == 3 and len(wavs) == 2 * CLI_ITEMS[3]
+            and os.path.abspath(resumed["log_dir"]) == os.path.abspath(log_dir)
+            and os.path.exists(os.path.join(log_dir, "checkpoints",
+                                            f"epoch{CLI_EPOCHS}", "params"))
+            and np.isfinite(resumed["train_loss"])):
+        raise AssertionError(f"subcommands: validate {val}, test {test}, predict {pred}, "
+                             f"resumed {resumed}, results {results}, wavs {len(wavs)}")
+    if counts[1] != counts[0] or counts[3] != counts[2] or counts[2] != \
+            n_layers * CLI_ITEMS[0] // 8:
+        raise AssertionError(f"subcommands' launches {counts}: not all on the tensor-core "
+                             "kernels, or not one epoch of backward launches")
+    fresh_start()
+    check_budget("subcommands")
+
+    # 54. the moving run
+    mdir = os.path.join(tmp, "rir8k_moving")
+    log(f"phase 54/57 moving run: sim.generate with run_moving_convergence.sh's flags, "
+        f"--rir_nums {' '.join(map(str, MOVING_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml "
+        f"+ device_synth_moving.yaml, {MOVING_STEPS} steps at B=8")
+    out["moving_sim_s_per_room"] = _rendered(mdir, MOVING_SIM, MOVING_RIR_NUMS,
+                                             "moving corpus")
+    margs = ["--config=configs/onlineSpatialNet.yaml",
+             "--config=configs/datasets/device_synth_moving.yaml",
+             "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={mdir}",
+             "--data.init_args.num_items=[16, 8, 4, 4]", "--trainer.max_epochs=1",
+             f"--trainer.limit_train_batches={MOVING_STEPS}", f"--log_root={logs}"]
+    _zero_counts()
+    moving = _cli("fit", margs)
+    torch.cuda.synchronize()
+    scans = (ssm.launches, ssm.bwd_launches)
+    want = (4 * n_layers * MOVING_STEPS + 2 * n_layers, 2 * n_layers * MOVING_STEPS)
+    log(f"{os.path.basename(os.path.dirname(moving['log_dir']))}/"
+        f"{os.path.basename(moving['log_dir'])}: train loss {moving['train_loss']:.3f}, "
+        f"val/metric {moving['val/metric']:.3f}; scan launches {scans[0]} + {scans[1]} "
+        f"({4 * n_layers} + {2 * n_layers} a step under remat_policy='dots', "
+        f"{2 * n_layers} for the validation batch)")
+    if scans != want or not np.isfinite(moving["train_loss"]):
+        raise AssertionError(f"moving fit: scan launches {scans}, expected {want}; "
+                             f"loss {moving['train_loss']}")
+    out["moving_fit_launches"] = scans
+    fresh_start()
+    check_budget("moving run")
+    return out
+
+
+# phases 55-57: fixture corpora in each corpus's layout, written from speech-like sources
+# (data/device_mix.py's synth_speech) with the port's write_audio; rooms from sim.generate
+CORPUS_ITEMS = 12  # SMS-WSJ-Plus items (utterance pairs) a split
+CORPUS_SECONDS = (3.0, 10.0)  # utterance lengths; the test split's first 4 pairs under 4 s
+SMS_STEPS = 6  # phase 55's fit: steps at sms_wsj_plus.yaml's B = 2, then its validation split
+# items each of phase 55's rates is timed over, after one batch that starts the loader;
+# ``--corpus-rates`` times RATE_ITEMS_LONG and traces the card's busy share over TRACE_ITEMS
+RATE_ITEMS, RATE_ITEMS_LONG, TRACE_ITEMS = 32, 288, 16
+# CHiME3-moving (README's generate flags for it): single-speaker trajectories, 5 cm apart
+CHIME3_TRAJECTORY = ("4points+sin", 0.05)
+CHIME3_SIM = ["--spk_num=1", "--noise_num=0", "--arr_geometry=chime3", "--mic_num=6", "--fs=8000",
+              f"--trajectory={CHIME3_TRAJECTORY[0]},{CHIME3_TRAJECTORY[1]}", "--seed=0"]
+CHIME3_RIR_NUMS, CHIME3_STEPS = (2, 1, 1), 3
+BACKGROUND_SECONDS = 60  # each of CHiME-3's six background channels at 16 kHz
+# 16-kHz rooms for LibriCSS (its 7-mic array, up to 3 speakers), REVERB and the 4-speaker
+# pairs (8-mic circular arrays)
+LIBRICSS_SIM = ["--spk_num=3", "--noise_num=0", "--arr_geometry=libricss", "--fs=16000",
+                "--RT60_lim", "0.2", "0.4", "--seed=0"]
+REVERB_SIM = ["--spk_num=2", "--noise_num=0", "--arr_geometry=circular", "--mic_num=8",
+              "--fs=16000", "--RT60_lim", "0.2", "0.7", "--seed=0"]
+
+
+def speech(seconds, fs: int, seed: int, dev) -> list:
+    """Speech-like utterances of the given lengths (float32, peak 0.5), made
+    on ``dev`` by data/device_mix.py's synth_speech."""
+    import numpy as np
+
+    from nbss_tpu_torch.data.device_mix import synth_speech
+    from nbss_tpu_torch.utils import prng
+
+    lengths = [int(s * fs) for s in seconds]
+    keys = prng.split(prng.PRNGKey(seed), len(lengths)).to(dev)
+    wavs = synth_speech(keys, max(lengths), fs).float().cpu().numpy()
+    out = []
+    for w, n in zip(wavs, lengths):
+        w = w[:n]
+        out.append((0.5 * (w - w.mean()) / np.abs(w).max()).astype(np.float32))
+    return out
+
+
+def write_sms_wsj_plus(root: str, dev) -> str:
+    """SMS-WSJ-Plus's layout: sms_wsj.json naming each item's two WSJ
+    utterances, wsj_8k_zeromean/*.wav, CORPUS_ITEMS items a split."""
+    import numpy as np
+
+    from nbss_tpu_torch.utils.audio_io import write_audio
+
+    os.makedirs(os.path.join(root, "wsj_8k_zeromean"))
+    rng = np.random.default_rng(55)
+    info = {"datasets": {}}
+    for si, split in enumerate(("train_si284", "cv_dev93", "test_eval92")):
+        lengths = rng.uniform(*CORPUS_SECONDS, 2 * CORPUS_ITEMS)
+        if split == "test_eval92":  # whole utterances of 4 s at most: rows 1-2's narrow route
+            lengths[:8] = rng.uniform(CORPUS_SECONDS[0], 3.9, 8)
+        wavs = speech(lengths, FS, si, dev)
+        info["datasets"][split] = {}
+        for k in range(CORPUS_ITEMS):
+            paths = []
+            for s in range(2):
+                rel = f"wsj_8k_zeromean/{split}/{k:03d}_{s}.wav"
+                os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+                write_audio(os.path.join(root, rel), wavs[2 * k + s], FS)
+                paths.append(f"/data/sms_wsj/{rel}")  # the json's paths are the original host's
+            info["datasets"][split][f"{split}_{k:03d}"] = {
+                "audio_path": {"original_source": paths}}
+    with open(os.path.join(root, "sms_wsj.json"), "w") as f:
+        json.dump(info, f)
+    return root
+
+
+def write_chime3(root: str, dev):
+    """CHiME3-moving's layout: wsj0/<split>/<speaker>/*.wav at 16 kHz and six
+    16-kHz background channels under CHiME3/data/audio/16kHz/backgrounds/."""
+    import numpy as np
+
+    from nbss_tpu_torch.utils.audio_io import write_audio
+
+    rng = np.random.default_rng(56)
+    for si, (sub, spks) in enumerate((("si_tr_s", ("011", "012", "013")),
+                                      ("si_dt_05", ("020",)), ("si_et_05", ("030",)))):
+        for sj, spk in enumerate(spks):
+            d = os.path.join(root, "wsj0", sub, spk)
+            os.makedirs(d)
+            for u, w in enumerate(speech(rng.uniform(*CORPUS_SECONDS, 3), 16000,
+                                         100 * si + sj, dev)):
+                write_audio(os.path.join(d, f"{spk}c020{u}.wav"), w, 16000)
+    bg = os.path.join(root, "CHiME3", "data", "audio", "16kHz", "backgrounds")
+    os.makedirs(bg)
+    hum = np.sin(2 * np.pi * 50 * np.arange(16000 * BACKGROUND_SECONDS) / 16000)
+    for ch in range(1, 7):
+        wav = 0.05 * rng.standard_normal(hum.size) + 0.02 * np.roll(hum, 7 * ch)
+        write_audio(os.path.join(bg, f"BGD_150203_010_CAF.CH{ch}.wav"), wav.astype(np.float32),
+                    16000)
+    return os.path.join(root, "wsj0"), os.path.join(root, "CHiME3")
+
+
+def write_other_corpora(root: str, dev) -> dict:
+    """Fixtures of the other corpora in their layouts; returns their roots."""
+    import numpy as np
+
+    from nbss_tpu_torch.data.sms_wsj import scenario_map
+    from nbss_tpu_torch.utils.audio_io import write_audio
+
+    rng = np.random.default_rng(57)
+    paths = {k: os.path.join(root, k) for k in ("sms_wsj", "spwsj", "whamr", "librispeech",
+                                                "noise", "libricss", "wsj0", "wsjcam0",
+                                                "Reverb")}
+
+    def wav(path, data, fs):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_audio(path, np.asarray(data, np.float32), fs)
+
+    # official SMS-WSJ: sources, 6-channel RIR wavs, and observations made by scenario_map
+    sms = paths["sms_wsj"]
+    info = {"datasets": {}}
+    for si, ds in enumerate(("train_si284", "cv_dev93", "test_eval92")):
+        info["datasets"][ds] = {}
+        srcs = speech(rng.uniform(3.0, 6.0, 4), FS, 570 + si, dev)
+        for k in range(2):
+            eid = f"{ds}_{k}"
+            lens = [len(srcs[2 * k]), len(srcs[2 * k + 1])]
+            offsets = [0, int(rng.integers(0, 4000))]
+            ex = {"example_id": eid, "num_speakers": 2, "log_weights": [0.5, -0.5],
+                  "offset": offsets, "sound_decay_time": 0.3,
+                  "num_samples": {"observation": max(l + o for l, o in zip(lens, offsets)),
+                                  "original_source": lens},
+                  "audio_path": {"original_source": [], "rir": []}}
+            rirs, dps = [], []
+            for s in range(2):
+                rel = f"wsj_8k_zeromean/{eid}_{s}.wav"
+                wav(os.path.join(sms, rel), srcs[2 * k + s], FS)
+                d = 30 + 9 * s
+                rir = np.zeros((6, 2048))
+                rir[:, d] = 1.0
+                rir[:, d + 20:] += rng.standard_normal((6, 2028 - d)) * 0.05 * np.exp(
+                    -np.arange(2028 - d) / 400)
+                dp = np.zeros_like(rir)
+                dp[:, d] = 1.0
+                for sub, r in (("rirs", rir), ("rirs_direct_path", dp)):
+                    wav(os.path.join(sms, sub, ds, f"{eid}_{s}.wav"), r.T, FS)
+                ex["audio_path"]["original_source"].append(f"/data/sms_wsj/{rel}")
+                ex["audio_path"]["rir"].append(f"/data/sms_wsj/rirs/{ds}/{eid}_{s}.wav")
+                rirs.append(rir)
+                dps.append(dp)
+            work = dict(ex, audio_data={"original_source": [srcs[2 * k + s].astype(np.float64)
+                                                            for s in range(2)],
+                                        "rir": np.stack(rirs)})
+            work = scenario_map(work, rir_target=np.stack(dps))
+            wav(os.path.join(sms, "observation", ds, f"{eid}.wav"),
+                work["audio_data"]["observation"].T, FS)
+            info["datasets"][ds][eid] = ex
+    with open(os.path.join(sms, "sms_wsj.json"), "w") as f:
+        json.dump(info, f)
+
+    # spatialized WSJ0-2mix (8 channels) and WHAMR! (2 channels), 3-6 s utterances
+    for split in ("tr", "cv", "tt"):
+        for u in range(2):
+            s1, s2 = speech([rng.uniform(3.0, 6.0)] * 2, FS, 580 + u + 10 * len(split), dev)
+            frames = len(s1)
+            for target, C in (("reverb", 8), ("anechoic", 8)):
+                d = os.path.join(paths["spwsj"], f"2speakers_{target}", "wav8k", "min", split)
+                img = [np.roll(s[:, None] * (1 + 0.1 * np.arange(C)), 3, axis=0)
+                       for s in (s1, s2)]
+                wav(os.path.join(d, "s1", f"u{u}.wav"), img[0], FS)
+                wav(os.path.join(d, "s2", f"u{u}.wav"), img[1], FS)
+                wav(os.path.join(d, "mix", f"u{u}.wav"), img[0] + img[1], FS)
+            d = os.path.join(paths["whamr"], "wav8k", "min", split)
+            for name, x in (("s1_anechoic", s1), ("s2_anechoic", s2)):
+                wav(os.path.join(d, name, f"u{u}.wav"), np.stack([x, x], -1), FS)
+            noisy = np.stack([s1 + s2, s1 + s2], -1) + 0.01 * rng.standard_normal((frames, 2))
+            wav(os.path.join(d, "mix_both_reverb", f"u{u}.wav"), noisy, FS)
+
+    # LibriSpeech, recorded-noise stand-ins and the real LibriCSS utterances, at 16 kHz
+    for sub in ("train-clean-100", "dev-clean", "test-clean"):
+        for u, w in enumerate(speech(rng.uniform(3.0, 6.0, 3), 16000, 590 + len(sub), dev)):
+            wav(os.path.join(paths["librispeech"], sub, "19", "198", f"19-198-{u:04d}.wav"), w,
+                16000)
+    wav(os.path.join(paths["noise"], "n0.wav"), 0.05 * rng.standard_normal((16000 * 12, 2)),
+        16000)
+    for sess in ("session0", "session1"):
+        wav(os.path.join(paths["libricss"], "exp", "data", "7ch", "utterances", sess, "u0.wav"),
+            0.1 * rng.standard_normal((16000 * 3, 7)), 16000)
+
+    # 4 WSJ0 speakers at 16 kHz, two utterances of 4 s or more each
+    for si, spk in enumerate(("024", "01y", "401", "02a")):
+        for u, w in enumerate(speech(rng.uniform(4.5, 6.0, 2), 16000, 600 + si, dev)):
+            wav(os.path.join(paths["wsj0"], "si_tr_s", spk, f"{spk}c010{u}.wav"), w, 16000)
+
+    # REVERB: WSJCAM0 sources, the train and SimData tools' noise, the real evaluation set
+    for sub in ("si_tr", "si_dt", "si_et"):
+        for u, w in enumerate(speech(rng.uniform(3.0, 5.0, 2), 16000, 610 + len(sub), dev)):
+            wav(os.path.join(paths["wsjcam0"], "data", "primary_microphone", sub, f"c0{u}.wav"),
+                w, 16000)
+    tools = os.path.join(paths["Reverb"], "reverb_tools_for_Generate_mcTrainData", "NOISE")
+    for room in ("SmallRoom1", "MediumRoom1", "LargeRoom1"):
+        wav(os.path.join(tools, f"Noise_{room}_1.wav"), 0.05 * rng.standard_normal((48000, 8)),
+            16000)
+    wav(os.path.join(paths["Reverb"], "reverb_tools_for_Generate_SimData", "NOISE",
+                     "Noise_SimRoom1_1.wav"), 0.05 * rng.standard_normal((48000, 8)), 16000)
+    wav(os.path.join(paths["Reverb"], "MC_WSJ_AV_Eval", "audio", "T10c0201.wav"),
+        0.1 * rng.standard_normal((16000 * 3, 8)), 16000)
+    return paths
+
+
+def _attention_counts():
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    return (ab.launches, ab.tc_launches, ab.wide_launches, ab.wide_tc_launches,
+            ab.bwd_launches, ab.bwd_tc_launches, ab.bwd_wide_launches)
+
+
+def corpus_runs(dev, tmp: str, fixed_rate: float) -> dict:
+    """Phases 55-57: the public corpora through the command line and the
+    threaded loader, from fixture corpora under ``tmp`` (phase 50's rooms
+    for SMS-WSJ-Plus). Returns rates and launch counts."""
+    out = sms_wsj_plus_phase(dev, tmp, fixed_rate)
+    fresh_start()
+    out.update(chime3_phase(dev, tmp))
+    fresh_start()
+    out.update(other_corpora_phase(dev, tmp))
+    return out
+
+
+def sms_wsj_plus_phase(dev, tmp: str, fixed_rate: float) -> dict:
+    """Phase 55: SMS-WSJ-Plus through the command line."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch.cli.config import instantiate, load_configs
+    from nbss_tpu_torch.ops import attention_block as ab
+
+    out = {}
+    n_layers = FLAGSHIP["num_layers"]
+    logs = os.path.join(tmp, "logs")
+    rir_dir = os.path.join(tmp, "rir8k")
+    log(f"phase 55/57 SMS-WSJ-Plus: python -m nbss_tpu_torch.cli fit "
+        f"--config=configs/SpatialNet.yaml --config=configs/datasets/sms_wsj_plus.yaml, full "
+        f"width, bf16-mixed, {SMS_STEPS} steps at B=2 and the validation split; test on whole "
+        "utterances at B=1")
+    t1 = time.perf_counter()
+    wsj = write_sms_wsj_plus(os.path.join(tmp, "sms_wsj"), dev)
+    log(f"fixture: {CORPUS_ITEMS} items a split, utterances of {CORPUS_SECONDS[0]:g}-"
+        f"{CORPUS_SECONDS[1]:g} s, written in {time.perf_counter() - t1:.1f} s; rooms: phase 50's")
+    paths = {"data.init_args.sms_wsj_dir": wsj, "data.init_args.rir_dir": rir_dir}
+    args = ["--config=configs/SpatialNet.yaml", "--config=configs/datasets/sms_wsj_plus.yaml",
+            f"--log_root={logs}", *(f"--{k}={v}" for k, v in paths.items())]
+    cfg = load_configs(["configs/SpatialNet.yaml", "configs/datasets/sms_wsj_plus.yaml"], paths)
+    data = instantiate(cfg["data"])
+    B = data.batch_size[0]
+    x, ys, _ = next(iter(data.train_dataloader(0)))
+    if x.shape != (B, 6, 4 * FS) or ys.shape != (B, 2, 6, 4 * FS):
+        raise AssertionError(f"train batch {x.shape}, {ys.shape}")
+    _zero_counts()
+    ab.wide_tc_launches = ab.bwd_wide_tc_launches = 0
+    fit = _cli("fit", args, [f"--trainer.limit_train_batches={SMS_STEPS}",
+                             "--trainer.max_epochs=1"])
+    torch.cuda.synchronize()
+    counts = _attention_counts()
+    val = CORPUS_ITEMS  # the validation split at B=1, 4 s
+    want = (n_layers * (SMS_STEPS + val),) * 2 + (0, 0) + (n_layers * SMS_STEPS,) * 2 + (0,)
+    log(f"fit: train loss {fit['train_loss']:.3f}, val/metric {fit['val/metric']:.3f}; "
+        f"attention_block launches (forward, tc, wide, wide tc, backward, tc, wide) {counts}, "
+        f"expected {want}: {SMS_STEPS} steps and {val} validation forwards")
+    if counts != want or not (np.isfinite(fit["train_loss"]) and np.isfinite(fit["val/metric"])):
+        raise AssertionError(f"SMS-WSJ-Plus fit: launches {counts}, expected {want}; {fit}")
+    out["sms_wsj_plus_fit_launches"] = (counts[0], counts[4])
+
+    # the test split's whole utterances, as the test loader gives them, decide the route
+    lens = [x.shape[-1] for x, _, _ in data.test_dataloader()]
+    frames = [-(-T // FS) * FS // 128 + 1 for T in lens]  # the runner pads to whole seconds
+    n_wide = sum(f > 256 for f in frames)
+    ckpt = os.path.join(fit["log_dir"], "checkpoints", "epoch0")
+    _zero_counts()
+    ab.wide_tc_launches = 0
+    test = _cli("test", args, ["--ckpt_path", ckpt, "--model.metrics=[SDR, SI_SDR]"])
+    torch.cuda.synchronize()
+    counts = _attention_counts()[:4]
+    want = (n_layers * len(lens),) * 2 + (n_layers * n_wide,) * 2
+    results = sorted(f for f in os.listdir(test["log_dir"]) if f.startswith("results_"))
+    log(f"test over {test['num_items']} whole utterances ({min(lens) / FS:.2f}-"
+        f"{max(lens) / FS:.2f} s, {len(lens) - n_wide} at T <= 256, {n_wide} on the wide route, "
+        f"T up to {max(frames)}): SI-SDR {test['SI_SDR']:.2f} dB; launches (forward, tc, wide, "
+        f"wide tc) {counts}, expected {want}; files {results}")
+    if counts != want or test["num_items"] != CORPUS_ITEMS or not 0 < n_wide < len(lens) or \
+            not {"results_mean.json", "results_incremental.jsonl"} <= set(results) or \
+            len(results) != 3 or not np.isfinite(test["SI_SDR"]):
+        raise AssertionError(f"SMS-WSJ-Plus test: launches {counts}, expected {want}; {test}")
+    out["sms_wsj_plus_test_launches"] = (counts[0], counts[1], counts[2])
+
+    rates = sms_wsj_plus_rates(cfg, data, dev, RATE_ITEMS)
+    rates["fixed_b8_audio_s_per_s"] = fixed_rate
+    log(f"phase 9's fixed batch at B=8: {fixed_rate:.1f} audio-s/s")
+    out["sms_wsj_plus"] = {**rates, "test_items": len(lens), "test_wide_items": n_wide}
+    del data
+    check_budget("SMS-WSJ-Plus")
+    return out
+
+
+class _Epochs:
+    """The samples of the train split's epochs 0, 1, ... in turn (fresh
+    items each epoch), so that one loader, started once, draws them all, as
+    it would from a corpus that many items long."""
+
+    def __init__(self, n_items: int, epochs: int):
+        from nbss_tpu_torch.data.sampler import DistributedSampler
+
+        self.samplers = [DistributedSampler(n_items, seed=0, last_epoch=e) for e in range(epochs)]
+
+    def __len__(self) -> int:
+        return sum(len(s) for s in self.samplers)
+
+    def __iter__(self):
+        for s in self.samplers:
+            yield from s
+
+
+def _timed(batches, items: int, step=None, trace: bool = False):
+    """Items/s over ``items`` items of ``batches``, each through ``step``
+    when given, after a first batch that starts the loader (and the step)
+    outside the window. With ``trace``, also the card's busy share of the
+    window: its kernels' device time over the wall time, under
+    ``torch.profiler`` recording the card's activity only (recording every
+    host op as well would slow the host it measures)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = iter(batches)
+    try:
+        first = next(it)
+        if step is not None:
+            step(first)
+            torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA]) if trace else contextlib.nullcontext()
+        with prof:
+            n, t1 = 0, time.perf_counter()
+            while n < items:
+                batch = next(it)
+                if step is not None:
+                    step(batch)
+                n += batch[0].shape[0]
+            if step is not None:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+    if not trace:
+        return n / seconds
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    if device_us == 0:
+        raise AssertionError("the profiler recorded no device time")
+    return n / seconds, device_us / (seconds * 1e6)
+
+
+def sms_wsj_plus_rates(cfg, data, dev, items: int, workers=(0, 2), fed=(2,),
+                       trace: bool = False) -> dict:
+    """The host loader's items/s over the SMS-WSJ-Plus train split at each
+    of ``workers``, and SpatialNet-small's train rate at the config's B fed
+    by it at each of ``fed`` and on one fixed batch, each over ``items``
+    items after a warm-up batch (the fixture's files in the page cache).
+    With ``trace``, the card's busy share over TRACE_ITEMS more items of
+    each feed."""
+    import itertools
+
+    from nbss_tpu_torch.cli.main import build_module
+    from nbss_tpu_torch.data.prefetch import ThreadedLoader
+    from nbss_tpu_torch.data.sampler import BatchLoader
+    from nbss_tpu_torch.train.loop import Trainer
+
+    ds, B = data._make_dataset(0), data.batch_size[0]
+
+    def loader(nw: int, n: int):
+        sampler = _Epochs(len(ds), -(-(n + B) // len(ds)))
+        return ThreadedLoader(ds, B, sampler, num_workers=nw) if nw else \
+            BatchLoader(ds, B, sampler)
+
+    loader_rate = {str(nw): _timed(loader(nw, items), items) for nw in workers}
+    log("host loader (warm page cache): " + ", ".join(
+        f"{v:.2f} items/s at num_workers {k}" for k, v in loader_rate.items())
+        + f" ({items} items of 6 ch x 4 s each, after a first batch)")
+
+    trainer = Trainer(build_module(cfg, dev), device=dev)
+    trainer.init()
+    first = next(iter(data.train_dataloader(0)))
+    for _ in range(2):  # warm-up
+        trainer.train_step(first)
+    feeds = {f"num_workers {nw}": (lambda n, nw=nw: loader(nw, n)) for nw in fed}
+    feeds["fixed batch"] = lambda n: itertools.repeat(first, n // B + 1)
+    rates = {k: 4.0 * _timed(f(items), items, trainer.train_step) for k, f in feeds.items()}
+    log(f"train rate at B={B} over {items} items (audio-s/s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+    out = {"loader_items_per_s": loader_rate, "train_audio_s_per_s": rates, "items": items}
+    if trace:
+        traced = {k: _timed(f(TRACE_ITEMS), TRACE_ITEMS, trainer.train_step, trace=True)
+                  for k, f in feeds.items()}
+        log(f"over {TRACE_ITEMS} more items with the profiler on: " + ", ".join(
+            f"{k} {4.0 * r:.2f} audio-s/s, the card busy {100 * b:.1f}% of the wall time"
+            for k, (r, b) in traced.items()))
+        out["traced"] = {k: {"audio_s_per_s": 4.0 * r, "busy_share": b}
+                         for k, (r, b) in traced.items()}
+    del trainer
+    return out
+
+
+def corpus_rates(items: int) -> int:
+    """``python3 chip_smoke.py --corpus-rates``: the kernels built, phase 50's
+    rooms and phase 55's fixture, then ``sms_wsj_plus_rates`` over ``items``
+    items at 0, 2 and 4 workers, traced."""
+    import torch
+
+    from nbss_tpu_torch.cli.config import instantiate, load_configs
+    from nbss_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"corpus rates: {smi}; kernels built in {_build.build():.1f} s")
+    _build.library()
     with tempfile.TemporaryDirectory(prefix="nbss_chip_smoke_") as tmp:
         rir_dir = os.path.join(tmp, "rir8k")
-        # 50. rooms
-        log(f"phase 50/54 rooms: nbss_tpu_torch.sim.generate with "
-            f"run_spatialnet_convergence.sh's flags, --rir_nums {' '.join(map(str, RIR_NUMS))}")
-        out["sim_s_per_room"] = _rendered(rir_dir, STATIC_SIM, RIR_NUMS, "static corpus")
-        par = RirConfigSampler(spk_num=2, noise_num=0, arr_geometry="circular+cm", mic_num=6,
-                               fs=FS, RT60_lim=(0.1, 0.6), seed=0).sample(0)
-        args = (par["room_sz"], par["pos_src"], par["pos_rcv"], par["RT60"], FS)
-        kw = dict(beta=par.get("beta"), length_round=2048)
-        card = np.load(os.path.join(rir_dir, "train", "0.npz"), allow_pickle=True)["rir"]
+        _rendered(rir_dir, STATIC_SIM, RIR_NUMS, "static corpus")
+        paths = {"data.init_args.sms_wsj_dir": write_sms_wsj_plus(os.path.join(tmp, "sms_wsj"), dev),
+                 "data.init_args.rir_dir": rir_dir}
+        cfg = load_configs(["configs/SpatialNet.yaml", "configs/datasets/sms_wsj_plus.yaml"], paths)
+        rates = sms_wsj_plus_rates(cfg, instantiate(cfg["data"]), dev, items, (0, 2, 4),
+                                   (0, 2, 4), True)
+    print(json.dumps({"corpus_rates": rates, "device": smi}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def chime3_phase(dev, tmp: str) -> dict:
+    """Phase 56: CHiME3-moving through the command line."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch.ops import ssm
+
+    out = {}
+    n_layers = ONLINE["num_layers"]
+    logs = os.path.join(tmp, "logs")
+    mdir = os.path.join(tmp, "rir8k_chime3")
+    log(f"phase 56/57 CHiME3-moving: sim.generate {' '.join(CHIME3_SIM[2:])} --rir_nums "
+        f"{' '.join(map(str, CHIME3_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml + "
+        f"configs/datasets/chime3_moving.yaml for {CHIME3_STEPS} steps at B=4 and a "
+        "validation batch (B=8 x 32 s); test one 32-s item")
+    out["chime3_sim_s_per_room"] = _rendered(mdir, CHIME3_SIM, CHIME3_RIR_NUMS, "CHiME3 rooms")
+    np.savez(os.path.join(mdir, "rir_cfg.npz"),  # the generator's settings the dataset reads
+             args=np.array({"trajectory": CHIME3_TRAJECTORY}, dtype=object))
+    wsj0, chime3 = write_chime3(os.path.join(tmp, "chime3"), dev)
+    cargs = ["--config=configs/onlineSpatialNet.yaml",
+             "--config=configs/datasets/chime3_moving.yaml", f"--log_root={logs}",
+             f"--data.init_args.wsj0_dir={wsj0}", f"--data.init_args.chime3_dir={chime3}",
+             f"--data.init_args.rir_dir={mdir}",
+             "--model.arch.init_args.dim_output=2"]  # one speaker: the config has no num_spk
+    _zero_counts()
+    t1 = time.perf_counter()
+    fit = _cli("fit", cargs, ["--trainer.max_epochs=1", "--trainer.limit_val_batches=1",
+                              f"--trainer.limit_train_batches={CHIME3_STEPS}"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    scans = (ssm.launches, ssm.bwd_launches)
+    want = (4 * n_layers * CHIME3_STEPS + 2 * n_layers, 2 * n_layers * CHIME3_STEPS)
+    log(f"fit in {fit_s:.1f} s: train loss {fit['train_loss']:.3f}, val/metric "
+        f"{fit['val/metric']:.3f}; scan launches {scans}, expected {want} "
+        f"({4 * n_layers} + {2 * n_layers} a step under remat_policy='dots', {2 * n_layers} for "
+        "the validation batch)")
+    if scans != want or not (np.isfinite(fit["train_loss"]) and np.isfinite(fit["val/metric"])):
+        raise AssertionError(f"CHiME3 fit: scan launches {scans}, expected {want}; {fit}")
+    ckpt = os.path.join(fit["log_dir"], "checkpoints", "epoch0")
+    test = _cli("test", cargs, ["--ckpt_path", ckpt, "--trainer.limit_test_batches=1",
+                                "--model.metrics=[SDR, SI_SDR]"])
+    torch.cuda.synchronize()
+    test_scans = ssm.launches - scans[0]
+    inc = [json.loads(line) for line in open(os.path.join(test["log_dir"],
+                                                          "results_incremental.jsonl"))]
+    log(f"test: {test['num_items']} item of 32 s, SI-SDR {test['SI_SDR']:.2f} dB; scan "
+        f"launches {test_scans}, expected {2 * n_layers}")
+    if test["num_items"] != 1 or len(inc) != 1 or test_scans != 2 * n_layers or \
+            not np.isfinite(test["SI_SDR"]):
+        raise AssertionError(f"CHiME3 test: {test}, scan launches {test_scans}")
+    out["chime3_launches"] = (scans[0], scans[1], test_scans)
+    out["chime3_fit_s"] = fit_s
+    check_budget("CHiME3-moving")
+    return out
+
+
+def other_corpora_phase(dev, tmp: str) -> dict:
+    """Phase 57: every other ported corpus's first batches through the
+    threaded loader, and one NBC2 step on spatialized WSJ0-2mix."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch.cli.config import instantiate, load_configs
+    from nbss_tpu_torch.data.libricss import LibriCSSDataModule
+    from nbss_tpu_torch.data.prefetch import ThreadedLoader
+    from nbss_tpu_torch.data.reverb import ReverbDataModule
+    from nbss_tpu_torch.data.spk4_wsj0_mix_sp import Spk4Wsj0MixSpDataModule
+
+    out = {}
+    n_layers = NBC2_CFG["n_layers"]
+    logs = os.path.join(tmp, "logs")
+    log("phase 57/57 the other corpora: SMS-WSJ, spatialized WSJ0-2mix, WHAMR!, LibriCSS, "
+        "4-speaker WSJ0 pairs, REVERB (train/val and ET): first train and test batch each; "
+        "configs/NBC2.yaml + spatialized_wsj0_mix.yaml, one fit step")
+    r16 = os.path.join(tmp, "rir16k_libricss")
+    rrev = os.path.join(tmp, "rir16k_reverb")
+    _rendered(r16, LIBRICSS_SIM, (1, 1, 1), "LibriCSS rooms")
+    _rendered(rrev, REVERB_SIM, (1, 1, 0), "REVERB rooms")
+    fx = write_other_corpora(os.path.join(tmp, "corpora"), dev)
+
+    def from_yaml(name, **kw):
+        return instantiate(load_configs([f"configs/datasets/{name}.yaml"],
+                                        {f"data.init_args.{k}": v for k, v in kw.items()})["data"])
+
+    L4, L16 = 4 * FS, 4 * 16000
+    modules = {
+        "sms_wsj": (from_yaml("sms_wsj", sms_wsj_dir=fx["sms_wsj"]),
+                    (2, 6, L4), (2, 2, 6, L4), 6),
+        "spatialized_wsj0_mix": (from_yaml("spatialized_wsj0_mix", sp_wsj0_dir=fx["spwsj"]),
+                                 (2, 8, L4), (2, 2, 8, L4), 8),
+        "whamr": (from_yaml("whamr", whamr_dir=fx["whamr"]), (2, 2, L4), (2, 2, 2, L4), 2),
+        "libricss": (LibriCSSDataModule(
+            librispeech_dir=fx["librispeech"], rir_dir=r16, noise_dir=fx["noise"],
+            libricss_dir=fx["libricss"], audio_time_len=(4.0, 4.0, 4.0, None),
+            batch_size=(2, 1)), (2, 7, L16), (2, 2, 7, L16), 7),
+        "spk4_wsj0_mix_sp": (Spk4Wsj0MixSpDataModule(
+            wsj0_dir=fx["wsj0"], rir_dir=os.path.join(r16, "train"), batch_size=(2, 1)),
+            (2, 7, L16), (2, 2, 7, L16), 7),
+        "reverb": (ReverbDataModule(
+            wsjcam0_dir=fx["wsjcam0"], reverb_dir=fx["Reverb"], rir_dir=rrev,
+            batch_size=(2, 1)), (2, 8, L16), (2, 1, 8, L16), 8),
+    }
+    shapes = {}
+    for name, (dm, x_shape, y_shape, C) in modules.items():
         t1 = time.perf_counter()
-        cpu = simulate_rir(*args, **kw, device="cpu")
-        cpu_s = time.perf_counter() - t1
-        again = simulate_rir(*args, **kw, device=dev)
-        err, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
-        log(f"room 0 (RT60 {par['RT60']:.3f} s, rir {card.shape}): card vs CPU max |diff| "
-            f"{err:.3e} = {err / scale:.2e} x max|rir| (bound 1e-4); the CPU took {cpu_s:.1f} s; "
-            f"a second render on the card bit-identical: {np.array_equal(card, again)}")
-        if card.shape != cpu.shape or not err <= 1e-4 * scale:
-            raise AssertionError(f"room 0: card vs CPU {err} > 1e-4 x {scale}")
-        if not np.array_equal(card, again):
-            raise AssertionError("room 0: two renders on the card differ")
-        d, c = 2.0, 343.0
-        dp = simulate_direct_path([5.0, 4.0, 3.0], [1.0, 2.0, 1.5], [[3.0, 2.0, 1.5]], FS,
-                                  device=dev)[0, 0]
-        peak, gain = int(np.argmax(np.abs(dp))), float(dp.sum())
-        log(f"direct path at {d} m: peak at sample {peak} (d / c = {d / c * FS:.2f}), sum "
-            f"{gain:.6f} (1 / (4 pi d) = {1 / (4 * np.pi * d):.6f})")
-        if abs(peak - d / c * FS) > 1 or abs(gain * 4 * np.pi * d - 1) > 1e-3:
-            raise AssertionError("direct path: delay or amplitude off")
-        check_budget("rooms")
+        loaders = {"train": dm.train_dataloader(0), "test": dm.test_dataloader()}
+        if not all(isinstance(ld, ThreadedLoader) for ld in loaders.values()):
+            raise AssertionError(f"{name}: not the threaded loader")
+        (x, ys, _), (xt, yst, pt) = (next(iter(ld)) for ld in loaders.values())
+        shapes[name] = {"train": [list(x.shape), list(ys.shape)],
+                        "test": [list(xt.shape), None if yst is None else list(yst.shape)]}
+        ok = x.shape == x_shape and ys.shape == y_shape and xt.shape[:2] == (1, C) and \
+            np.isfinite(x).all() and np.isfinite(ys).all() and np.isfinite(xt).all()
+        log(f"{name}: train {tuple(x.shape)}, {tuple(ys.shape)}; test {tuple(xt.shape)}, "
+            f"{None if yst is None else tuple(yst.shape)} ({pt[0]['dataset']}); "
+            f"{time.perf_counter() - t1:.2f} s")
+        if not ok:
+            raise AssertionError(f"{name}: batch shapes {shapes[name]}, expected {x_shape}, "
+                                 f"{y_shape} and {C} test channels")
+    out["first_batches"] = shapes
 
-        # 51. mixtures
-        log("phase 51/54 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
-            "preloaded, B=8 on the card against the CPU")
-        init = load_configs(["configs/datasets/device_synth.yaml"])["data"]["init_args"]
-        kw = dict(init, rir_dir=rir_dir, num_items=CLI_ITEMS, preload_rir=True,
-                  seeds=(5, 2, 3, 3))
-        dms = {name: DeviceSyntheticDataModule(**kw, device=name) for name in ("cuda", "cpu")}
-        batches = {name: next(iter(dm.train_dataloader())) for name, dm in dms.items()}
-        (x, ys, paras), (xc, ysc, parasc) = batches["cuda"], batches["cpu"]
-        if [p["seed"] for p in paras] != [p["seed"] for p in parasc] or \
-                [p["rir_file"] for p in paras] != [p["rir_file"] for p in parasc]:
-            raise AssertionError("host picks (seeds, rooms) differ between the card and the CPU")
-        seeds = torch.tensor([p["seed"] % 2 ** 31 for p in paras])
-        draws = {name: mix_draws(dm.stage_key(0), seeds, dm.ovlp, dm.speech_overlap_ratio,
-                                 int(4.0 * FS), len(dm.noise_type)) for name, dm in dms.items()}
-        for k in ("keys", "ks", "lens", "shifts", "noise_type"):
-            if not torch.equal(draws["cuda"][k].cpu(), draws["cpu"][k]):
-                raise AssertionError(f"draw {k} differs between the card and the CPU")
-        errs = {n: float((a.cpu() - b).abs().max()) for n, a, b in (("x", x, xc), ("ys", ys, ysc))}
-        log(f"train batch {tuple(x.shape)}, {tuple(ys.shape)}: seeds, rooms, keys, segments and "
-            f"noise types equal; card vs CPU max |diff| x {errs['x']:.2e}, ys {errs['ys']:.2e} "
-            "(atol 2e-5, rtol 1e-4)")
-        torch.testing.assert_close(x.cpu(), xc, atol=2e-5, rtol=1e-4)
-        torch.testing.assert_close(ys.cpu(), ysc, atol=2e-5, rtol=1e-4)
-        out["mix_max_abs_err"] = max(errs.values())
-        dm = dms["cuda"]
-        for _ in dm.train_dataloader(0):  # warm-up
-            pass
-        torch.cuda.synchronize()
-        n, t1 = 0, time.perf_counter()
-        for epoch in range(MIX_EPOCHS):
-            for xb, _, _ in dm.train_dataloader(epoch):
-                n += xb.shape[0]
-        torch.cuda.synchronize()
-        out["mixtures_per_s"] = n / (time.perf_counter() - t1)
-        log(f"{n} mixtures (B=8, 6 ch x 4 s) made at {out['mixtures_per_s']:.1f} mixtures/s "
-            "(host picks, index upload and mixing)")
-        del dms, dm, batches, x, ys, xc, ysc
-        fresh_start()
-        check_budget("mixtures")
-
-        # 52. fit through the command line
-        logs = os.path.join(tmp, "logs")
-        args = ["--config=configs/SpatialNet.yaml", "--config=configs/datasets/device_synth.yaml",
-                "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={rir_dir}",
-                f"--data.init_args.num_items={CLI_ITEMS}", f"--log_root={logs}",
-                "--model.val_host_metrics=[STOI, eSTOI]", "--model.val_host_metrics_every=1"]
-        steps = CLI_EPOCHS * CLI_ITEMS[0] // 8
-        log(f"phase 52/54 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
-            f"--config=configs/datasets/device_synth.yaml, full width, bf16-mixed, {CLI_EPOCHS} "
-            f"epochs of {CLI_ITEMS[0] // 8} steps at B=8, host metrics STOI/eSTOI every epoch")
-        _zero_counts()
-        fit = _cli("fit", args, [f"--trainer.max_epochs={CLI_EPOCHS}"])
-        torch.cuda.synchronize()
-        counts = _ab_counts()
-        log_dir = fit["log_dir"]
-        n_layers = FLAGSHIP["num_layers"]
-        val_forwards = CLI_EPOCHS * 2  # one validation batch and one host-metric batch an epoch
-        want = (n_layers * (steps + val_forwards),) * 2 + (n_layers * steps,) * 2 + (0,)
-        log(f"attention_block launches: {counts[0]} forward ({counts[1]} tensor-core), "
-            f"{counts[2]} backward ({counts[3]} tensor-core), {counts[4]} wide; "
-            f"{steps} steps and {val_forwards} validation forwards: {n_layers} + {n_layers} a step")
-        if counts != want:
-            raise AssertionError(f"CLI fit launches {counts}, expected {want}")
-        records = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
-        losses = [r["value"] for r in records if r["key"] == "train/neg_si_sdr"]
-        host = {r["key"]: r["value"] for r in records if r["key"] in ("val/STOI", "val/eSTOI")}
-        files = ["config.yaml", "provenance.txt", "model.txt", "metrics.jsonl",
-                 "checkpoints/epoch0/params", "checkpoints/epoch1/params"]
-        missing = [f for f in files if not os.path.exists(os.path.join(log_dir, f))]
-        log(f"{os.path.basename(log_dir)}: epoch losses {losses}, {host}, files present: "
-            f"{not missing}")
-        if len(losses) != CLI_EPOCHS or not np.isfinite(losses).all() or missing or \
-                set(host) != {"val/STOI", "val/eSTOI"}:
-            raise AssertionError(f"CLI fit: losses {losses}, host metrics {host}, "
-                                 f"missing {missing}")
-        if yamlio.load(os.path.join(log_dir, "config.yaml"))["data"]["init_args"]["rir_dir"] != \
-                rir_dir:
-            raise AssertionError("config.yaml does not hold the run's config")
-        out["cli_fit_launches"] = counts
-        # the rate of the path the CLI runs: mixing on the card and the train step, B=8
-        cfg = load_configs(["configs/SpatialNet.yaml", "configs/datasets/device_synth.yaml"],
-                           {"data.init_args.rir_dir": rir_dir,
-                            "data.init_args.num_items": CLI_ITEMS})
-        data = instantiate(cfg["data"], device=str(dev))
-        trainer = Trainer(build_module(cfg, dev), device=dev)
-        trainer.init()
-        for batch in data.train_dataloader(0):  # warm-up epoch
-            trainer.train_step(batch)
-        torch.cuda.synchronize()
-        n, t1 = 0, time.perf_counter()
-        for epoch in (1, 2):
-            for batch in data.train_dataloader(epoch):
-                trainer.train_step(batch)
-                n += batch[0].shape[0]
-        torch.cuda.synchronize()
-        out["cli_train_audio_s_per_s"] = n * SECONDS / (time.perf_counter() - t1)
-        log(f"training rate with mixing on the card: {out['cli_train_audio_s_per_s']:.1f} "
-            f"audio-s/s ({n} items); phase 9's fixed batch: {fixed_rate:.1f} audio-s/s")
-        del trainer, data
-        fresh_start()
-        check_budget("CLI fit")
-
-        # 53. validate, test, predict, resume
-        ckpt = os.path.join(log_dir, "checkpoints", f"epoch{CLI_EPOCHS - 1}")
-        log(f"phase 53/54 validate, test (the config's metrics), predict and a resumed fit "
-            f"from {os.path.relpath(ckpt, tmp)}")
-        _zero_counts()
-        val = _cli("validate", args, ["--ckpt_path", ckpt])
-        test = _cli("test", args, ["--ckpt_path", ckpt])
-        pred = _cli("predict", args, ["--ckpt_path", ckpt])
-        resumed = _cli("fit", args, ["--ckpt_path", ckpt, f"--trainer.max_epochs={CLI_EPOCHS + 1}"])
-        torch.cuda.synchronize()
-        counts = _ab_counts()
-        test_dir = test["log_dir"]
-        results = [f for f in os.listdir(test_dir) if f.startswith("results_")]
-        wavs = [f for f in os.listdir(os.path.join(pred["log_dir"], "examples"))
-                if f.endswith(".wav")]
-        shown = {k: round(v, 3) for k, v in test.items() if isinstance(v, float)
-                 and k != "id" and not k.startswith("input_") and not k.endswith("_i")}
-        log(f"validate: val/metric {val['val/metric']:.3f}; test over {test['num_items']} items: "
-            f"{shown}; files {sorted(results)}; predict wrote {len(wavs)} WAVs; resumed fit in "
-            f"{os.path.basename(resumed['log_dir'])}, train loss {resumed['train_loss']:.3f}; "
-            f"attention_block launches {counts}")
-        need = {"SDR", "SI_SDR", "eSTOI"}
-        if not (np.isfinite(val["val/metric"]) and test["num_items"] == CLI_ITEMS[2]
-                and need <= set(test) and ("NB_PESQ" in test or "NB_PESQ_est" in test)
-                and "results_mean.json" in results and "results_incremental.jsonl" in results
-                and len(results) == 3 and len(wavs) == 2 * CLI_ITEMS[3]
-                and os.path.abspath(resumed["log_dir"]) == os.path.abspath(log_dir)
-                and os.path.exists(os.path.join(log_dir, "checkpoints",
-                                                f"epoch{CLI_EPOCHS}", "params"))
-                and np.isfinite(resumed["train_loss"])):
-            raise AssertionError(f"subcommands: validate {val}, test {test}, predict {pred}, "
-                                 f"resumed {resumed}, results {results}, wavs {len(wavs)}")
-        if counts[1] != counts[0] or counts[3] != counts[2] or counts[2] != \
-                n_layers * CLI_ITEMS[0] // 8:
-            raise AssertionError(f"subcommands' launches {counts}: not all on the tensor-core "
-                                 "kernels, or not one epoch of backward launches")
-        fresh_start()
-        check_budget("subcommands")
-
-        # 54. the moving run
-        mdir = os.path.join(tmp, "rir8k_moving")
-        log(f"phase 54/54 moving run: sim.generate with run_moving_convergence.sh's flags, "
-            f"--rir_nums {' '.join(map(str, MOVING_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml "
-            f"+ device_synth_moving.yaml, {MOVING_STEPS} steps at B=8")
-        out["moving_sim_s_per_room"] = _rendered(mdir, MOVING_SIM, MOVING_RIR_NUMS,
-                                                 "moving corpus")
-        margs = ["--config=configs/onlineSpatialNet.yaml",
-                 "--config=configs/datasets/device_synth_moving.yaml",
-                 "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={mdir}",
-                 "--data.init_args.num_items=[16, 8, 4, 4]", "--trainer.max_epochs=1",
-                 f"--trainer.limit_train_batches={MOVING_STEPS}", f"--log_root={logs}"]
-        _zero_counts()
-        moving = _cli("fit", margs)
-        torch.cuda.synchronize()
-        scans = (ssm.launches, ssm.bwd_launches)
-        want = (4 * n_layers * MOVING_STEPS + 2 * n_layers, 2 * n_layers * MOVING_STEPS)
-        log(f"{os.path.basename(os.path.dirname(moving['log_dir']))}/"
-            f"{os.path.basename(moving['log_dir'])}: train loss {moving['train_loss']:.3f}, "
-            f"val/metric {moving['val/metric']:.3f}; scan launches {scans[0]} + {scans[1]} "
-            f"({4 * n_layers} + {2 * n_layers} a step under remat_policy='dots', "
-            f"{2 * n_layers} for the validation batch)")
-        if scans != want or not np.isfinite(moving["train_loss"]):
-            raise AssertionError(f"moving fit: scan launches {scans}, expected {want}; "
-                                 f"loss {moving['train_loss']}")
-        out["moving_fit_launches"] = scans
-        fresh_start()
-        check_budget("moving run")
+    _zero_counts()
+    nargs = ["--config=configs/NBC2.yaml", "--config=configs/datasets/spatialized_wsj0_mix.yaml",
+             f"--log_root={logs}", f"--data.init_args.sp_wsj0_dir={fx['spwsj']}",
+             "--trainer.max_epochs=1", "--trainer.limit_train_batches=1",
+             "--trainer.limit_val_batches=1"]
+    fit = _cli("fit", nargs)
+    torch.cuda.synchronize()
+    counts = _ab_counts()
+    want = (2 * n_layers,) * 2 + (n_layers,) * 2 + (0,)
+    log(f"NBC2-small on spatialized WSJ0-2mix (6 of its 8 channels): one step, train loss "
+        f"{fit['train_loss']:.3f}; attention_block launches {counts}, expected {want} (8 a "
+        "forward at two heads, the step's and the validation batch's, 8 backward)")
+    if counts != want or not np.isfinite(fit["train_loss"]):
+        raise AssertionError(f"NBC2 fit: launches {counts}, expected {want}")
+    out["nbc2_fit_launches"] = (counts[0], counts[1], counts[2])
+    check_budget("other corpora")
     return out
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(corpus_rates(RATE_ITEMS_LONG) if sys.argv[1:] == ["--corpus-rates"] else main())

@@ -61,8 +61,7 @@ def resolve_class(class_path: str):
     except ModuleNotFoundError as e:
         if path.startswith(_PORT) and e.name and e.name.startswith(_PORT.rstrip(".")):
             raise NotImplementedError(
-                f"{class_path}: {module} is not ported to nbss_tpu_torch yet "
-                "(ROADMAP.md A10 lists the corpus datasets)") from e
+                f"{class_path}: {module} is not ported to nbss_tpu_torch yet") from e
         raise
     return getattr(mod, name)
 

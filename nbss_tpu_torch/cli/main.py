@@ -14,6 +14,9 @@ Counterpart of ``nbss_tpu/cli/main.py``, with the same command surface:
   ``{epoch}_{test_set}_set`` beside it;
 - ``trainer.precision`` '32' or 'bf16-mixed' selects the network's compute
   dtype (STFT, norm and loss stay float32);
+- ``trainer.limit_train_batches``, ``limit_val_batches`` and
+  ``limit_test_batches`` cap the batches a stage takes (Lightning's names;
+  all of them when unset);
 - everything runs on one CUDA card unless ``--trainer.accelerator=cpu``.
 """
 
@@ -26,7 +29,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from nbss_tpu_torch.cli.config import instantiate, load_configs, parse_argv, save_config
-from nbss_tpu_torch.train.loop import Trainer
+from nbss_tpu_torch.train.loop import Trainer, take
 from nbss_tpu_torch.train.module import TrainModule
 from nbss_tpu_torch.utils.device import resolve
 from nbss_tpu_torch.utils.logging import TensorBoardLogger, log_provenance, write_model_summary
@@ -196,15 +199,18 @@ def _run_stage(sub, cfg, trainer, module, data_module, log_dir) -> Dict[str, Any
             lambda: iter(data_module.val_dataloader()),
             max_epochs=t.get("max_epochs", 1),
             steps_per_epoch=t.get("limit_train_batches"),
+            val_batches=t.get("limit_val_batches"),
         )
         return {"log_dir": log_dir, **history}
     if sub == "validate":
-        return {"log_dir": log_dir, **trainer.validate(lambda: iter(data_module.val_dataloader()))}
+        return {"log_dir": log_dir, **trainer.validate(lambda: iter(data_module.val_dataloader()),
+                                                       t.get("limit_val_batches"))}
     if sub == "test":
         from nbss_tpu_torch.eval.runner import run_test
 
         metrics = m.get("metrics", ["SDR", "SI_SDR", "NB_PESQ", "WB_PESQ", "eSTOI"])
-        results = run_test(trainer, module, data_module.test_dataloader(), log_dir,
+        batches = take(data_module.test_dataloader(), t.get("limit_test_batches"))
+        results = run_test(trainer, module, batches, log_dir,
                            metrics=metrics, write_examples=m.get("write_examples", 200),
                            mchunk=m.get("mchunk"))
         return {"log_dir": log_dir, **results}

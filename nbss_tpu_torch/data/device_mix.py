@@ -462,6 +462,10 @@ class DeviceSyntheticDataModule(DataModule):
     # NBSS_RIR_PRELOAD_MB (default 1024 MB); True forces it, False disables.
     preload_rir: Optional[bool] = None
     device: str = "cuda"
+    # the items are room and source picks (indices when preloaded) and the
+    # mixing runs on the device in the consumer, so the picks stay in the
+    # calling thread unless asked for; any count gives the same batches
+    num_workers: int = 0
 
     _cs_cache: Optional[Tuple[np.ndarray, np.ndarray]] = field(
         default=None, init=False, repr=False, compare=False)

@@ -12,10 +12,11 @@ a ``torch.Generator`` seeded with ``seed``.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 import warnings
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,18 @@ from nbss_tpu_torch.train.ckpt import CheckpointManager
 from nbss_tpu_torch.train.module import TrainModule
 from nbss_tpu_torch.train.optim import LRSchedule, Optimizer
 from nbss_tpu_torch.utils.device import resolve
+
+
+def take(batches: Iterable, n: Optional[int] = None) -> Iterator:
+    """The first ``n`` batches (all when n is None). The source's iterator
+    is closed after them, which stops a prefetching loader's threads."""
+    it = iter(batches)
+    try:
+        yield from (it if n is None else itertools.islice(it, n))
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
 
 class Trainer:
@@ -130,9 +143,11 @@ class Trainer:
 
     def fit(self, train_data: Iterable, val_data: Optional[Iterable] = None,
             max_epochs: int = 1, steps_per_epoch: Optional[int] = None,
-            log_every: int = 50) -> Dict[str, float]:
+            log_every: int = 50, val_batches: Optional[int] = None) -> Dict[str, float]:
         """Run the fit loop. ``train_data``/``val_data`` are callables or
-        re-iterables yielding (x [B,C,T], ys [B,Spk,C,T], paras)."""
+        re-iterables yielding (x [B,C,T], ys [B,Spk,C,T], paras); an epoch
+        takes at most ``steps_per_epoch`` train batches and validates on at
+        most ``val_batches``."""
         if self.opt is None:
             self.init()
         history: Dict[str, float] = {}
@@ -141,10 +156,8 @@ class Trainer:
         for epoch in range(self.epoch, max_epochs):
             t0 = time.time()
             losses = []
-            it = train_data() if callable(train_data) else iter(train_data)
-            for step, batch in enumerate(it):
-                if steps_per_epoch is not None and step >= steps_per_epoch:
-                    break
+            it = train_data() if callable(train_data) else train_data
+            for step, batch in enumerate(take(it, steps_per_epoch)):
                 if self.profile_dir and epoch == first_epoch:
                     self._profile_hook(step)
                 losses.append(self.train_step(batch))
@@ -160,9 +173,9 @@ class Trainer:
 
             val_metric = None
             if val_data is not None:
-                val_logs = self.validate(val_data)
+                val_logs = self.validate(val_data, val_batches)
                 if self.val_host_metrics and (epoch + 1) % self.val_host_metrics_every == 0:
-                    val_logs.update(self._host_metrics(val_data))
+                    val_logs.update(self._host_metrics(val_data, val_batches))
                 for k, v in val_logs.items():
                     self.logger(k, v, epoch)
                 history.update(val_logs)
@@ -210,20 +223,19 @@ class Trainer:
         self._profiler = None
         print(f"profiler trace written to {path}", flush=True)
 
-    def _host_metrics(self, val_data) -> Dict[str, float]:
-        """Host metrics (PESQ/STOI/...) over validation batches; an item whose
+    def _host_metrics(self, val_data, max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Host metrics (PESQ/STOI/...) over validation batches (at most
+        ``val_host_metrics_batches`` and ``max_batches``); an item whose
         metric is missing or not finite (say STOI of a near-silent segment)
         is left out of that metric's mean."""
         from nbss_tpu_torch.eval.metrics import cal_metrics
 
         self.arch.eval()
-        it = val_data() if callable(val_data) else iter(val_data)
+        it = val_data() if callable(val_data) else val_data
+        limits = [n for n in (self.val_host_metrics_batches, max_batches) if n is not None]
         sums: Dict[str, float] = {}
         counts: Dict[str, int] = {}
-        for bi, batch in enumerate(it):
-            if (self.val_host_metrics_batches is not None
-                    and bi >= self.val_host_metrics_batches):
-                break
+        for batch in take(it, min(limits) if limits else None):
             x, ys = self.to_device(batch)
             paras = batch[2] if len(batch) > 2 else [{}]
             fs = paras[0].get("sample_rate", 8000) if paras else 8000
@@ -258,13 +270,14 @@ class Trainer:
         self._es_bad += 1
         return self._es_bad >= es.get("patience", 10)
 
-    def validate(self, val_data: Iterable) -> Dict[str, float]:
-        """Batch-size-weighted means of ``validation_step``'s logs."""
+    def validate(self, val_data: Iterable, max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Batch-size-weighted means of ``validation_step``'s logs over at
+        most ``max_batches`` batches."""
         self.arch.eval()
-        it = val_data() if callable(val_data) else iter(val_data)
+        it = val_data() if callable(val_data) else val_data
         sums: Dict[str, float] = {}
         n = 0
-        for batch in it:
+        for batch in take(it, max_batches):
             x, ys = self.to_device(batch)
             logs = self.module.validation_step((x, ys))
             bs = int(x.shape[0])

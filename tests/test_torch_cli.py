@@ -7,8 +7,11 @@ results_*.json, results_mean.json, results_incremental.jsonl and example
 WAVs; a resumed ``fit`` goes on in the checkpoint's version directory; then
 ``validate`` and ``predict``. The same chain runs once over a corpus rendered
 by the port's generator through ``DeviceSyntheticDataModule`` with host
-metrics on validation. Every config in configs/ builds the port's model; the
-JAX package's and the reference's class paths resolve to the port; the
+metrics on validation, and once over an SMS-WSJ-Plus fixture with
+configs/datasets/sms_wsj_plus.yaml (``fit``, then ``test`` on whole
+utterances). Every config in configs/ builds the port's model and every
+dataset config the port's DataModule; the JAX package's and the reference's
+class paths (the ``data_loaders.*`` aliases too) resolve to the port; the
 port's YAML reader equals ``yaml.safe_load`` on every file under configs/ and
 every config.yaml under logs/, and a config.yaml it writes reads back equal.
 What is not ported raises: a missing card, an orbax checkpoint, multi-host
@@ -29,8 +32,9 @@ import torch
 import yaml
 
 from nbss_tpu_torch.cli import yamlio
-from nbss_tpu_torch.cli.config import (deep_merge, instantiate, load_configs, parse_argv,
-                                       parse_value, port_class_path, resolve_class, save_config)
+from nbss_tpu_torch.cli.config import (_ALIASES, deep_merge, instantiate, load_configs,
+                                       parse_argv, parse_value, port_class_path, resolve_class,
+                                       save_config)
 from nbss_tpu_torch.cli.main import build_module, run
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,8 +94,29 @@ def test_class_paths_resolve_to_the_port():
     loss = instantiate({"class_path": "models.io.loss.Loss",
                         "init_args": {"loss_func": "models.io.loss.neg_si_sdr", "pit": True}})
     assert isinstance(loss, Loss) and loss.name == "neg_si_sdr" and loss.pit
-    with pytest.raises(NotImplementedError, match="A10"):
-        resolve_class("data_loaders.sms_wsj_plus.SmsWsjPlusDataModule")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        resolve_class("nbss_tpu.data.no_such_corpus.NoSuchDataModule")
+
+
+@pytest.mark.parametrize("alias", sorted(a for a in _ALIASES if a.startswith("data_loaders.")))
+def test_reference_data_aliases_are_the_port_classes(alias):
+    import importlib
+
+    module, name = _ALIASES[alias].replace("nbss_tpu.", "nbss_tpu_torch.", 1).rsplit(".", 1)
+    assert resolve_class(alias) is getattr(importlib.import_module(module), name)
+    assert resolve_class(_ALIASES[alias]) is resolve_class(alias)
+    if alias.endswith("Spk4Wsj0mixSp"):
+        assert resolve_class(alias).__name__ == "Spk4Wsj0MixSpDataModule"
+
+
+@pytest.mark.parametrize("path", sorted(p.name for p in (CONFIGS / "datasets").glob("*.yaml")))
+def test_every_dataset_config_builds_the_port_datamodule(path):
+    from nbss_tpu_torch.data.loader import DataModule
+
+    node = load_configs([str(CONFIGS / "datasets" / path)])["data"]
+    dm = instantiate(node, device="cpu")
+    assert isinstance(dm, DataModule) and type(dm).__module__.startswith("nbss_tpu_torch.data.")
+    assert type(dm).__name__ == node["class_path"].rsplit(".", 1)[1]
 
 
 @pytest.mark.parametrize("path", YAMLS)
@@ -201,6 +226,56 @@ def test_fit_over_a_rendered_corpus_with_host_metrics(tmp_path):
     assert {"val/STOI", "val/eSTOI", "train/neg_si_sdr", "lr"} <= keys
     assert os.path.basename(_command("nbss_tpu_torch.cli", "fit", *args)["log_dir"]) == \
         "version_1"
+
+
+def test_fit_and_test_over_an_sms_wsj_plus_corpus(tmp_path):
+    """The README's ``fit --config=configs/SpatialNet.yaml
+    --config=configs/datasets/sms_wsj_plus.yaml`` at a narrow width over a
+    fixture corpus in SMS-WSJ-Plus's layout, items made by worker threads;
+    then ``test`` on whole utterances at batch 1."""
+    from nbss_tpu_torch.utils.audio_io import write_audio
+
+    rng = np.random.default_rng(0)
+    wsj = tmp_path / "sms_wsj"
+    (wsj / "wsj_8k_zeromean").mkdir(parents=True)
+    info = {"datasets": {d: {} for d in ("train_si284", "cv_dev93", "test_eval92")}}
+    for d in info["datasets"]:
+        for k in range(4):
+            srcs = []
+            for s in range(2):
+                name = f"wsj_8k_zeromean/{d}_{k}_{s}.wav"
+                wav = rng.standard_normal(8000 + 2000 * (k + s)).astype(np.float32) * 0.1
+                write_audio(str(wsj / name), wav, 8000)
+                srcs.append(f"/corpora/sms_wsj/{name}")
+            info["datasets"][d][f"{d}_{k}"] = {"audio_path": {"original_source": srcs}}
+    (wsj / "sms_wsj.json").write_text(json.dumps(info))
+    rirs = tmp_path / "rirs"
+    for sub in ("train", "validation", "test"):
+        (rirs / sub).mkdir(parents=True)
+        rir = (rng.standard_normal((2, 6, 600)) * 0.02).astype(np.float32)
+        rir[:, :, 30] = 1.0
+        dp = np.zeros_like(rir)
+        dp[:, :, 30] = 1.0
+        pos_rcv = np.stack([np.cos(np.arange(6)), np.sin(np.arange(6)), np.zeros(6)], -1) * 0.05
+        np.savez(rirs / sub / "0.npz", fs=8000, RT60=0.2, rir=rir, rir_dp=dp,
+                 pos_src=np.ones((2, 3)), pos_rcv=pos_rcv)
+    args = ["--config", str(CONFIGS / "SpatialNet.yaml"),
+            "--config", str(CONFIGS / "datasets" / "sms_wsj_plus.yaml"),
+            "--log_root", str(tmp_path / "logs"), "--trainer.accelerator=cpu",
+            "--trainer.max_epochs=1", "--trainer.limit_train_batches=2",
+            "--trainer.limit_val_batches=1", "--trainer.precision=32", *TINY,
+            f"--data.init_args.sms_wsj_dir={wsj}", f"--data.init_args.rir_dir={rirs}",
+            "--data.init_args.audio_time_len=[1.0, 1.0, null, null]"]
+    out = _command("nbss_tpu_torch.cli", "fit", *args)
+    assert np.isfinite(out["train_loss"]) and np.isfinite(out["val/metric"])
+    assert (rirs / "diffuse.npz").exists()
+    saved = yamlio.load(os.path.join(out["log_dir"], "config.yaml"))
+    assert saved["data"]["init_args"]["sms_wsj_dir"] == str(wsj)
+    ckpt = os.path.join(out["log_dir"], "checkpoints", "epoch0")
+    res = _command("nbss_tpu_torch.cli", "test", *args, "--ckpt_path", ckpt,
+                   "--trainer.limit_test_batches=2", "--model.metrics=[SI_SDR]",
+                   "--model.write_examples=0")
+    assert res["num_items"] == 2 and np.isfinite(res["SI_SDR"])
 
 
 def test_unported_paths_raise(tmp_path):
