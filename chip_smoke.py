@@ -25,8 +25,10 @@ them: rooms rendered by ``python -m nbss_tpu_torch.sim.generate``, mixtures
 made on the card by ``data/device_mix.py``, and ``fit``/``validate``/
 ``test``/``predict`` through ``nbss_tpu_torch.cli`` with the configs in
 configs/; then the public corpora, from fixtures written in their layouts,
-through the host loaders with threaded prefetch and the command line.
-Fifty-seven phases:
+through the host loaders with threaded prefetch and the command line; then
+data-parallel training (``nbss_tpu_torch.parallel``), the command line on
+every card with the FLOP counter, and the oracle MVDR beamformer.
+Sixty phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -85,8 +87,9 @@ Fifty-seven phases:
     bf16, 16 scan launches per forward and no backward launch; fp32 kernel
     path vs the plain scan, SI-SDR >= 50 dB;
 13. streaming: ``forward_streaming`` (one frame at a time) vs ``forward`` at
-    B=4: fp32 SI-SDR >= 50 dB, the bf16 figure printed;
-14. training: ``Trainer`` fits 8 SyntheticDataset items for 10 steps at B=8
+    B=4 on the first 2 s of the items: fp32 SI-SDR >= 50 dB, the bf16 figure
+    printed;
+14. training: ``Trainer`` fits 8 SyntheticDataset items for 8 steps at B=8
     (AdamW 1e-3, weight decay 1e-3, clip 5, bf16, remat): finite losses, the
     last 5 below the first 5, 32 forward (16 + 16 recomputed) and 16
     backward scan launches a step; fp32 gradients of every parameter, kernel
@@ -117,7 +120,7 @@ Fifty-seven phases:
     attention, SI-SDR >= 50 dB;
 19. streaming (a KV ring buffer of 250 frames) vs ``forward`` at B=4: fp32
     SI-SDR >= 50 dB, the bf16 figure printed;
-20. training: 10 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
+20. training: 8 steps at B=8 (AdamW 1e-3, weight decay 1e-3, clip 5, bf16,
     remat): falling loss, 16 forward (8 + 8 recomputed) and 8 backward
     attention launches a step, all on the tensor-core kernels; fp32
     gradients, kernel path vs plain, within
@@ -172,7 +175,7 @@ Fifty-seven phases:
     launches per forward, all on the tensor-core kernels, and no backward
     launch; fp32 kernel path vs the plain module composition, SI-SDR >= 50
     dB;
-28. training: ``Trainer`` fits 8 SyntheticDataset items for 10 steps at B=8
+28. training: ``Trainer`` fits 8 SyntheticDataset items for 8 steps at B=8
     (Adam 1e-3, clip 5, bf16): 8 T-ConvFFN (all on the tensor-core kernel),
     8 attention-block and 8 attention-block backward launches a step, every
     loss finite, the last 5 below the first 5; fp32 gradients of every
@@ -202,7 +205,7 @@ Fifty-seven phases:
     launches a forward, all on the tensor-core kernel, and no other kernel;
     fp32 kernel path vs the plain module composition, SI-SDR >= 50 dB; and
     with GBN first norms at B=2 through rows 4-5 (8 launches), >= 50 dB;
-33. training: ``Trainer`` fits 8 SyntheticDataset items for 10 steps at B=8
+33. training: ``Trainer`` fits 8 SyntheticDataset items for 8 steps at B=8
     (Adam 1e-3, clip 5, bf16): falling loss, 8 + 8 attention-block launches
     a step, all on the tensor-core kernels; the fp32 kernel path's gradients
     held by ``check_gradients.hold`` against the plain composition in fp32
@@ -212,13 +215,13 @@ Fifty-seven phases:
     at 8 kHz): ``forward`` and ``predict_step`` at B=16 in bf16 and fp32,
     finite, no kernel of the port (its LSTMs are cuDNN's; the first BLSTM's
     time in bf16 and fp32); the serving rates;
-36. training: 10 steps at B=8 (Adam 1e-3, clip 5, bf16), falling loss; the
+36. training: 8 steps at B=8 (Adam 1e-3, clip 5, bf16), falling loss; the
     training rate;
 37. the NBSS wrapper (STFT 512/256, 8 ch x 4 s at 16 kHz, B=2): one forward
     for NB_BLSTM, NBC and NBC2 in fp32 and bf16, finite [2, 2, T], with NBC's
     4 relative-position and NBC2's 8 attention-block launches;
-38. NBC training (``configs/NBC.yaml``, dropout 0.1) for 10 steps at B=6
-    (M = 8*257, T = 248; Adam 1e-3, clip 5, bf16): falling loss, no kernel
+38. NBC training (``configs/NBC.yaml``, dropout 0.1; 2 of its 4 layers) for 8
+    steps at B=6 (M = 8*257, T = 248; Adam 1e-3, clip 5, bf16): falling loss, no kernel
     launch (the block and the fused attention are off while dropout is
     active, as in the JAX package), the peak device memory and the rate;
 39. the same at dropout 0: 4 relative-position launches a step, all on the
@@ -245,7 +248,7 @@ Fifty-seven phases:
     the plain composition at B=2, SI-SDR >= 50 dB; serving rates;
 42. whole recordings: SpatialNet-small and -large at B=4 x 16 s (T = 1001)
     through the wide route, fp32 vs plain at B=1 >= 50 dB, serving rates;
-43. SpatialNet-large training: 10 steps at B=8 (Adam 1e-3, clip 5, bf16),
+43. SpatialNet-large training: 8 steps at B=8 (Adam 1e-3, clip 5, bf16),
     falling loss, 12 + 12 wide tensor-core launches a step, the peak
     memory and the rate; fp32 gradients of its first 2 layers at the
     trained weights held by ``check_gradients.hold``; 3 steps at dropout
@@ -264,18 +267,19 @@ Fifty-seven phases:
 47. OnlineSpatialNet mamba(64,4): serving at B=16 through ``predict_step``
     (16 scan launches a forward) and 5 training steps at B=8 with remat
     (``dots``; 32 + 16 launches a step), rates and peak memory;
-48. mamba(16,4) with ``remat_policy='dots'`` (the config as written): a
-    10-step fit (falling loss, 32 + 16 launches a step: the recompute runs
+48. mamba(16,4) with ``remat_policy='dots'`` (the config as written, 4 of its 8
+    layers): an
+    8-step fit (falling loss, 32 + 16 launches a step: the recompute runs
     the scan again); fp32 gradients of ``dots`` held by
     ``check_gradients.hold`` against full recomputation and the plain scan
     in a float64 arch; the rate and peak memory of full recomputation and
     ``dots`` in turns;
-49. OnlineSpatialNet ret(2,share_qk) (decays 4, 5, 9, 10; no kernel of the
+49. OnlineSpatialNet ret(2,share_qk) (decays 4, 5, 9, 10; 4 of its 8 layers; no kernel of the
     port: the retention's products are plain PyTorch, as they are plain XLA
     in the JAX package): serving at B=16 in bf16, bf16 vs fp32 SI-SDR
-    reported; ``forward_streaming`` at B=4 against ``forward(inference=True)``
+    reported; ``forward_streaming`` at B=4 (2 s) against ``forward(inference=True)``
     with ``chunkwise_recurrent=False`` (fp32 >= 50 dB; against the chunkwise
-    forward reported); a 10-step fit at B=8 with ``dots`` (falling loss);
+    forward reported); an 8-step fit at B=8 with ``dots`` (falling loss);
     fp32 gradients of ``dots`` held by ``check_gradients.hold`` against
     ``remat=False`` and a float64 arch; serving, streaming and training
     rates and peak memory;
@@ -312,7 +316,7 @@ Fifty-seven phases:
     launches a step, 8 a validation forward), ``test`` on the 12 whole
     utterances at B=1 (8 launches each, on the wide route past 4 s), and the
     train rate fed by the loader at 2 workers beside one fixed batch
-    (each rate over 32 items, after a first batch that starts the loader);
+    (each rate over 24 items, after a first batch that starts the loader);
 56. CHiME3-moving: single-speaker trajectory rooms from ``sim.generate``
     (5-cm points), wsj0 speakers and six 16-kHz background channels, ``fit``
     with configs/onlineSpatialNet.yaml + chime3_moving.yaml (3 steps at B=4,
@@ -322,11 +326,31 @@ Fifty-seven phases:
     WHAMR!, LibriCSS, the 4-speaker WSJ0 pairs, REVERB train/val and ET):
     the first train and test batch of each through ``ThreadedLoader``, with
     the shapes their modules document; ``fit`` with configs/NBC2.yaml +
-    spatialized_wsj0_mix.yaml for one step (rows 1-2 at two heads).
+    spatialized_wsj0_mix.yaml for one step (rows 1-2 at two heads);
+58. data parallel (``nbss_tpu_torch.profile_parallel``): SpatialNet-small at
+    full width, bf16, a global B=8 split into contiguous rows over NCCL ranks
+    on min(cards, 4) cards, or, on one card, 2 ranks over gloo sharing it:
+    one float32 step's all-reduced gradient (rank 0's) held against one
+    process's float64 and plain float32 gradients on the global batch by
+    ``check_gradients.hold``; a 10-step fit with each rank's rows-1-2
+    counters at 8 + 8 tensor-core launches a step, the parameters' crc32
+    equal on every rank and the loss falling; the training rate over 6 more
+    steps, after two warm-up steps; and that rate in a 1-rank NCCL group;
+59. ``cli fit`` with configs/SpatialNet.yaml + device_synth.yaml and
+    ``--trainer.devices`` the card count (1 on a one-card machine), 3 steps
+    and one validation batch, ``--trainer.write_flops=true`` (FLOPs.yaml:
+    the JAX package's keys, ``params`` the model's count), then ``cli test``
+    from its checkpoint on 2 items;
+60. ``eval.beamformer.mvdr`` with the oracle noise on the 8 mixtures of a
+    first train batch made on the card by ``data/device_mix.py`` (phase 50's
+    rooms): SI-SDR against speaker 0's direct path at channel 0 improves by
+    more than 3 dB on average.
 
 Prints one ``kernels`` JSON line, one ``training_runs`` JSON line (phases
 50-54's seconds a room, mixtures/s and training rate), one ``corpus_runs``
-JSON line (phases 55-57's loader and training rates), the card's
+JSON line (phases 55-57's loader and training rates), one ``parallel_runs``
+JSON line (phases 58-60: the data-parallel rates at 1 and n ranks, FLOPs.yaml,
+the MVDR gains), the card's
 ``nvidia-smi`` name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, without that line, when there is no CUDA
 card or any phase fails.
@@ -356,8 +380,9 @@ BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 B, CHANNELS, SECONDS, FS = 16, 6, 4.0, 8000
-B_TRAIN, TRAIN_STEPS = 8, 10  # fits on a fixed batch; 20 until phases 50-54 needed the
-# time (phase 7 keeps check_gradients.fit's 20 steps); every loss falls within 10
+B_TRAIN, TRAIN_STEPS = 8, 8  # fits on a fixed batch; 20 until phases 50-54 and 10 until
+# phases 58-60 needed the time (phase 7 keeps check_gradients.fit's 20 steps, phase 58 its
+# own 10); every loss falls within 8
 FLAGSHIP = dict(dim_input=12, dim_output=4, num_layers=8, dim_hidden=96, dim_ffn=192,
                 num_heads=4, kernel_size=(5, 3), conv_groups=(8, 8), dim_squeeze=8,
                 num_freqs=129, full_share=0)
@@ -366,6 +391,10 @@ ONLINE = dict(FLAGSHIP, attention="mamba(16,4)")
 # its masked-attention alternative, the class's default (configs/onlineSpatialNet.yaml:31)
 MHSA = dict(FLAGSHIP, attention="mhsa(251)")
 B_STREAM = 4
+# mamba and retention stream the first STREAM_SECONDS of each item (their state does not grow
+# with time; mhsa(251) streams all 4 s, so its 250-frame KV ring buffer fills); 4 s until
+# phases 58-60 needed the time
+STREAM_SECONDS = 2.0
 # configs/NBC.yaml: 4 layers, H=192, 8 heads, ffn 384, encoder k=4 (valid), 3 grouped k=3
 # convs of 8 groups with GroupNorm; 8 channels, STFT 512/256, 4 s at 16 kHz (the rate the
 # JAX module infers for n_fft 512)
@@ -378,6 +407,7 @@ NBC_B_CHECK = 4  # batch of the fp32 kernel-vs-plain comparison (the plain atten
 # every layer keeps [M, 8, 248, 248] float32 scores for the backward: B = 8 and B = 7 ran out
 # of the card's 80 GB, B = 6 peaks near 70 GiB. At dropout 0 B = 8 fits.
 NBC_B_TRAIN = {0.1: 6, 0.0: 8}
+NBC_TRAIN_LAYERS = 2  # phases 38-39 train 2 of NBC's 4 layers (4 until phases 58-60)
 # configs/NBC2.yaml, NBC2-small: 8 layers, H=96, ffn 192, 2 heads, k=5 encoder, 8 conv groups,
 # norms LN/GBN/GBN; 6 channels, STFT 256/128 at 8 kHz, frequency norm, neg-SA-SDR with PIT
 NBC2_CFG = dict(dim_input=12, dim_output=4, n_layers=8, encoder_kernel_size=5, dim_hidden=96,
@@ -406,8 +436,10 @@ NBC2_LARGE_STEPS = 5
 SCAN_N, SCAN_TIMED_N = (17, 32, 64, 128), (32, 64)
 MAMBA_WIDE_N, WIDE_N_STEPS = 64, 5
 # configs/onlineSpatialNet.yaml's retention alternative, its decays as YAML gives them
-RET = dict(FLAGSHIP, attention="ret(2,share_qk)", decay=[4, 5, 9, 10])
-T_FRAMES = int(SECONDS * FS) // 128 + 1
+# phase 49 at 4 of its 8 layers, and phase 48's mamba(16,4) with remat_policy='dots' too
+# (DOTS): cut in depth when phases 58-60 needed the time
+RET = dict(FLAGSHIP, attention="ret(2,share_qk)", decay=[4, 5, 9, 10], num_layers=4)
+DOTS = dict(ONLINE, num_layers=4)
 
 
 def log(msg: str) -> None:
@@ -460,7 +492,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/57 device")
+    log("phase 1/60 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -468,17 +500,20 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/57 build (plain nvcc, sm_90a)")
+    log("phase 2/60 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
     check_budget("build")
+    from nbss_tpu_torch.parallel.mesh import start_fork_server
+
+    start_fork_server()  # phase 58's ranks fork from it; its imports run beside phases 3-57
 
     # 3. kernel vs plain at the path's shape
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/57 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/60 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -530,7 +565,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/57 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/60 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -571,7 +606,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/57 times (CUDA events, after warm-up)")
+    log("phase 5/60 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -643,6 +678,8 @@ def main() -> int:
         runs = training_runs(dev, row2["train_audio_s_per_s"], tmp)
         fresh_start()
         corpora = corpus_runs(dev, tmp, row2["train_audio_s_per_s"])
+        fresh_start()
+        dp = parallel_runs(dev, tmp)
     row2["launches_cli_fit"] = runs["cli_fit_launches"][2]
     rows67[0]["launches_moving_fit"], rows67[1]["launches_moving_fit"] = runs["moving_fit_launches"]
     runs.pop("moving_fit_launches")
@@ -657,6 +694,9 @@ def main() -> int:
     rows45[0].update(wide4, **nbc2_row4)
     rows45[1].update(wide5, **nbc2_row5)
     row2.update(nbc2_row2)
+    # rows 1-2 in one rank of phase 58's data-parallel fit (forward, tc, backward, tc)
+    dp_launches = dp["dp"]["launches"][str(dp["dp"]["ranks"])]
+    row2["launches_dp_fit_per_rank"] = dp_launches[3]
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
@@ -670,10 +710,12 @@ def main() -> int:
         "library_ms": library_ms, "launches_cli_fit": runs.pop("cli_fit_launches")[0],
         "launches_sms_wsj_plus_fit": sms_fit[0],
         "launches_sms_wsj_plus_test": sms_test[0] - sms_test[2],
-        "launches_nbc2_wsj0mix_fit": nbc2_fit[0], **nbc2_row1},
+        "launches_nbc2_wsj0mix_fit": nbc2_fit[0], "launches_dp_fit_per_rank": dp_launches[1],
+        **nbc2_row1},
         row2, row1_wide, row2_wide, row3, *rows67, *rows45, row8]}), flush=True)
     print(json.dumps({"training_runs": runs, "device": smi}), flush=True)
     print(json.dumps({"corpus_runs": corpora, "device": smi}), flush=True)
+    print(json.dumps({"parallel_runs": dp, "device": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -739,7 +781,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/57 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/60 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -803,7 +845,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/57 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/60 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {check_gradients.STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     ab.wide_launches = ab.bwd_wide_launches = 0
@@ -835,7 +877,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/57 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/60 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -844,7 +886,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/57 times (CUDA events, after warm-up)")
+    log("phase 9/60 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -955,7 +997,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/57 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/60 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -990,7 +1032,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/57 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/60 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -1021,7 +1063,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/57 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/60 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1058,8 +1100,10 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/57 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s")
-    wave_s = wave[:B_STREAM].contiguous()
+    log(f"phase 13/60 streaming: forward_streaming vs forward, B={B_STREAM} x "
+        f"{STREAM_SECONDS:g} s")
+    wave_s = wave[:B_STREAM, :, :int(STREAM_SECONDS * FS)].contiguous()
+    n_frames = wave_s.shape[-1] // 128 + 1
     stream = {}
     for label, m in (("fp32", module32), ("bf16", module)):
         torch.cuda.synchronize()
@@ -1070,16 +1114,17 @@ def online_phases(dev):
         y_off, _ = m.forward(wave_s)
         if not torch.isfinite(y_str).all():
             raise AssertionError(f"{label} streaming output is not finite")
-        stream[label] = (si_sdr(y_str, y_off).min().item(), B_STREAM * SECONDS / seconds)
+        stream[label] = (si_sdr(y_str, y_off).min().item(),
+                         B_STREAM * STREAM_SECONDS / seconds)
         log(f"{label}: streaming vs offline min SI-SDR {stream[label][0]:.1f} dB; "
-            f"{T} frames in {seconds:.2f} s = {stream[label][1]:.2f} audio-s/s")
+            f"{n_frames} frames in {seconds:.2f} s = {stream[label][1]:.2f} audio-s/s")
     if not stream["fp32"][0] >= 50.0:
         raise AssertionError(f"fp32 streaming vs offline SI-SDR {stream['fp32'][0]:.1f} dB < 50")
     del net32, module32
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/57 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/60 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1132,7 +1177,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/57 times (CUDA events, after warm-up)")
+    log("phase 15/60 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1271,7 +1316,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/57 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/60 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1329,7 +1374,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/57 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/60 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1387,7 +1432,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/57 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/60 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1426,7 +1471,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/57 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/60 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1448,7 +1493,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/57 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/60 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1506,7 +1551,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/57 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/60 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1653,7 +1698,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/57 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/60 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1735,7 +1780,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/57 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/60 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1796,7 +1841,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/57 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/60 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1845,7 +1890,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/57 times (CUDA events, after warm-up)")
+    log("phase 25/60 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -2068,7 +2113,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/57 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/60 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -2149,7 +2194,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/57 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/60 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2194,7 +2239,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/57 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/60 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -2250,7 +2295,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/57 times (CUDA events, after warm-up)")
+    log("phase 29/60 times (CUDA events, after warm-up)")
     ffn = tconvffn_times(xb, p, G)
     ffn_ms, ffn_plain_ms, ffn_library_ms = ffn["ms"], ffn["plain_ms"], ffn["library_ms"]
     ffn_bound, ffn_by, ffn_bytes, ffn_ops = ffn["bound_ms"], ffn["bound_by"], ffn["bytes"], ffn["ops"]
@@ -2368,14 +2413,15 @@ def trainer_of(module, dev, losses):
     return trainer
 
 
-def check_losses(losses) -> None:
-    """TRAIN_STEPS losses, every one finite, and the mean of the last half
-    below the first half's."""
+def check_losses(losses, steps: int = 0) -> None:
+    """``steps`` (TRAIN_STEPS unless given) losses, every one finite, and the
+    mean of the last half below the first half's."""
     import numpy as np
 
+    steps = steps or TRAIN_STEPS
     log(f"losses: {', '.join(f'{v:.3f}' for v in losses)}")
-    half = TRAIN_STEPS // 2
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    half = steps // 2
+    if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
     first, last = float(np.mean(losses[:half])), float(np.mean(losses[-half:]))
     log(f"mean loss of the first {half} steps {first:.3f}, of the last {half} {last:.3f}")
@@ -2441,7 +2487,7 @@ def nbc2_phases(dev):
     ops = (ln, A, Wvo)
 
     # 30. rows 1-2 at nh 2
-    log(f"phase 30/57 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+    log(f"phase 30/60 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh} (dh {dh})")
     tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2550,7 +2596,7 @@ def nbc2_phases(dev):
     # 31. rows 4-5 at dh = dv = 48
     Ma = 2 * n_freq
     causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
-    log(f"phase 31/57 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+    log(f"phase 31/60 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
         f"dh=dv={dh}, no mask and causal")
     tc0, btc0 = att.tc_launches, att.bwd_tc_launches
     att_errs = {}
@@ -2634,7 +2680,7 @@ def nbc2_phases(dev):
     check_budget("attention at dh 48")
 
     # 32. serving
-    log(f"phase 32/57 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 32/60 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2677,7 +2723,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 serving")
 
     # 33. training
-    log(f"phase 33/57 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 33/60 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2703,7 +2749,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 training")
 
     # 34. rates
-    log("phase 34/57 NBC2-small rates")
+    log("phase 34/60 NBC2-small rates")
     serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
     torch.cuda.reset_peak_memory_stats()
     train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
@@ -2758,7 +2804,7 @@ def blstm_phases(dev):
                 + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
 
     # 35. serving
-    log(f"phase 35/57 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+    log(f"phase 35/60 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
         f"ch, {SECONDS:g} s, bf16 and fp32")
     gen = torch.Generator().manual_seed(8)
     net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -2796,7 +2842,7 @@ def blstm_phases(dev):
     check_budget("nb-blstm serving")
 
     # 36. training
-    log(f"phase 36/57 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 36/60 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2823,7 +2869,7 @@ def nbss_phase(dev):
     from nbss_tpu_torch.models.nbss import NBSS
     from nbss_tpu_torch.ops import attention_block as ab
 
-    log(f"phase 37/57 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+    log(f"phase 37/60 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
         "B=2): one forward for each arch in fp32 and bf16")
     gen = torch.Generator().manual_seed(9)
     wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
@@ -2866,15 +2912,16 @@ def nbc_training_phases(dev):
     from nbss_tpu_torch.ops import attention_block as ab
     from nbss_tpu_torch.train.module import TrainModule
 
-    n_layers = NBC_CFG["n_layers"]
+    n_layers = NBC_TRAIN_LAYERS
     out = {}
     for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
         bsz = NBC_B_TRAIN[dropout]
-        log(f"phase {phase}/57 NBC training at dropout {dropout:g}: Trainer fits {bsz} "
-            f"SyntheticDataset items ({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for "
-            f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, bf16")
+        log(f"phase {phase}/60 NBC training at dropout {dropout:g}, {n_layers} of its "
+            f"{NBC_CFG['n_layers']} layers: Trainer fits {bsz} SyntheticDataset items "
+            f"({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for {TRAIN_STEPS} steps, Adam "
+            "1e-3, clip 5, bf16")
         batch = fixed_batch(bsz, NBC_CHANNELS, NBC_FS)
-        cfg = dict(NBC_CFG, dropout=dropout)
+        cfg = dict(NBC_CFG, dropout=dropout, n_layers=n_layers)
         module = TrainModule(arch=NBC(**cfg, dtype=torch.bfloat16, device=dev),
                              channels=tuple(range(NBC_CHANNELS)),
                              stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -3060,7 +3107,7 @@ def large_phases(dev):
     ops = (ln, A, Wvo)
 
     # 40. rows 1-2 on the wide route
-    log(f"phase 40/57 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
+    log(f"phase 40/60 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh}; M = {M_EDGE}, T = 1 ... {T_long} at H = 96 and 192, nh 2, 3, 4")
     counts0 = wide_counts()
     n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
@@ -3160,7 +3207,7 @@ def large_phases(dev):
     check_budget("wide route")
 
     # 41. SpatialNet-large serving, fused_ffn off and on
-    log(f"phase 41/57 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 41/60 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16, fused_ffn off and on")
     net = SpatialNet(**LARGE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -3207,7 +3254,7 @@ def large_phases(dev):
     check_budget("spatialnet-large serving")
 
     # 42. long utterances: 16 s, T = 1001
-    log(f"phase 42/57 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
+    log(f"phase 42/60 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
         f"{LONG_SECONDS:g} s (T = {T_long}), bf16, through the wide route")
     wave_long = (0.1 * torch.randn(B_LONG, CHANNELS, int(LONG_SECONDS * FS), generator=gen)).to(dev)
     long_rates, long_sdrs = {}, {}
@@ -3245,7 +3292,7 @@ def large_phases(dev):
     check_budget("long-utterance serving")
 
     # 43. SpatialNet-large training
-    log(f"phase 43/57 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 43/60 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"for {TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -3303,7 +3350,7 @@ def large_phases(dev):
 
     # 44. NBC2-large
     nl2 = NBC2_LARGE_CFG["n_layers"]
-    log(f"phase 44/57 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
+    log(f"phase 44/60 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
         f"{NBC2_LARGE_CFG['n_heads']} heads, {nl2} layers): serving B={B} and "
         f"{NBC2_LARGE_STEPS} training steps at B={B_TRAIN}, bf16")
     net2 = NBC2(**NBC2_LARGE_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3410,7 +3457,7 @@ def scan_n_phases(dev, rows67):
         return [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins)]
 
     # 45. kernels vs plain
-    log(f"phase 45/57 selective_scan and its backward at N = {SCAN_N} (passes of "
+    log(f"phase 45/60 selective_scan and its backward at N = {SCAN_N} (passes of "
         f"{ssm.STATE_GROUP} states) vs plain: forward at M={M_serve}, backward at M={M_train}, "
         f"T={T}, D={Dm}")
     checked = {}
@@ -3468,7 +3515,7 @@ def scan_n_phases(dev, rows67):
     check_budget("scan at any N")
 
     # 46. times
-    log(f"phase 46/57 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
+    log(f"phase 46/60 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
         "bf16, after warm-up)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -3570,7 +3617,7 @@ def online_n_phases(dev):
 
     # 47. mamba(64,4)
     cfg = dict(FLAGSHIP, attention=f"mamba({MAMBA_WIDE_N},4)")
-    log(f"phase 47/57 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
+    log(f"phase 47/60 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
         f"{WIDE_N_STEPS} training steps at B={B_TRAIN} (remat, dots), bf16")
     module = _online_module(OnlineSpatialNet(**cfg, dtype=torch.bfloat16, generator=gen,
                                              device=dev).eval())
@@ -3613,12 +3660,13 @@ def online_n_phases(dev):
     check_budget("mamba(64,4)")
 
     # 48. mamba(16,4), remat_policy='dots'
-    log(f"phase 48/57 OnlineSpatialNet {ONLINE['attention']} with remat_policy='dots': "
-        f"{TRAIN_STEPS}-step fit at B={B_TRAIN}, fp32 gradients against full recomputation, "
-        "rates and peak memory of both policies in turns")
+    log(f"phase 48/60 OnlineSpatialNet {DOTS['attention']} with remat_policy='dots' at "
+        f"{DOTS['num_layers']} layers: {TRAIN_STEPS}-step fit at B={B_TRAIN}, fp32 gradients "
+        "against full recomputation, rates and peak memory of both policies in turns")
+    n_layers = DOTS["num_layers"]
     losses = []
     trainer = online_trainer(_online_module(OnlineSpatialNet(
-        **ONLINE, dtype=torch.bfloat16, remat=True, remat_policy="dots", device=dev)), dev,
+        **DOTS, dtype=torch.bfloat16, remat=True, remat_policy="dots", device=dev)), dev,
         losses)
     ssm.launches = ssm.bwd_launches = 0
     trainer.fit([batch], max_epochs=TRAIN_STEPS)
@@ -3632,7 +3680,7 @@ def online_n_phases(dev):
     log(f"scan launches {fit[0]} + {fit[1]} in {TRAIN_STEPS} steps (16 + 16 recomputed, 16 "
         "backward a step)")
     grads = check_gradients.gradients(
-        trainer.module, trainer.to_device(batch), ONLINE, dev, arch_cls=OnlineSpatialNet,
+        trainer.module, trainer.to_device(batch), DOTS, dev, arch_cls=OnlineSpatialNet,
         kernel=dict(remat=True, remat_policy="dots"), plain=dict(remat=True),
         plain64=dict(remat=True, fused_scan=False, dtype=torch.float64))
     log("dots (kernel) vs full recomputation (plain32) and the plain scan in a float64 arch "
@@ -3675,7 +3723,7 @@ def retention_phase(dev):
     from nbss_tpu_torch.ops.metrics import si_sdr
 
     gen = torch.Generator().manual_seed(49)
-    log(f"phase 49/57 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
+    log(f"phase 49/60 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
         f"streaming B={B_STREAM}, {TRAIN_STEPS}-step fit at B={B_TRAIN} with "
         "remat_policy='dots', fp32 gradients")
     net = OnlineSpatialNet(**RET, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3696,7 +3744,8 @@ def retention_phase(dev):
     del yr_hat, pred
 
     # streaming: the O(1)-state recurrence, frame by frame
-    wave_s = wave[:B_STREAM].contiguous()
+    wave_s = wave[:B_STREAM, :, :int(STREAM_SECONDS * FS)].contiguous()
+    n_frames = wave_s.shape[-1] // 128 + 1
     stream = {}
     for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
         rec = OnlineSpatialNet(**RET, chunkwise_recurrent=False, dtype=dtype, device=dev).eval()
@@ -3712,9 +3761,9 @@ def retention_phase(dev):
         if not torch.isfinite(y_str).all():
             raise AssertionError(f"{label} streaming output is not finite")
         stream[label] = (si_sdr(y_str, y_rec).min().item(), si_sdr(y_str, y_chunk).min().item(),
-                         B_STREAM * SECONDS / seconds)
+                         B_STREAM * STREAM_SECONDS / seconds)
         log(f"{label}: streaming vs forward(inference=True) min SI-SDR {stream[label][0]:.1f} dB, "
-            f"vs the chunkwise forward {stream[label][1]:.1f} dB (reported); {T_FRAMES} frames "
+            f"vs the chunkwise forward {stream[label][1]:.1f} dB (reported); {n_frames} frames "
             f"in {seconds:.2f} s = {stream[label][2]:.2f} audio-s/s")
         del rec, m, y_str, y_rec, y_chunk
     if not stream["fp32"][0] >= 50.0:
@@ -3828,7 +3877,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
     out = {}
     rir_dir = os.path.join(tmp, "rir8k")
     # 50. rooms
-    log(f"phase 50/57 rooms: nbss_tpu_torch.sim.generate with "
+    log(f"phase 50/60 rooms: nbss_tpu_torch.sim.generate with "
         f"run_spatialnet_convergence.sh's flags, --rir_nums {' '.join(map(str, RIR_NUMS))}")
     out["sim_s_per_room"] = _rendered(rir_dir, STATIC_SIM, RIR_NUMS, "static corpus")
     par = RirConfigSampler(spk_num=2, noise_num=0, arr_geometry="circular+cm", mic_num=6,
@@ -3859,7 +3908,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
     check_budget("rooms")
 
     # 51. mixtures
-    log("phase 51/57 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
+    log("phase 51/60 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
         "preloaded, B=8 on the card against the CPU")
     init = load_configs(["configs/datasets/device_synth.yaml"])["data"]["init_args"]
     kw = dict(init, rir_dir=rir_dir, num_items=CLI_ITEMS, preload_rir=True,
@@ -3906,7 +3955,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
             f"--data.init_args.num_items={CLI_ITEMS}", f"--log_root={logs}",
             "--model.val_host_metrics=[STOI, eSTOI]", "--model.val_host_metrics_every=1"]
     steps = CLI_EPOCHS * CLI_ITEMS[0] // 8
-    log(f"phase 52/57 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
+    log(f"phase 52/60 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
         f"--config=configs/datasets/device_synth.yaml, full width, bf16-mixed, {CLI_EPOCHS} "
         f"epochs of {CLI_ITEMS[0] // 8} steps at B=8, host metrics STOI/eSTOI every epoch")
     _zero_counts()
@@ -3963,7 +4012,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
 
     # 53. validate, test, predict, resume
     ckpt = os.path.join(log_dir, "checkpoints", f"epoch{CLI_EPOCHS - 1}")
-    log(f"phase 53/57 validate, test (the config's metrics), predict and a resumed fit "
+    log(f"phase 53/60 validate, test (the config's metrics), predict and a resumed fit "
         f"from {os.path.relpath(ckpt, tmp)}")
     _zero_counts()
     val = _cli("validate", args, ["--ckpt_path", ckpt])
@@ -4002,7 +4051,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
 
     # 54. the moving run
     mdir = os.path.join(tmp, "rir8k_moving")
-    log(f"phase 54/57 moving run: sim.generate with run_moving_convergence.sh's flags, "
+    log(f"phase 54/60 moving run: sim.generate with run_moving_convergence.sh's flags, "
         f"--rir_nums {' '.join(map(str, MOVING_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml "
         f"+ device_synth_moving.yaml, {MOVING_STEPS} steps at B=8")
     out["moving_sim_s_per_room"] = _rendered(mdir, MOVING_SIM, MOVING_RIR_NUMS,
@@ -4038,7 +4087,7 @@ CORPUS_SECONDS = (3.0, 10.0)  # utterance lengths; the test split's first 4 pair
 SMS_STEPS = 6  # phase 55's fit: steps at sms_wsj_plus.yaml's B = 2, then its validation split
 # items each of phase 55's rates is timed over, after one batch that starts the loader;
 # ``--corpus-rates`` times RATE_ITEMS_LONG and traces the card's busy share over TRACE_ITEMS
-RATE_ITEMS, RATE_ITEMS_LONG, TRACE_ITEMS = 32, 288, 16
+RATE_ITEMS, RATE_ITEMS_LONG, TRACE_ITEMS = 24, 288, 16  # 32 until phases 58-60 needed the time
 # CHiME3-moving (README's generate flags for it): single-speaker trajectories, 5 cm apart
 CHIME3_TRAJECTORY = ("4points+sin", 0.05)
 CHIME3_SIM = ["--spk_num=1", "--noise_num=0", "--arr_geometry=chime3", "--mic_num=6", "--fs=8000",
@@ -4266,7 +4315,7 @@ def sms_wsj_plus_phase(dev, tmp: str, fixed_rate: float) -> dict:
     n_layers = FLAGSHIP["num_layers"]
     logs = os.path.join(tmp, "logs")
     rir_dir = os.path.join(tmp, "rir8k")
-    log(f"phase 55/57 SMS-WSJ-Plus: python -m nbss_tpu_torch.cli fit "
+    log(f"phase 55/60 SMS-WSJ-Plus: python -m nbss_tpu_torch.cli fit "
         f"--config=configs/SpatialNet.yaml --config=configs/datasets/sms_wsj_plus.yaml, full "
         f"width, bf16-mixed, {SMS_STEPS} steps at B=2 and the validation split; test on whole "
         "utterances at B=1")
@@ -4481,7 +4530,7 @@ def chime3_phase(dev, tmp: str) -> dict:
     n_layers = ONLINE["num_layers"]
     logs = os.path.join(tmp, "logs")
     mdir = os.path.join(tmp, "rir8k_chime3")
-    log(f"phase 56/57 CHiME3-moving: sim.generate {' '.join(CHIME3_SIM[2:])} --rir_nums "
+    log(f"phase 56/60 CHiME3-moving: sim.generate {' '.join(CHIME3_SIM[2:])} --rir_nums "
         f"{' '.join(map(str, CHIME3_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml + "
         f"configs/datasets/chime3_moving.yaml for {CHIME3_STEPS} steps at B=4 and a "
         "validation batch (B=8 x 32 s); test one 32-s item")
@@ -4541,7 +4590,7 @@ def other_corpora_phase(dev, tmp: str) -> dict:
     out = {}
     n_layers = NBC2_CFG["n_layers"]
     logs = os.path.join(tmp, "logs")
-    log("phase 57/57 the other corpora: SMS-WSJ, spatialized WSJ0-2mix, WHAMR!, LibriCSS, "
+    log("phase 57/60 the other corpora: SMS-WSJ, spatialized WSJ0-2mix, WHAMR!, LibriCSS, "
         "4-speaker WSJ0 pairs, REVERB (train/val and ET): first train and test batch each; "
         "configs/NBC2.yaml + spatialized_wsj0_mix.yaml, one fit step")
     r16 = os.path.join(tmp, "rir16k_libricss")
@@ -4610,5 +4659,159 @@ def other_corpora_phase(dev, tmp: str) -> dict:
     return out
 
 
+# phases 58-60: data parallelism, the command line on every card with the FLOP counter, MVDR
+DP_STEPS = 10  # phase 58's fit on the fixed global batch
+DP_RATE_STEPS = 6  # its rate window, after two warm-up steps
+DP_CLI_STEPS = 3  # phase 59's fit: train steps at device_synth.yaml's B = 8, one val batch
+MVDR_STFT = (512, 128)  # phase 60: tests/test_beamformer.py's STFT
+
+
+def parallel_runs(dev, tmp: str) -> dict:
+    """Phases 58-60: SpatialNet-small data-parallel through ``Trainer``
+    (``nbss_tpu_torch.profile_parallel``), ``cli fit`` on every card with
+    ``trainer.write_flops`` and ``cli test`` from its checkpoint, and the
+    oracle MVDR on mixtures made on the card. Phase 50's rooms under ``tmp``."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch import profile_parallel as pp
+    from nbss_tpu_torch.check_gradients import gradients, hold
+    from nbss_tpu_torch.cli import yamlio
+    from nbss_tpu_torch.models.base import init_parameters
+
+    out = {}
+    cards = torch.cuda.device_count()
+    n_layers = FLAGSHIP["num_layers"]
+    # 58. data parallel
+    n, backend = (min(cards, 4), "nccl") if cards >= 2 else (2, "gloo")
+    where = f"{n} cards" if backend == "nccl" else "2 ranks sharing the one card"
+    log(f"phase 58/60 data parallel: SpatialNet-small at full width, bf16, global B={pp.B} over "
+        f"{n} ranks ({backend}, {where}); one fp32 step's all-reduced gradient, a {DP_STEPS}-step "
+        "fit, then its rate; and a 1-rank NCCL group")
+    res = pp.run(n, backend, DP_STEPS, grads=True, rate_steps=DP_RATE_STEPS)
+    runs = {n: res, 1: pp.run(1, "nccl", 0, rate_steps=DP_RATE_STEPS)}
+    want = (n_layers * DP_STEPS,) * 4
+    crcs = {r["params_crc32"] for r in res}
+    log(f"{n} ranks: launches (forward, tensor-core, backward, tensor-core) per rank "
+        f"{[r['launches'] for r in res]} in {DP_STEPS} steps ({n_layers} + {n_layers} a step); "
+        f"parameters' crc32 {sorted(crcs)}; peak {res[0]['peak_gib']:.1f} GiB a rank")
+    if any(tuple(r["launches"]) != want for r in res):
+        raise AssertionError(f"{n} ranks: launches {[r['launches'] for r in res]}, "
+                             f"expected {want} in every rank")
+    if len(crcs) != 1:
+        raise AssertionError(f"{n} ranks: parameters differ across ranks ({crcs})")
+    check_losses(res[0]["losses"], DP_STEPS)
+    log(f"training rate over {DP_RATE_STEPS} steps: {res[0]['audio_s_per_s']:.1f} audio-s/s at "
+        f"{n} ranks, {runs[1][0]['audio_s_per_s']:.1f} in the 1-rank NCCL group (peak "
+        f"{runs[1][0]['peak_gib']:.1f} GiB)")
+    m = pp.module(None, dev)
+    init_parameters(m.arch, torch.Generator().manual_seed(pp.SEED))
+    batch = tuple(torch.as_tensor(b, device=dev) for b in pp.global_batch()[:2])
+    grads = gradients(m, batch, pp.SPATIALNET_SMALL, dev)
+    grads["kernel"] = {k: v.to(dev).double() for k, v in runs[n][0]["grads"].items()}
+    log(f"{n} ranks' all-reduced fp32 gradient against one process's float64 and plain fp32 "
+        f"gradients on the global batch (check_gradients.hold): {hold(grads)}")
+    out["dp"] = {"ranks": n, "backend": backend,
+                 "audio_s_per_s": {str(k): v[0]["audio_s_per_s"] for k, v in runs.items()},
+                 "peak_gib": {str(k): v[0]["peak_gib"] for k, v in runs.items()},
+                 "launches": {str(n): res[0]["launches"]}}
+    del m, batch, grads, runs, res
+    fresh_start()
+    check_budget("data parallel")
+
+    # 59. the command line on every card, with the FLOP counter, then test
+    rir_dir, logs = os.path.join(tmp, "rir8k"), os.path.join(tmp, "logs_dp")
+    args = ["--config=configs/SpatialNet.yaml", "--config=configs/datasets/device_synth.yaml",
+            "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={rir_dir}",
+            "--data.init_args.num_items=[24, 8, 4, 4]", f"--log_root={logs}",
+            f"--trainer.devices={cards}"]
+    log(f"phase 59/60 cli fit --trainer.devices={cards} --trainer.write_flops=true "
+        f"({DP_CLI_STEPS} steps at B=8, one validation batch), then cli test from its checkpoint")
+    _zero_counts()
+    fit = _cli("fit", args, ["--trainer.max_epochs=1",
+                             f"--trainer.limit_train_batches={DP_CLI_STEPS}",
+                             "--trainer.limit_val_batches=1", "--trainer.write_flops=true"])
+    counts = _ab_counts()
+    flops = yamlio.load(os.path.join(fit["log_dir"], "FLOPs.yaml"))
+    ckpt = os.path.join(fit["log_dir"], "checkpoints", "epoch0")
+    test = _cli("test", args, ["--ckpt_path", ckpt, "--trainer.limit_test_batches=2",
+                               "--model.metrics=[SI_SDR, SDR]", "--model.write_examples=0"])
+    log(f"fit: train loss {fit['train_loss']:.3f}, val/metric {fit['val/metric']:.3f}; "
+        f"FLOPs.yaml {flops}; attention_block launches in this process {counts}; test over "
+        f"{test['num_items']} items: SI_SDR {test['SI_SDR']:.2f} dB")
+    n_params = sum(p.numel() for p in pp.module(None, "cpu").arch.parameters())
+    if set(flops) != {"flops_forward", "flops_backward", "params", "bytes_accessed_forward",
+                      "flops_forward_avg"} or flops["params"] != n_params or \
+            not flops["flops_backward"] > 0.5 * flops["flops_forward"] > 0:
+        raise AssertionError(f"FLOPs.yaml {flops} (params {n_params})")
+    if cards == 1 and counts[:4] != (n_layers * (DP_CLI_STEPS + 1),) * 2 + \
+            (n_layers * DP_CLI_STEPS,) * 2:
+        raise AssertionError(f"cli fit on one card: launches {counts}")
+    if not (np.isfinite(fit["train_loss"]) and test["num_items"] == 2
+            and np.isfinite(test["SI_SDR"])):
+        raise AssertionError(f"cli fit {fit}, test {test}")
+    out["cli"] = {"devices": cards, "flops": flops, "launches": counts}
+    fresh_start()
+    check_budget("CLI on every card")
+
+    # 60. oracle MVDR on mixtures made on the card
+    out["mvdr"] = mvdr_phase(dev, rir_dir)
+    check_budget("MVDR")
+    return out
+
+
+def mvdr_phase(dev, rir_dir: str) -> dict:
+    """Phase 60: ``eval.beamformer.mvdr`` with the oracle noise on the first
+    train batch of ``DeviceSyntheticDataModule`` (device_synth.yaml's
+    settings, phase 50's rooms): speaker 0's direct-path image at channel 0
+    as the target, everything else as the noise."""
+    import torch
+
+    from nbss_tpu_torch.cli.config import load_configs
+    from nbss_tpu_torch.data.device_mix import DeviceSyntheticDataModule
+    from nbss_tpu_torch.eval.beamformer import mvdr
+    from nbss_tpu_torch.io.stft import STFT
+    from nbss_tpu_torch.ops.metrics import si_sdr
+
+    init = load_configs(["configs/datasets/device_synth.yaml"])["data"]["init_args"]
+    dm = DeviceSyntheticDataModule(**dict(init, rir_dir=rir_dir, num_items=[8, 8, 8, 8],
+                                          seeds=(5, 2, 3, 3)), device=str(dev))
+    x, ys, _ = next(iter(dm.train_dataloader(0)))
+    log(f"phase 60/60 oracle MVDR (STFT {MVDR_STFT}) on {x.shape[0]} mixtures made on the card "
+        f"({x.shape[1]} ch x {x.shape[-1] / FS:g} s): speaker 0's direct path at channel 0")
+    stft = STFT(n_fft=MVDR_STFT[0], n_hop=MVDR_STFT[1])
+    before, after = [], []
+    t1 = time.perf_counter()
+    for b in range(x.shape[0]):
+        target = ys[b, 0]
+        y = mvdr(x[b], noise=x[b] - target, stft=stft)
+        before.append(float(si_sdr(x[b, :1], target[:1])[0]))
+        after.append(float(si_sdr(y[None], target[:1])[0]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    gain = [a - b for a, b in zip(after, before)]
+    log(f"SI-SDR before {[round(v, 2) for v in before]}, after "
+        f"{[round(v, 2) for v in after]}: improvement mean {sum(gain) / len(gain):.2f} dB, "
+        f"least {min(gain):.2f} dB (bound: more than 3 dB on average); {seconds:.2f} s")
+    if not sum(gain) / len(gain) > 3.0:
+        raise AssertionError(f"MVDR improved SI-SDR by {gain} dB")
+    return {"si_sdr_gain_db": gain, "seconds": seconds}
+
+
+def stop_rank_servers() -> None:
+    """Stop the processes ``parallel.launch`` leaves for later launches (its
+    fork server and multiprocessing's resource tracker), so that none
+    outlives the run, whether it passed or failed."""
+    try:
+        from nbss_tpu_torch.parallel.mesh import stop_fork_server
+    except ImportError:  # no checkout beside the script: nothing was started
+        return
+    stop_fork_server()
+
+
 if __name__ == "__main__":
-    sys.exit(corpus_rates(RATE_ITEMS_LONG) if sys.argv[1:] == ["--corpus-rates"] else main())
+    try:
+        code = corpus_rates(RATE_ITEMS_LONG) if sys.argv[1:] == ["--corpus-rates"] else main()
+    finally:
+        stop_rank_servers()
+    sys.exit(code)

@@ -17,7 +17,18 @@ Counterpart of ``nbss_tpu/cli/main.py``, with the same command surface:
 - ``trainer.limit_train_batches``, ``limit_val_batches`` and
   ``limit_test_batches`` cap the batches a stage takes (Lightning's names;
   all of them when unset);
-- everything runs on one CUDA card unless ``--trainer.accelerator=cpu``.
+- everything runs on CUDA cards unless ``--trainer.accelerator=cpu``:
+  ``trainer.devices`` of them (every visible card by default), capped, as
+  the JAX package caps its mesh, so that the train batch divides the count.
+  With more than one, ``run`` starts one rank per card (NCCL; gloo ranks on
+  the CPU) and the batch is split over them (``nbss_tpu_torch.parallel``);
+- several hosts: one launcher process a host with ``NBSS_COORDINATOR=host:port``,
+  ``NBSS_NUM_PROCESSES`` and ``NBSS_PROCESS_ID``, each starting its local
+  ranks; or ``trainer.num_nodes > 1`` under ``torchrun`` (this process is one
+  rank). ``data.init_args.batch_size[0]`` is then each host's batch;
+- ``trainer.write_flops`` writes FLOPs.yaml (``utils/flops.py``);
+- only rank 0 writes config.yaml, provenance.txt, model.txt, FLOPs.yaml,
+  metrics.jsonl, events and checkpoints; every rank restores.
 """
 
 from __future__ import annotations
@@ -28,13 +39,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from nbss_tpu_torch import parallel
 from nbss_tpu_torch.cli.config import instantiate, load_configs, parse_argv, save_config
 from nbss_tpu_torch.train.loop import Trainer, take
 from nbss_tpu_torch.train.module import TrainModule
 from nbss_tpu_torch.utils.device import resolve
-from nbss_tpu_torch.utils.logging import TensorBoardLogger, log_provenance, write_model_summary
-
-_NOT_PORTED = "is not ported to nbss_tpu_torch yet (ROADMAP.md A12)"
+from nbss_tpu_torch.utils.logging import log_provenance, rank_zero_logger, write_model_summary
 
 
 def _next_version(root: str) -> int:
@@ -45,28 +55,28 @@ def _next_version(root: str) -> int:
     return max(versions) + 1 if versions else 0
 
 
-def _device_for(cfg: Dict) -> torch.device:
-    """trainer.accelerator 'cpu' -> the CPU; anything else -> one CUDA card.
-    trainer.devices is capped at the card count, and more than one card
-    (data parallel) is not ported yet."""
-    t = cfg.get("trainer", {}) or {}
-    if str(t.get("accelerator", "cuda")).lower() == "cpu":
-        return torch.device("cpu")
-    device = resolve("cuda")
-    n = min(int(t.get("devices") or 1), torch.cuda.device_count())
-    if n > 1:
-        raise NotImplementedError(f"trainer.devices={n}: training on several cards {_NOT_PORTED}")
-    return device
+def _on_cuda(cfg: Dict) -> bool:
+    """trainer.accelerator 'cpu' -> the CPU; anything else -> CUDA cards."""
+    return str((cfg.get("trainer", {}) or {}).get("accelerator", "cuda")).lower() != "cpu"
 
 
-def _check_unported(cfg: Dict) -> None:
-    """Multi-host runs and the FLOP counter raise before anything is written."""
-    if os.environ.get("NBSS_COORDINATOR") or int(
-            (cfg.get("trainer", {}) or {}).get("num_nodes") or 1) > 1:
-        raise NotImplementedError(f"multi-host training (NBSS_COORDINATOR, "
-                                  f"trainer.num_nodes > 1) {_NOT_PORTED}")
-    if (cfg.get("trainer", {}) or {}).get("write_flops"):
-        raise NotImplementedError(f"trainer.write_flops {_NOT_PORTED}")
+def _train_batch(cfg: Dict) -> int:
+    bs = ((cfg.get("data") or {}).get("init_args") or {}).get("batch_size", (1,))
+    return int(bs[0] if isinstance(bs, (list, tuple)) else bs)
+
+
+def local_ranks(cfg: Dict, cards: Optional[int]) -> int:
+    """Ranks this host trains on: ``trainer.devices``, or every one of the
+    ``cards`` (None on the CPU: one), at most ``cards``, and lowered until the
+    train batch divides it, as ``nbss_tpu.cli.main._mesh_for`` sizes its mesh."""
+    devices = (cfg.get("trainer", {}) or {}).get("devices")
+    n = int(devices) if devices not in (None, "auto", -1) else (cards or 1)
+    if cards is not None:
+        n = min(n, cards)
+    train_bs = _train_batch(cfg)
+    while n > 1 and train_bs % n != 0:
+        n -= 1
+    return max(n, 1)
 
 
 def build_module(cfg: Dict, device="cuda") -> TrainModule:
@@ -150,12 +160,41 @@ def _checkpoint_dirs(ckpt_path: str):
 
 
 def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Run a subcommand; returns (local) rank 0's results. The decision to
+    start ranks is taken from the config and the environment before any
+    device is touched."""
     sub, paths, overrides = parse_argv(argv if argv is not None else sys.argv[1:])
     if sub not in ("fit", "validate", "test", "predict"):
         raise ValueError(f"unknown subcommand {sub!r} (fit/validate/test/predict)")
     cfg = load_configs(paths, overrides)
-    _check_unported(cfg)
-    device = _device_for(cfg)
+    cuda = _on_cuda(cfg)
+    rdv = parallel.rendezvous(int((cfg.get("trainer", {}) or {}).get("num_nodes") or 1))
+    if cuda:
+        resolve("cuda")  # no card: raise before anything is written
+    if cfg.get("ckpt_path") is not None:
+        _checkpoint_dirs(cfg["ckpt_path"])  # an orbax checkpoint raises here
+    backend = "nccl" if cuda else "gloo"  # no silent switch: a failed NCCL init fails
+    if rdv is not None and rdv.torchrun:
+        parallel.init_from_env(backend, "cuda" if cuda else "cpu")
+        try:
+            return run_rank(sub, cfg)
+        finally:
+            parallel.shutdown()
+    n = local_ranks(cfg, torch.cuda.device_count() if cuda else None)
+    if n == 1 and rdv is None:
+        return run_rank(sub, cfg)
+    devices = [f"cuda:{i}" for i in range(n)] if cuda else None
+    # CPU ranks (tests, debugging) take one thread each, so that they do not crowd the cores
+    return parallel.launch(run_rank, (sub, cfg), n, backend, devices, rdv,
+                           threads=None if cuda else 1)[0]
+
+
+def run_rank(sub: str, cfg: Dict) -> Dict[str, Any]:
+    """One rank of ``run`` (the only one on one card): its device is the
+    current card, or the CPU."""
+    mesh = parallel.current_mesh()
+    device = (resolve(f"cuda:{torch.cuda.current_device()}") if _on_cuda(cfg)
+              else torch.device("cpu"))
     ckpt_path = cfg.get("ckpt_path")
     ckpt = _checkpoint_dirs(ckpt_path) if ckpt_path is not None else None
 
@@ -163,31 +202,50 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     module = build_module(cfg, device)
     arch_name = type(module.arch).__name__
 
-    if ckpt is not None and sub == "fit":
-        log_dir = ckpt[0]  # a resumed fit goes on in the checkpoint's version dir
-    elif ckpt is None:
-        root = os.path.join(cfg.get("log_root", "logs"), arch_name)
-        log_dir = os.path.join(root, f"version_{_next_version(root)}")
-    else:
-        epoch_tag = os.path.splitext(os.path.basename(os.path.abspath(ckpt_path)))[0]
-        test_set = (cfg.get("data", {}).get("init_args", {}) or {}).get("test_set", "test")
-        log_dir = os.path.join(ckpt[0], f"{epoch_tag}_{test_set}_set")
-    os.makedirs(log_dir, exist_ok=True)
-    save_config(cfg, os.path.join(log_dir, "config.yaml"))
-    log_provenance(log_dir)
+    log_dir = None
+    if mesh.is_main:  # rank 0 picks the version directory; every rank uses it
+        if ckpt is not None and sub == "fit":
+            log_dir = ckpt[0]  # a resumed fit goes on in the checkpoint's version dir
+        elif ckpt is None:
+            root = os.path.join(cfg.get("log_root", "logs"), arch_name)
+            log_dir = os.path.join(root, f"version_{_next_version(root)}")
+        else:
+            epoch_tag = os.path.splitext(os.path.basename(os.path.abspath(ckpt_path)))[0]
+            test_set = (cfg.get("data", {}).get("init_args", {}) or {}).get("test_set", "test")
+            log_dir = os.path.join(ckpt[0], f"{epoch_tag}_{test_set}_set")
+        os.makedirs(log_dir, exist_ok=True)
+        save_config(cfg, os.path.join(log_dir, "config.yaml"))
+        log_provenance(log_dir)
+    log_dir = mesh.broadcast_object(log_dir)
 
-    logger = TensorBoardLogger(log_dir)
+    logger = rank_zero_logger(log_dir, mesh)
     try:
         trainer = build_trainer(cfg, module, logger, log_dir, device)
         trainer.init()
-        write_model_summary(log_dir, module)
+        if mesh.is_main:
+            write_model_summary(log_dir, module)
+        if (cfg.get("trainer", {}) or {}).get("write_flops"):
+            _write_flops(log_dir, module, data_module, mesh)
         if ckpt is not None:
             trainer.ckpt.ckpt_dir = ckpt[1]
             trainer.restore(epoch=ckpt[2], reset=cfg.get("model", {}).get("reset"),
                             ensemble=cfg.get("model", {}).get("ensemble"))
         return _run_stage(sub, cfg, trainer, module, data_module, log_dir)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+
+
+def _write_flops(log_dir: str, module: TrainModule, data_module, mesh) -> None:
+    """FLOPs.yaml of one item of the first train batch (every rank draws the
+    batch, as its loader may broadcast a seed; rank 0 counts and writes)."""
+    from nbss_tpu_torch.utils.flops import write_flops
+
+    for x, *_ in take(data_module.train_dataloader(0), 1):
+        if mesh.is_main:
+            x0 = torch.as_tensor(x[:1])
+            fs = getattr(data_module, "sample_rate", 8000)
+            write_flops(log_dir, module, x0, audio_seconds=x0.shape[-1] / fs)
 
 
 def _run_stage(sub, cfg, trainer, module, data_module, log_dir) -> Dict[str, Any]:
@@ -222,4 +280,5 @@ def _run_stage(sub, cfg, trainer, module, data_module, log_dir) -> Dict[str, Any
 
 def main():  # console entry
     out = run()
+    parallel.mesh.stop_fork_server()
     print({k: v for k, v in out.items() if not isinstance(v, (list, dict))})

@@ -9,6 +9,10 @@ from ``fold_in(key, seed)`` of the item's seed with the port's copy of
 ``jax.random`` (``utils/prng.py``). The same key, seeds and rooms therefore
 give the JAX package's mixtures, draw for draw.
 
+On several ranks a rank mixes only its rows of each host batch: every draw
+comes from the item's own key, so its rows are the JAX package's rows of the
+global batch.
+
 As in the JAX package, the dry source is masked to its segment before the
 convolution, so the reverberant tail runs past the segment's end, and the
 host's random numbers only pick the room file and the sources in it.
@@ -26,6 +30,7 @@ import torch
 
 from nbss_tpu_torch.data.loader import DataModule
 from nbss_tpu_torch.io.stft import STFT
+from nbss_tpu_torch.parallel.mesh import Shard
 from nbss_tpu_torch.utils import prng
 from nbss_tpu_torch.utils.device import resolve
 
@@ -292,7 +297,8 @@ class DeviceMixLoader:
         return len(self.base)
 
     def __iter__(self):
-        for rir, rir_dp, paras in self.base:
+        for batch in self.base:  # on several ranks: this rank's rows (a Shard)
+            rir, rir_dp, paras = batch
             seeds = torch.tensor([p["seed"] % (2 ** 31) for p in paras], dtype=torch.int64)
             x, ys = self.mix_fn(self.key, seeds, torch.from_numpy(np.asarray(rir)),
                                 torch.from_numpy(np.asarray(rir_dp)))
@@ -300,7 +306,7 @@ class DeviceMixLoader:
                 x, ys = x.cpu().numpy(), ys.cpu().numpy()
             for p in paras:
                 p.update(self.paras_extra)
-            yield x, ys, paras
+            yield Shard.like(batch, (x, ys, paras))
 
 
 class DeviceRirDataset:

@@ -26,22 +26,17 @@ from nbss_tpu_torch.data.sampler import BatchLoader
 _END = object()
 
 
-class ThreadedLoader:
+class ThreadedLoader(BatchLoader):
     """A ``BatchLoader`` whose items are made by ``num_workers`` threads,
-    with up to ``prefetch`` collated batches queued ahead of the consumer."""
+    with up to ``prefetch`` collated batches queued ahead of the consumer.
+    With ``ranks`` (ranks on the host, this rank) the threads make only this
+    rank's rows of each host batch."""
 
     def __init__(self, dataset, batch_size: int, sampler, num_workers: int = 4,
-                 prefetch: int = 2, drop_last: bool = True):
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.sampler = sampler
+                 prefetch: int = 2, drop_last: bool = True, ranks=(1, 0)):
+        super().__init__(dataset, batch_size, sampler, drop_last, ranks)
         self.num_workers = num_workers
         self.prefetch = prefetch
-        self.drop_last = drop_last
-
-    def __len__(self) -> int:
-        n = len(self.sampler)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -60,24 +55,26 @@ class ThreadedLoader:
         def produce():
             pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix="ThreadedLoader")
             try:
-                samples = iter(self.sampler)
+                # (sample, items after it in its batch, the batch's replicated flag)
+                samples = ((s, len(items) - 1 - i, replicated)
+                           for items, replicated in self._batches()
+                           for i, s in enumerate(items))
                 pending: deque = deque()
                 buf = []
                 while True:
                     while len(pending) < self.num_workers + self.batch_size:
-                        sample = next(samples, None)
-                        if sample is None:
+                        nxt = next(samples, None)
+                        if nxt is None:
                             break
-                        pending.append(pool.submit(self.dataset.__getitem__, sample))
+                        pending.append((pool.submit(self.dataset.__getitem__, nxt[0]), *nxt[1:]))
                     if not pending:
                         break
-                    buf.append(pending.popleft().result())
-                    if len(buf) == self.batch_size:
-                        if not put(_collate(buf)):
+                    future, left, replicated = pending.popleft()
+                    buf.append(future.result())
+                    if left == 0:
+                        if not put(self._wrap(_collate(buf), replicated)):
                             return
                         buf = []
-                if buf and not self.drop_last:
-                    put(_collate(buf))
             except BaseException as e:  # raised again in the consumer, whatever its kind
                 put(e)
             finally:

@@ -1,10 +1,16 @@
 """Test and predict runs: metrics, result files and example WAVs.
 
-Counterpart of ``nbss_tpu/eval/runner.py`` for one process: per item the
-device metrics and, concurrently in a spawn pool, the host metrics;
+Counterpart of ``nbss_tpu/eval/runner.py``: per item the device metrics
+and, concurrently in a spawn pool, the host metrics;
 ``results_incremental.jsonl`` as items finish, ``results_<timestamp>.json``
 and ``results_mean.json`` at the end, the first N examples as WAVs with a
 ``paras.json``, and at predict time WAVs named by each item's ``saveto``.
+
+On several ranks (``trainer.mesh``) each rank evaluates its own items (the
+data modules stride test and predict items over the ranks), writes
+``results_rank{r}.json`` and its ``_rank{r}`` incremental files, and after a
+barrier rank 0 merges the ranks' files, each wavname once, into the final
+results, as the JAX package merges its processes' shards.
 """
 
 from __future__ import annotations
@@ -66,11 +72,13 @@ def run_test(trainer, module, test_loader, log_dir: str,
     rewritten (with ``"partial": true``) every ``flush_every`` items, so an
     interrupted run leaves readable results."""
     module.arch.eval()
+    mesh = trainer.mesh
     os.makedirs(log_dir, exist_ok=True)
     examples_dir = os.path.join(log_dir, "examples")
     results: List[Dict] = []
     host_async = []  # per-item AsyncResult, or the arguments when the pool is down
-    mean_path = os.path.join(log_dir, "results_mean.json")
+    rank_tag = f"_rank{mesh.rank}" if mesh.size > 1 else ""
+    mean_path = os.path.join(log_dir, f"results_mean{rank_tag}.json")
 
     def _flush_mean(partial: bool) -> Dict:
         mean = _mean_of(results)
@@ -90,7 +98,7 @@ def run_test(trainer, module, test_loader, log_dir: str,
 
     seen = set()
     item_idx = 0
-    with open(os.path.join(log_dir, "results_incremental.jsonl"), "w") as inc_f:
+    with open(os.path.join(log_dir, f"results_incremental{rank_tag}.jsonl"), "w") as inc_f:
         for x, ys, paras in test_loader:
             T0 = x.shape[-1]
             fs_b = paras[0].get("sample_rate", 16000) if paras else 16000
@@ -148,6 +156,11 @@ def run_test(trainer, module, test_loader, log_dir: str,
             pool.close()
             pool.join()
 
+    if mesh.size > 1:
+        results = _merge_ranks(mesh, log_dir, results)
+        if not mesh.is_main:
+            return {"num_items": len(results)}
+        mean_path = os.path.join(log_dir, "results_mean.json")
     ts = time.strftime("%Y%m%d_%H%M%S")
     with open(os.path.join(log_dir, f"results_{ts}.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -155,10 +168,29 @@ def run_test(trainer, module, test_loader, log_dir: str,
     return {"num_items": len(results), **mean}
 
 
+def _merge_ranks(mesh, log_dir: str, results: List[Dict]) -> List[Dict]:
+    """Each rank writes results_rank{r}.json; after a barrier rank 0 returns
+    the ranks' results in rank order, each wavname once (the others their own)."""
+    with open(os.path.join(log_dir, f"results_rank{mesh.rank}.json"), "w") as f:
+        json.dump(results, f, indent=1, default=str)
+    mesh.barrier()
+    if not mesh.is_main:
+        return results
+    merged, seen = [], set()
+    for r in range(mesh.size):
+        with open(os.path.join(log_dir, f"results_rank{r}.json")) as f:
+            for item in json.load(f):
+                if item["wavname"] not in seen:
+                    seen.add(item["wavname"])
+                    merged.append(item)
+    return merged
+
+
 def run_predict(trainer, module, predict_loader, log_dir: str,
                 length_bucket_s: float = 1.0) -> List[str]:
     """Write predicted WAVs to log_dir/examples under each item's
-    ``paras['saveto']``; ``length_bucket_s`` pads as in ``run_test``."""
+    ``paras['saveto']``; ``length_bucket_s`` pads as in ``run_test``. On
+    several ranks each writes its own items (every item on one rank)."""
     module.arch.eval()
     out_dir = os.path.join(log_dir, "examples")
     os.makedirs(out_dir, exist_ok=True)

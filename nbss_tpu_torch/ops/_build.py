@@ -49,11 +49,24 @@ def _nvcc() -> str:
 
 def build() -> float:
     """Compile the kernels unless this exact build exists. Returns the seconds
-    the compile took (0.0 when the library was already built)."""
+    the compile took (0.0 when the library was already built). Processes that
+    start together (the ranks of a data-parallel run) take a file lock, so
+    one builds and the others load its library."""
+    import fcntl
+
     out = library_path()
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return 0.0 if out.exists() else _compile(out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(out: Path) -> float:
     nvcc, srcs, pid = _nvcc(), sources(), os.getpid()
     objs = [BUILD_DIR / f"{out.stem}.{src.stem}.{pid}.o" for src in srcs]
     tmp = out.with_suffix(f".{pid}.tmp")

@@ -7,9 +7,11 @@ Counterpart of ``nbss_tpu/train/ckpt.py``, in the same layout:
     <dir>/epoch{N}.json        {"epoch": N, "metric": m}
     <dir>/last.json            the same for the newest save
 
-Every epoch is kept. ``restore`` drops the optimizer state with
-``reset=["optimizer"]``, and ``ensemble`` averages the parameters of several
-checkpoints in float64 (the last N, a list of epochs, or glob patterns).
+Every epoch is kept. In a data-parallel run only rank 0 writes, and every
+rank waits at a barrier until it has; every rank restores. ``restore``
+drops the optimizer state with ``reset=["optimizer"]``, and ``ensemble``
+averages the parameters of several checkpoints in float64 (the last N, a
+list of epochs, or glob patterns).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import re
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
+
+from nbss_tpu_torch.parallel.mesh import Mesh, current_mesh
 
 
 def _epoch_dirs(ckpt_dir: str) -> List[str]:
@@ -43,12 +47,19 @@ def _to_cpu(tree):
 class CheckpointManager:
     """Every-epoch checkpointing with a ``last`` pointer and metric metadata."""
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, mesh: Optional[Mesh] = None):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.mesh = mesh or current_mesh()
+        if self.mesh.is_main:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def save(self, epoch: int, params: Dict[str, torch.Tensor],
              opt_state: Optional[Dict[str, Any]] = None, metric: Optional[float] = None):
+        if self.mesh.is_main:
+            self._write(epoch, params, opt_state, metric)
+        self.mesh.barrier()
+
+    def _write(self, epoch, params, opt_state, metric) -> None:
         path = os.path.join(self.ckpt_dir, f"epoch{epoch}")
         os.makedirs(path, exist_ok=True)
         torch.save(_to_cpu(params), os.path.join(path, "params"))

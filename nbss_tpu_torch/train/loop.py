@@ -1,6 +1,6 @@
-"""Fit / validate loop on one CUDA card.
+"""Fit / validate loop, on one CUDA card or data-parallel over several.
 
-Counterpart of ``nbss_tpu/train/loop.py`` for one device: a train step is
+Counterpart of ``nbss_tpu/train/loop.py``: a train step is
 forward + uPIT loss + backward + the clipped optimizer step; the learning
 rate is scheduled per epoch on the host (ExponentialLR or ReduceLROnPlateau
 on the validation metric); every epoch is checkpointed; early stopping
@@ -8,10 +8,26 @@ watches the validation metric; host metrics (PESQ, STOI) are taken on the
 validation set every few epochs; a profiler trace of a few steps can be
 written; and each epoch ends with a summary line. Parameters are drawn from
 a ``torch.Generator`` seeded with ``seed``.
+
+Data parallelism (``mesh``, a ``parallel.Mesh`` of several ranks, one process
+per card), as the JAX ``Trainer`` takes ``mesh=``: each rank takes its rows
+of the global batch (a ``parallel.Shard`` from the data modules, or its rows
+of a host batch it is given); the train step runs the arch wrapped in
+``DistributedDataParallel``, whose all-reduce averages the ranks' gradients
+of their equal-sized batch means, so that the optimizer clips by global norm
+and steps on the gradient of the global batch's mean loss, as the JAX step
+does, in float32 (the parameters' dtype) and identically on every rank. The
+logged train loss and the validation sums are reduced over the ranks, so
+every rank takes the same learning-rate and early-stopping decisions; only
+rank 0 logs, prints and writes checkpoints. ``arch`` and ``state_dict()``
+stay the unwrapped module's, so a checkpoint from several cards loads on one.
+Dropout masks are drawn per rank, from a global generator seeded with
+(``seed``, rank).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import os
 import time
@@ -22,6 +38,7 @@ import numpy as np
 import torch
 
 from nbss_tpu_torch.models.base import init_parameters
+from nbss_tpu_torch.parallel.mesh import Mesh, current_mesh, replicate, shard_batch
 from nbss_tpu_torch.train.ckpt import CheckpointManager
 from nbss_tpu_torch.train.module import TrainModule
 from nbss_tpu_torch.train.optim import LRSchedule, Optimizer
@@ -59,6 +76,7 @@ class Trainer:
         profile_dir: Optional[str] = None,
         profile_steps: Tuple[int, int] = (10, 15),
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         """early_stopping: e.g. {'monitor': 'val/metric', 'patience': 10,
         'mode': 'max', 'min_delta': 0.1}; disabled when None.
@@ -67,7 +85,12 @@ class Trainer:
         ``val_host_metrics_every`` epochs over the validation set (at most
         ``val_host_metrics_batches`` batches when set). profile_dir: a
         ``torch.profiler`` trace of train steps [a, b) = ``profile_steps`` of
-        the first epoch is written there as Chrome trace JSON."""
+        the first epoch is written there as Chrome trace JSON.
+
+        mesh: the data-parallel ranks (default ``parallel.current_mesh()``,
+        one rank outside a group)."""
+        self.mesh = mesh or current_mesh()
+        self._step_module: Optional[TrainModule] = None
         self.module = module
         self.optimizer_spec = optimizer
         self.gradient_clip_val = gradient_clip_val
@@ -75,8 +98,9 @@ class Trainer:
                                       optimizer[1].get("lr", 1e-3),
                                       lr_scheduler[1] if lr_scheduler else {})
         self.seed = seed
-        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
-        self.logger = logger or (lambda k, v, step: None)
+        self.ckpt = CheckpointManager(ckpt_dir, self.mesh) if ckpt_dir else None
+        self.logger = (logger if logger and self.mesh.is_main
+                       else (lambda k, v, step: None))
         self.val_metric_mode = val_metric_mode
         self.early_stopping = early_stopping
         self.detect_unused_parameters = detect_unused_parameters
@@ -98,9 +122,15 @@ class Trainer:
 
     def init(self) -> torch.nn.Module:
         """Draw the arch's parameters from a generator seeded with ``seed``,
-        move it to the device and build the optimizer."""
+        move it to the device and build the optimizer. On several ranks, rank
+        0's parameters are broadcast to the others (they draw the same ones)
+        and the global generator that draws dropout masks is seeded with
+        (seed, rank)."""
         init_parameters(self.arch, torch.Generator().manual_seed(self.seed))
         self.arch.to(self.device)
+        if self.mesh.size > 1:
+            replicate(self.mesh, self.arch)
+            torch.manual_seed(1_000_003 * self.seed + self.mesh.rank)
         self._build_optimizer()
         return self.arch
 
@@ -132,11 +162,30 @@ class Trainer:
         """(x, ys, ...) as numpy arrays or tensors -> (x, ys) on the device."""
         return tuple(torch.as_tensor(b, device=self.device) for b in batch[:2])
 
+    def _train_module(self) -> TrainModule:
+        """The module the train step runs: on several ranks a copy whose arch
+        is wrapped in ``DistributedDataParallel`` (made at the first step)."""
+        if self.mesh.size == 1:
+            return self.module
+        if self._step_module is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # every arch of configs/ gives each parameter a gradient each step
+            # (tests/test_torch_parallel.py), so DDP need not search the graph
+            # for unused ones; and they hold no buffers to broadcast
+            ddp = DistributedDataParallel(
+                self.arch, device_ids=[self.device] if self.device.type == "cuda" else None)
+            self._step_module = dataclasses.replace(self.module, arch=ddp)
+        return self._step_module
+
     def train_step(self, batch) -> torch.Tensor:
-        """One optimizer step on (x, ys); returns the loss (on the device)."""
+        """One optimizer step on (x, ys): this rank's rows of the batch (see
+        ``parallel.shard_batch``). Returns this rank's loss (on the device);
+        on several ranks the gradient the optimizer takes is the global
+        batch's."""
         self.arch.train()
         self.opt.zero_grad()
-        loss = self.module.training_step(self.to_device(batch))
+        loss = self._train_module().training_step(self.to_device(shard_batch(self.mesh, batch)))
         loss.backward()
         self.opt.step()
         return loss.detach()
@@ -158,16 +207,18 @@ class Trainer:
             losses = []
             it = train_data() if callable(train_data) else train_data
             for step, batch in enumerate(take(it, steps_per_epoch)):
-                if self.profile_dir and epoch == first_epoch:
+                if self.profile_dir and epoch == first_epoch and self.mesh.is_main:
                     self._profile_hook(step)
                 losses.append(self.train_step(batch))
                 if not checked_unused:
                     self._warn_unused_parameters()
                     checked_unused = True
                 if (step + 1) % log_every == 0:
-                    self.logger(f"train/{self.module.loss.name}", float(losses[-1]), epoch)
+                    self.logger(f"train/{self.module.loss.name}",
+                                float(self.mesh.all_mean(losses[-1])), epoch)
             self._stop_profiler()
-            train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            train_loss = (float(self.mesh.all_mean(torch.stack(losses).mean())) if losses
+                          else float("nan"))
             history["train_loss"] = train_loss
             self.logger(f"train/{self.module.loss.name}", train_loss, epoch)
 
@@ -194,8 +245,9 @@ class Trainer:
             self.epoch = epoch + 1
             history["epoch_time"] = time.time() - t0
             vm = f" val/metric={val_metric:.4f}" if val_metric is not None else ""
-            print(f"epoch {epoch}: train/{self.module.loss.name}={train_loss:.4f}"
-                  f"{vm} lr={new_lr:.2e} ({history['epoch_time']:.1f}s)", flush=True)
+            if self.mesh.is_main:
+                print(f"epoch {epoch}: train/{self.module.loss.name}={train_loss:.4f}"
+                      f"{vm} lr={new_lr:.2e} ({history['epoch_time']:.1f}s)", flush=True)
 
             if self.early_stopping and val_metric is not None and self._should_stop(val_metric):
                 break
@@ -227,7 +279,8 @@ class Trainer:
         """Host metrics (PESQ/STOI/...) over validation batches (at most
         ``val_host_metrics_batches`` and ``max_batches``); an item whose
         metric is missing or not finite (say STOI of a near-silent segment)
-        is left out of that metric's mean."""
+        is left out of that metric's mean. On several ranks each takes its
+        rows (rank 0 alone a replicated batch) and the sums are gathered."""
         from nbss_tpu_torch.eval.metrics import cal_metrics
 
         self.arch.eval()
@@ -236,6 +289,9 @@ class Trainer:
         sums: Dict[str, float] = {}
         counts: Dict[str, int] = {}
         for batch in take(it, min(limits) if limits else None):
+            batch = shard_batch(self.mesh, batch)
+            if batch.replicated and not self.mesh.is_main:
+                continue
             x, ys = self.to_device(batch)
             paras = batch[2] if len(batch) > 2 else [{}]
             fs = paras[0].get("sample_rate", 8000) if paras else 8000
@@ -248,11 +304,14 @@ class Trainer:
                     if isinstance(v, (int, float)) and np.isfinite(v):
                         sums[k] = sums.get(k, 0.0) + v
                         counts[k] = counts.get(k, 0) + 1
+        sums, counts = _add_up(self.mesh.all_gather_object((sums, counts)))
         return {f"val/{k}": sums[k] / counts[k] for k in sums}
 
     def _warn_unused_parameters(self) -> None:
         """After the first step: warn for each parameter whose gradient is
         zero everywhere (a debugging aid)."""
+        if not self.mesh.is_main:
+            return
         for name, p in self.arch.named_parameters():
             if p.grad is None or float(p.grad.abs().max()) == 0.0:
                 warnings.warn(f"unused parameter (check code or freeze it): {name}")
@@ -272,16 +331,34 @@ class Trainer:
 
     def validate(self, val_data: Iterable, max_batches: Optional[int] = None) -> Dict[str, float]:
         """Batch-size-weighted means of ``validation_step``'s logs over at
-        most ``max_batches`` batches."""
+        most ``max_batches`` batches. On several ranks each rank takes its
+        rows and the weighted sums are added over the ranks (a replicated
+        batch weighs 1/ranks on each), so every rank returns the means over
+        the global batches."""
         self.arch.eval()
         it = val_data() if callable(val_data) else val_data
         sums: Dict[str, float] = {}
-        n = 0
+        n = 0.0
         for batch in take(it, max_batches):
+            batch = shard_batch(self.mesh, batch)
             x, ys = self.to_device(batch)
             logs = self.module.validation_step((x, ys))
-            bs = int(x.shape[0])
+            bs = int(x.shape[0]) / (self.mesh.size if batch.replicated else 1)
             for k, v in logs.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * bs
             n += bs
+        sums, n = _add_up(self.mesh.all_gather_object((sums, n)))
         return {k: v / max(n, 1) for k, v in sums.items()}
+
+
+def _add_up(parts):
+    """The ranks' (sums, counts) added up: dicts key by key, numbers as numbers."""
+    def add(a, b):
+        if isinstance(a, dict):
+            return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
+        return a + b
+
+    out = parts[0]
+    for p in parts[1:]:
+        out = tuple(add(a, b) for a, b in zip(out, p))
+    return out

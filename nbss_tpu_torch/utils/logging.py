@@ -3,7 +3,9 @@
 Counterpart of ``nbss_tpu/utils/logging.py``: ``TensorBoardLogger`` writes
 scalars through tensorboardX when it can be imported and always appends them
 to ``metrics.jsonl``; ``log_provenance`` records the git state and the
-environment; ``write_model_summary`` writes ``model.txt``.
+environment; ``write_model_summary`` writes ``model.txt``. In a data-parallel
+run only rank 0 writes them (``rank_zero_logger``; the callers of the other
+two ask ``Mesh.is_main``), as the JAX package writes on process 0.
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ class TensorBoardLogger:
         if self._writer is not None:
             self._writer.close()
         self._jsonl.close()
+
+
+def rank_zero_logger(log_dir: str, mesh) -> "TensorBoardLogger | None":
+    """A ``TensorBoardLogger`` on rank 0 of ``mesh``; None (log nothing) on
+    the others."""
+    return TensorBoardLogger(log_dir) if mesh.is_main else None
 
 
 def _run(cmd) -> str:

@@ -14,8 +14,8 @@ dataset config the port's DataModule; the JAX package's and the reference's
 class paths (the ``data_loaders.*`` aliases too) resolve to the port; the
 port's YAML reader equals ``yaml.safe_load`` on every file under configs/ and
 every config.yaml under logs/, and a config.yaml it writes reads back equal.
-What is not ported raises: a missing card, an orbax checkpoint, multi-host
-runs and ``trainer.write_flops``.
+A missing card, an orbax checkpoint and a multi-node run without a
+rendezvous raise; ``trainer.write_flops`` writes FLOPs.yaml.
 """
 
 import ast
@@ -278,7 +278,12 @@ def test_fit_and_test_over_an_sms_wsj_plus_corpus(tmp_path):
     assert res["num_items"] == 2 and np.isfinite(res["SI_SDR"])
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
+    """A missing card, an orbax checkpoint and ``trainer.num_nodes=2`` without
+    a rendezvous raise before anything is written; ``trainer.write_flops``
+    writes FLOPs.yaml."""
+    for k in ("NBSS_COORDINATOR", "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     if not torch.cuda.is_available():
         args = _base_args(tmp_path)
         args[args.index("--trainer.accelerator") + 1] = "gpu"
@@ -287,11 +292,12 @@ def test_unported_paths_raise(tmp_path):
     orbax = ROOT / "logs" / "SpatialNet" / "version_0" / "checkpoints" / "epoch39"
     with pytest.raises(ValueError, match="convert.py"):
         run(["test", *_base_args(tmp_path, ("--ckpt_path", str(orbax)))])
-    with pytest.raises(NotImplementedError, match="A12"):
-        run(["fit", *_base_args(tmp_path, ("--trainer.write_flops", "true"))])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="NBSS_COORDINATOR"):
         run(["fit", *_base_args(tmp_path, ("--trainer.num_nodes", "2"))])
     assert not (tmp_path / "logs").exists()  # nothing written before the errors
+    out = run(["fit", *_base_args(tmp_path, ("--trainer.write_flops", "true"))])
+    flops = yamlio.load(os.path.join(out["log_dir"], "FLOPs.yaml"))
+    assert flops["flops_forward"] > 0 and flops["params"] > 0 and flops["flops_backward"] > 0
 
 
 def test_trainer_profiles_steps_and_takes_host_metrics(tmp_path):
