@@ -27,8 +27,11 @@ made on the card by ``data/device_mix.py``, and ``fit``/``validate``/
 configs/; then the public corpora, from fixtures written in their layouts,
 through the host loaders with threaded prefetch and the command line; then
 data-parallel training (``nbss_tpu_torch.parallel``), the command line on
-every card with the FLOP counter, and the oracle MVDR beamformer.
-Sixty phases:
+every card with the FLOP counter, and the oracle MVDR beamformer; then the
+JAX package's two committed epoch-39 models, converted into the port's
+checkpoints under checkpoints_torch/, against that package's outputs on the
+same mixtures (checkpoints_torch/epoch39_golden.npz) and through ``cli
+test``. Sixty-two phases:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the path, by plain nvcc into build/kernels/;
@@ -344,13 +347,37 @@ Sixty phases:
 60. ``eval.beamformer.mvdr`` with the oracle noise on the 8 mixtures of a
     first train batch made on the card by ``data/device_mix.py`` (phase 50's
     rooms): SI-SDR against speaker 0's direct path at channel 0 improves by
-    more than 3 dB on average.
+    more than 3 dB on average;
+61. the trained SpatialNet-small: checkpoints_torch/SpatialNet/version_0's
+    epoch 39 restored by the port's ``CheckpointManager`` (no optimizer
+    state), ``TrainModule.forward`` on the golden fixture's two test
+    mixtures (6 ch x 4 s, rooms test/440-441 as the JAX package regenerates
+    them) in float32 with TF32 off and in bf16, rows 1's counters reset just
+    before each forward and read just after (8 launches a forward; bf16 all
+    on the tensor-core kernel, float32 none): float32 against the JAX
+    package's float32 outputs at SI-SDR >= 60 dB for each item and speaker,
+    each item's SI-SDR and SI-SDRi (after PIT, the mean over speakers)
+    within 0.05 dB of the JAX package's; bf16 no farther from the JAX
+    float32 outputs, as an L2 norm, than twice the JAX bf16 outputs are;
+    and ``python -m nbss_tpu_torch.cli test`` in a subprocess from a
+    temporary copy of the converted run over phase 50's test rooms (4
+    items; both phases' subprocesses start when phase 61 begins and run
+    beside its checks): mean SI-SDRi >= 5 dB, printed beside the committed
+    test set's 11.89 dB;
+62. the trained OnlineSpatialNet ``mamba(16,4)``: the same for
+    ``forward`` (row 6: 16 scan launches a forward, in float32 and in bf16)
+    and for ``forward_streaming`` (one frame at a time through ``ssm.step``:
+    no scan launch), each against its own JAX outputs; the stream against
+    the offline output printed beside streaming_eval_epoch39.json's 34.07
+    dB; and ``cli test`` over phase 54's moving test room (4 items), mean
+    SI-SDRi >= 5 dB beside the committed test set's 12.40 dB.
 
 Prints one ``kernels`` JSON line, one ``training_runs`` JSON line (phases
 50-54's seconds a room, mixtures/s and training rate), one ``corpus_runs``
 JSON line (phases 55-57's loader and training rates), one ``parallel_runs``
 JSON line (phases 58-60: the data-parallel rates at 1 and n ranks, FLOPs.yaml,
-the MVDR gains), the card's
+the MVDR gains), one ``trained_models`` JSON line (phases 61-62: dB against
+the golden outputs, the bf16 ratios, SI-SDRi, seconds), the card's
 ``nvidia-smi`` name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, without that line, when there is no CUDA
 card or any phase fails.
@@ -492,7 +519,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
-    log("phase 1/60 device")
+    log("phase 1/62 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -500,7 +527,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
 
     # 2. build
-    log("phase 2/60 build (plain nvcc, sm_90a)")
+    log("phase 2/62 build (plain nvcc, sm_90a)")
     seconds = _build.build()
     _build.library()
     log(f"kernels built in {seconds:.1f} s: {_build.library_path().name}")
@@ -513,7 +540,7 @@ def main() -> int:
     n_freq = FLAGSHIP["num_freqs"]
     n_frames = int(SECONDS * FS) // 128 + 1
     M, T, H, nh = B * n_freq, n_frames, FLAGSHIP["dim_hidden"], FLAGSHIP["num_heads"]
-    log(f"phase 3/60 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 3/62 attention_block vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(0)
     net = SpatialNet(**FLAGSHIP, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     layer = net.layers[0]
@@ -565,7 +592,7 @@ def main() -> int:
     check_budget("kernel vs plain")
 
     # 4. the serving slice
-    log(f"phase 4/60 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
+    log(f"phase 4/62 slice: TrainModule.forward + predict_step, B={B}, {CHANNELS} ch, "
         f"{SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -606,7 +633,7 @@ def main() -> int:
     check_budget("slice")
 
     # 5. times
-    log("phase 5/60 times (CUDA events, after warm-up)")
+    log("phase 5/62 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.attention_block(xb, ln, A, Wvo, c, eps, nh), iters=20)
     plain_ms = cuda_ms(lambda: ab.reference(xb, ln, A, Wvo, c, eps, nh), iters=3, warmup=1)
     m = layer.mhsa
@@ -680,6 +707,8 @@ def main() -> int:
         corpora = corpus_runs(dev, tmp, row2["train_audio_s_per_s"])
         fresh_start()
         dp = parallel_runs(dev, tmp)
+        fresh_start()
+        trained = trained_models(dev, tmp)
     row2["launches_cli_fit"] = runs["cli_fit_launches"][2]
     rows67[0]["launches_moving_fit"], rows67[1]["launches_moving_fit"] = runs["moving_fit_launches"]
     runs.pop("moving_fit_launches")
@@ -697,6 +726,11 @@ def main() -> int:
     # rows 1-2 in one rank of phase 58's data-parallel fit (forward, tc, backward, tc)
     dp_launches = dp["dp"]["launches"][str(dp["dp"]["ranks"])]
     row2["launches_dp_fit_per_rank"] = dp_launches[3]
+    # the committed models' paths, a forward each in float32 and bf16 (and a stream each)
+    row1_trained = {f"launches_epoch39_{k.replace(' ', '_')}": v
+                    for k, v in trained["spatialnet"]["launches"].items()}
+    rows67[0].update({f"launches_epoch39_{k.replace(' ', '_')}": v
+                      for k, v in trained["online"]["launches"].items()})
 
     print(json.dumps({"kernels": [{
         "name": "attention_block", "route": "cuda",
@@ -711,11 +745,12 @@ def main() -> int:
         "launches_sms_wsj_plus_fit": sms_fit[0],
         "launches_sms_wsj_plus_test": sms_test[0] - sms_test[2],
         "launches_nbc2_wsj0mix_fit": nbc2_fit[0], "launches_dp_fit_per_rank": dp_launches[1],
-        **nbc2_row1},
+        **row1_trained, **nbc2_row1},
         row2, row1_wide, row2_wide, row3, *rows67, *rows45, row8]}), flush=True)
     print(json.dumps({"training_runs": runs, "device": smi}), flush=True)
     print(json.dumps({"corpus_runs": corpora, "device": smi}), flush=True)
     print(json.dumps({"parallel_runs": dp, "device": smi}), flush=True)
+    print(json.dumps({"trained_models": trained, "device": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -781,7 +816,7 @@ def training_phases(dev):
     M, T = B_TRAIN * FLAGSHIP["num_freqs"], int(SECONDS * FS) // 128 + 1
 
     # 6. backward kernel vs plain
-    log(f"phase 6/60 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 6/62 attention_block backward vs plain at M={M} T={T} H={H} nh={nh}")
     gen = torch.Generator().manual_seed(1)
     layer = SpatialNet(**FLAGSHIP, generator=gen, device=dev).layers[0]
     with torch.no_grad():
@@ -845,7 +880,7 @@ def training_phases(dev):
     check_budget("backward vs plain")
 
     # 7. the training slice
-    log(f"phase 7/60 training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 7/62 training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"({CHANNELS} ch x {SECONDS:g} s) for {check_gradients.STEPS} steps, bf16")
     ab.launches = ab.tc_launches = ab.bwd_launches = ab.bwd_tc_launches = 0
     ab.wide_launches = ab.bwd_wide_launches = 0
@@ -877,7 +912,7 @@ def training_phases(dev):
 
     # 8. gradient parity, fp32: the kernel path against the plain composition with its arch
     # in float64, by check_gradients.hold's rule (the fp32 counterpart of the bf16 rule)
-    log("phase 8/60 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
+    log("phase 8/62 gradients: kernel path (fp32) vs plain composition (fp32 and float64 arch), "
         "one batch")
     grads = check_gradients.gradients(module, trainer.to_device(batch), FLAGSHIP, dev)
     log(check_gradients.hold(grads))
@@ -886,7 +921,7 @@ def training_phases(dev):
     check_budget("gradients")
 
     # 9. times
-    log("phase 9/60 times (CUDA events, after warm-up)")
+    log("phase 9/62 times (CUDA events, after warm-up)")
     ms = cuda_ms(lambda: ab.backward(xb, ln, A, Wvo, gb, eps, nh), iters=10)
     x32, g32 = xb.float(), gb.float()
     ms_fp32 = cuda_ms(lambda: ab.backward(x32, ln, A, Wvo, g32, eps, nh), iters=3, warmup=1)
@@ -997,7 +1032,7 @@ def online_phases(dev):
         return got, hb, errs
 
     # 10. forward kernel vs plain
-    log(f"phase 10/60 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
+    log(f"phase 10/62 selective_scan vs plain at M={M_serve} T={T} D={Dm} N={N}")
     ins32, _ = scan_inputs(gen, M_serve, T, Dm, N, torch.float32, dev)
     fwd_err32 = fwd_check(ins32, "fp32")
     log(f"fp32: max |kernel - plain| = {fwd_err32:.3e} (atol 2e-4, rtol 1e-4): ok")
@@ -1032,7 +1067,7 @@ def online_phases(dev):
     check_budget("scan vs plain")
 
     # 11. backward kernel vs plain
-    log(f"phase 11/60 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
+    log(f"phase 11/62 selective_scan backward vs plain at M={M_train} T={T} D={Dm} N={N}")
     ins32, gy32 = scan_inputs(gen, M_train, T, Dm, N, torch.float32, dev)
     got, _, bwd_errs32 = bwd_check(ins32, gy32, "fp32")
     _, hb = ssm.forward(*ins32, boundaries=True)
@@ -1063,7 +1098,7 @@ def online_phases(dev):
     check_budget("scan backward vs plain")
 
     # 12. serving
-    log(f"phase 12/60 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
+    log(f"phase 12/62 OnlineSpatialNet {ONLINE['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**ONLINE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1100,7 +1135,7 @@ def online_phases(dev):
     check_budget("online serving")
 
     # 13. streaming
-    log(f"phase 13/60 streaming: forward_streaming vs forward, B={B_STREAM} x "
+    log(f"phase 13/62 streaming: forward_streaming vs forward, B={B_STREAM} x "
         f"{STREAM_SECONDS:g} s")
     wave_s = wave[:B_STREAM, :, :int(STREAM_SECONDS * FS)].contiguous()
     n_frames = wave_s.shape[-1] // 128 + 1
@@ -1124,7 +1159,7 @@ def online_phases(dev):
     check_budget("streaming")
 
     # 14. training
-    log(f"phase 14/60 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 14/62 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1177,7 +1212,7 @@ def online_phases(dev):
     check_budget("online training")
 
     # 15. times
-    log("phase 15/60 times (CUDA events, after warm-up)")
+    log("phase 15/62 times (CUDA events, after warm-up)")
     fwd_ms = cuda_ms(lambda: ssm.forward(*insb), iters=20)
     fwd_train_ms = cuda_ms(lambda: ssm.forward(*insbt, boundaries=True), iters=20)
     fwd_plain_ms = cuda_ms(lambda: ssm.reference(*insb), iters=2, warmup=1)
@@ -1316,7 +1351,7 @@ def mhsa_phases(dev):
         return got, st, errs
 
     # 16. forward kernel vs plain
-    log(f"phase 16/60 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
+    log(f"phase 16/62 narrowband_attention vs plain at M={M_serve} T={T} nh={nh} dh={dh}")
     ins32, _ = attention_inputs(gen, M_serve, T, nh, dh, dh, torch.float32, dev)
     tc0 = att.tc_launches
     fwd_errs32 = {kind: fwd_check(ins32, mask_of(kind, T, nh), nh, f"fp32 {kind}")
@@ -1374,7 +1409,7 @@ def mhsa_phases(dev):
     check_budget("attention vs plain")
 
     # 17. backward kernel vs plain
-    log(f"phase 17/60 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
+    log(f"phase 17/62 narrowband_attention backward vs plain at M={M_train} T={T}, causal mask")
     ins32, g32 = attention_inputs(gen, M_train, T, nh, dh, dh, torch.float32, dev)
     btc0 = att.bwd_tc_launches
     got, st32, bwd_errs32 = bwd_check(ins32, causal, g32, nh, "fp32")
@@ -1432,7 +1467,7 @@ def mhsa_phases(dev):
     check_budget("attention backward vs plain")
 
     # 18. serving
-    log(f"phase 18/60 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
+    log(f"phase 18/62 OnlineSpatialNet {MHSA['attention']} serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     net = OnlineSpatialNet(**MHSA, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -1471,7 +1506,7 @@ def mhsa_phases(dev):
     check_budget("mhsa serving")
 
     # 19. streaming
-    log(f"phase 19/60 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
+    log(f"phase 19/62 streaming: forward_streaming vs forward, B={B_STREAM} x {SECONDS:g} s, "
         f"a KV ring buffer of {scope - 1} frames")
     wave_s = wave[:B_STREAM].contiguous()
     stream = {}
@@ -1493,7 +1528,7 @@ def mhsa_phases(dev):
     check_budget("mhsa streaming")
 
     # 20. training
-    log(f"phase 20/60 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 20/62 training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, AdamW, bf16, remat")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -1551,7 +1586,7 @@ def mhsa_phases(dev):
     check_budget("mhsa training")
 
     # 21. times
-    log("phase 21/60 times (CUDA events, after warm-up), causal mask")
+    log("phase 21/62 times (CUDA events, after warm-up), causal mask")
     fwd_ms = cuda_ms(lambda: att.forward(*insb, causal, nh), iters=10)
     fwd_train_ms = cuda_ms(lambda: att.forward(*insbt, causal, nh, stats=True), iters=10)
     ins32 = [t.float() for t in insb]
@@ -1698,7 +1733,7 @@ def nbc_phases(dev):
         return y, err
 
     # 22. row 8 vs plain
-    log(f"phase 22/60 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
+    log(f"phase 22/62 attention_block_relpos vs plain at M={M} T={T} H={H} nh={nh}")
     ab.relpos_tc_launches = 0
     layer = net.sa_layers[0]
     ops, eps = operands(layer, T)
@@ -1780,7 +1815,7 @@ def nbc_phases(dev):
 
     # 23. rows 4-5 at NBC's widths
     dhp, dv, Ma = dh + H, dh, 2 * n_freq
-    log(f"phase 23/60 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
+    log(f"phase 23/62 narrowband_attention at NBC's widths: M={Ma} T={T} nh={nh} dh={dhp} dv={dv}")
     ins32, g32 = attention_inputs(gen, Ma, T, nh, dhp, dv, torch.float32, dev)
     o, st = att.forward(*ins32, None, nh, stats=True)
     torch.cuda.synchronize()
@@ -1841,7 +1876,7 @@ def nbc_phases(dev):
     check_budget("wide attention vs plain")
 
     # 24. NBC serving
-    log(f"phase 24/60 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
+    log(f"phase 24/62 NBC serving: TrainModule.forward + predict_step, B={B}, {NBC_CHANNELS} ch, "
         f"{SECONDS:g} s at {NBC_FS} Hz, bf16")
     module = TrainModule(arch=net, channels=tuple(range(NBC_CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=NBC_NFFT, n_hop=NBC_NFFT // 2),
@@ -1890,7 +1925,7 @@ def nbc_phases(dev):
     check_budget("nbc serving")
 
     # 25. times
-    log("phase 25/60 times (CUDA events, after warm-up)")
+    log("phase 25/62 times (CUDA events, after warm-up)")
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
     with torch.no_grad():
         relpos_ms = cuda_ms(lambda: ab.attention_block_relpos(xb, *ops, eps, nh), iters=10,
@@ -2113,7 +2148,7 @@ def tconvffn_phases(dev):
         return y, err
 
     # 26. row 3 vs plain
-    log(f"phase 26/60 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
+    log(f"phase 26/62 tconvffn vs plain at M={M} T={T} H={H} FF={FF} groups={G}")
     x32 = torch.randn(M, T, H, generator=gen).to(dev)
     y, ffn_err32 = fwd_check(x32, p, "fp32")
     with torch.no_grad():
@@ -2194,7 +2229,7 @@ def tconvffn_phases(dev):
     check_budget("tconvffn vs plain")
 
     # 27. serving
-    log(f"phase 27/60 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
+    log(f"phase 27/62 SpatialNet-small fused_ffn=True serving: TrainModule.forward + "
         f"predict_step, B={B}, {CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2239,7 +2274,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn serving")
 
     # 28. training
-    log(f"phase 28/60 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
+    log(f"phase 28/62 training with fused_ffn=True: Trainer fits {B_TRAIN} SyntheticDataset "
         f"items for {TRAIN_STEPS} steps, bf16")
     data = SyntheticDataset(num_items=B_TRAIN, num_channels=CHANNELS, sample_rate=FS,
                             audio_time_len=SECONDS)
@@ -2295,7 +2330,7 @@ def tconvffn_phases(dev):
     check_budget("fused_ffn training")
 
     # 29. times
-    log("phase 29/60 times (CUDA events, after warm-up)")
+    log("phase 29/62 times (CUDA events, after warm-up)")
     ffn = tconvffn_times(xb, p, G)
     ffn_ms, ffn_plain_ms, ffn_library_ms = ffn["ms"], ffn["plain_ms"], ffn["library_ms"]
     ffn_bound, ffn_by, ffn_bytes, ffn_ops = ffn["bound_ms"], ffn["bound_by"], ffn["bytes"], ffn["ops"]
@@ -2487,7 +2522,7 @@ def nbc2_phases(dev):
     ops = (ln, A, Wvo)
 
     # 30. rows 1-2 at nh 2
-    log(f"phase 30/60 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
+    log(f"phase 30/62 attention_block at NBC2-small's shape: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh} (dh {dh})")
     tc0, btc0 = ab.tc_launches, ab.bwd_tc_launches
     xb = torch.randn(M, T, H, generator=gen).to(dev).to(torch.bfloat16)
@@ -2596,7 +2631,7 @@ def nbc2_phases(dev):
     # 31. rows 4-5 at dh = dv = 48
     Ma = 2 * n_freq
     causal = torch.from_numpy(local_causal_mask(T, T)).clamp(min=-1e30).to(dev)
-    log(f"phase 31/60 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
+    log(f"phase 31/62 narrowband_attention at NBC2-small's heads: M={Ma} T={T} nh={nh} "
         f"dh=dv={dh}, no mask and causal")
     tc0, btc0 = att.tc_launches, att.bwd_tc_launches
     att_errs = {}
@@ -2680,7 +2715,7 @@ def nbc2_phases(dev):
     check_budget("attention at dh 48")
 
     # 32. serving
-    log(f"phase 32/60 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 32/62 NBC2-small serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16")
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
                          stft=STFT(n_fft=256, n_hop=128), norm=Norm(mode="frequency"),
@@ -2723,7 +2758,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 serving")
 
     # 33. training
-    log(f"phase 33/60 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 33/62 NBC2-small training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SA-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2749,7 +2784,7 @@ def nbc2_phases(dev):
     check_budget("nbc2 training")
 
     # 34. rates
-    log("phase 34/60 NBC2-small rates")
+    log("phase 34/62 NBC2-small rates")
     serve_s = seconds_per_call(lambda: module.predict_step(wave), 5)
     torch.cuda.reset_peak_memory_stats()
     train_s = seconds_per_call(lambda: trainer.train_step(batch), 5)
@@ -2804,7 +2839,7 @@ def blstm_phases(dev):
                 + att.bwd_launches + ssm.launches + ssm.bwd_launches + tconvffn.launches)
 
     # 35. serving
-    log(f"phase 35/60 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
+    log(f"phase 35/62 NB-BLSTM serving: TrainModule.forward + predict_step, B={B}, {CHANNELS} "
         f"ch, {SECONDS:g} s, bf16 and fp32")
     gen = torch.Generator().manual_seed(8)
     net = BLSTM2_FC1(**BLSTM_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -2842,7 +2877,7 @@ def blstm_phases(dev):
     check_budget("nb-blstm serving")
 
     # 36. training
-    log(f"phase 36/60 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
+    log(f"phase 36/62 NB-BLSTM training: Trainer fits {B_TRAIN} SyntheticDataset items for "
         f"{TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -2869,7 +2904,7 @@ def nbss_phase(dev):
     from nbss_tpu_torch.models.nbss import NBSS
     from nbss_tpu_torch.ops import attention_block as ab
 
-    log(f"phase 37/60 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
+    log(f"phase 37/62 NBSS (STFT 512/256, {NBC_CHANNELS} ch, {SECONDS:g} s at {NBC_FS} Hz, "
         "B=2): one forward for each arch in fp32 and bf16")
     gen = torch.Generator().manual_seed(9)
     wave = (0.1 * torch.randn(2, NBC_CHANNELS, int(SECONDS * NBC_FS), generator=gen)).to(dev)
@@ -2916,7 +2951,7 @@ def nbc_training_phases(dev):
     out = {}
     for phase, dropout in ((38, NBC_CFG["dropout"]), (39, 0.0)):
         bsz = NBC_B_TRAIN[dropout]
-        log(f"phase {phase}/60 NBC training at dropout {dropout:g}, {n_layers} of its "
+        log(f"phase {phase}/62 NBC training at dropout {dropout:g}, {n_layers} of its "
             f"{NBC_CFG['n_layers']} layers: Trainer fits {bsz} SyntheticDataset items "
             f"({NBC_CHANNELS} ch x {SECONDS:g} s at {NBC_FS} Hz) for {TRAIN_STEPS} steps, Adam "
             "1e-3, clip 5, bf16")
@@ -3107,7 +3142,7 @@ def large_phases(dev):
     ops = (ln, A, Wvo)
 
     # 40. rows 1-2 on the wide route
-    log(f"phase 40/60 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
+    log(f"phase 40/62 attention_block's wide route vs plain: forward M={M}, backward M={Mt}, "
         f"T={T} H={H} nh={nh}; M = {M_EDGE}, T = 1 ... {T_long} at H = 96 and 192, nh 2, 3, 4")
     counts0 = wide_counts()
     n_fwd = n_bwd = 0  # wide launches expected, half of each in bf16
@@ -3207,7 +3242,7 @@ def large_phases(dev):
     check_budget("wide route")
 
     # 41. SpatialNet-large serving, fused_ffn off and on
-    log(f"phase 41/60 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
+    log(f"phase 41/62 SpatialNet-large serving: TrainModule.forward + predict_step, B={B}, "
         f"{CHANNELS} ch, {SECONDS:g} s, bf16, fused_ffn off and on")
     net = SpatialNet(**LARGE, dtype=torch.bfloat16, generator=gen, device=dev).eval()
     module = TrainModule(arch=net, channels=tuple(range(CHANNELS)), ref_channel=0,
@@ -3254,7 +3289,7 @@ def large_phases(dev):
     check_budget("spatialnet-large serving")
 
     # 42. long utterances: 16 s, T = 1001
-    log(f"phase 42/60 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
+    log(f"phase 42/62 long-utterance serving: SpatialNet-small and -large, B={B_LONG} x "
         f"{LONG_SECONDS:g} s (T = {T_long}), bf16, through the wide route")
     wave_long = (0.1 * torch.randn(B_LONG, CHANNELS, int(LONG_SECONDS * FS), generator=gen)).to(dev)
     long_rates, long_sdrs = {}, {}
@@ -3292,7 +3327,7 @@ def large_phases(dev):
     check_budget("long-utterance serving")
 
     # 43. SpatialNet-large training
-    log(f"phase 43/60 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
+    log(f"phase 43/62 SpatialNet-large training: Trainer fits {B_TRAIN} SyntheticDataset items "
         f"for {TRAIN_STEPS} steps, Adam 1e-3, clip 5, neg-SI-SDR with PIT, bf16")
     batch = fixed_batch(B_TRAIN, CHANNELS, FS)
     losses = []
@@ -3350,7 +3385,7 @@ def large_phases(dev):
 
     # 44. NBC2-large
     nl2 = NBC2_LARGE_CFG["n_layers"]
-    log(f"phase 44/60 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
+    log(f"phase 44/62 NBC2-large (H {NBC2_LARGE_CFG['dim_hidden']}, "
         f"{NBC2_LARGE_CFG['n_heads']} heads, {nl2} layers): serving B={B} and "
         f"{NBC2_LARGE_STEPS} training steps at B={B_TRAIN}, bf16")
     net2 = NBC2(**NBC2_LARGE_CFG, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3457,7 +3492,7 @@ def scan_n_phases(dev, rows67):
         return [t.to(torch.bfloat16) if i in (0, 3, 4) else t for i, t in enumerate(ins)]
 
     # 45. kernels vs plain
-    log(f"phase 45/60 selective_scan and its backward at N = {SCAN_N} (passes of "
+    log(f"phase 45/62 selective_scan and its backward at N = {SCAN_N} (passes of "
         f"{ssm.STATE_GROUP} states) vs plain: forward at M={M_serve}, backward at M={M_train}, "
         f"T={T}, D={Dm}")
     checked = {}
@@ -3515,7 +3550,7 @@ def scan_n_phases(dev, rows67):
     check_budget("scan at any N")
 
     # 46. times
-    log(f"phase 46/60 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
+    log(f"phase 46/62 selective_scan times at N = {SCAN_TIMED_N} beside N = 16 (CUDA events, "
         "bf16, after warm-up)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -3617,7 +3652,7 @@ def online_n_phases(dev):
 
     # 47. mamba(64,4)
     cfg = dict(FLAGSHIP, attention=f"mamba({MAMBA_WIDE_N},4)")
-    log(f"phase 47/60 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
+    log(f"phase 47/62 OnlineSpatialNet {cfg['attention']}: serving B={B} x {SECONDS:g} s and "
         f"{WIDE_N_STEPS} training steps at B={B_TRAIN} (remat, dots), bf16")
     module = _online_module(OnlineSpatialNet(**cfg, dtype=torch.bfloat16, generator=gen,
                                              device=dev).eval())
@@ -3660,7 +3695,7 @@ def online_n_phases(dev):
     check_budget("mamba(64,4)")
 
     # 48. mamba(16,4), remat_policy='dots'
-    log(f"phase 48/60 OnlineSpatialNet {DOTS['attention']} with remat_policy='dots' at "
+    log(f"phase 48/62 OnlineSpatialNet {DOTS['attention']} with remat_policy='dots' at "
         f"{DOTS['num_layers']} layers: {TRAIN_STEPS}-step fit at B={B_TRAIN}, fp32 gradients "
         "against full recomputation, rates and peak memory of both policies in turns")
     n_layers = DOTS["num_layers"]
@@ -3723,7 +3758,7 @@ def retention_phase(dev):
     from nbss_tpu_torch.ops.metrics import si_sdr
 
     gen = torch.Generator().manual_seed(49)
-    log(f"phase 49/60 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
+    log(f"phase 49/62 OnlineSpatialNet {RET['attention']}: serving B={B} x {SECONDS:g} s, "
         f"streaming B={B_STREAM}, {TRAIN_STEPS}-step fit at B={B_TRAIN} with "
         "remat_policy='dots', fp32 gradients")
     net = OnlineSpatialNet(**RET, dtype=torch.bfloat16, generator=gen, device=dev).eval()
@@ -3877,7 +3912,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
     out = {}
     rir_dir = os.path.join(tmp, "rir8k")
     # 50. rooms
-    log(f"phase 50/60 rooms: nbss_tpu_torch.sim.generate with "
+    log(f"phase 50/62 rooms: nbss_tpu_torch.sim.generate with "
         f"run_spatialnet_convergence.sh's flags, --rir_nums {' '.join(map(str, RIR_NUMS))}")
     out["sim_s_per_room"] = _rendered(rir_dir, STATIC_SIM, RIR_NUMS, "static corpus")
     par = RirConfigSampler(spk_num=2, noise_num=0, arr_geometry="circular+cm", mic_num=6,
@@ -3908,7 +3943,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
     check_budget("rooms")
 
     # 51. mixtures
-    log("phase 51/60 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
+    log("phase 51/62 mixtures: DeviceSyntheticDataModule at device_synth.yaml's settings, "
         "preloaded, B=8 on the card against the CPU")
     init = load_configs(["configs/datasets/device_synth.yaml"])["data"]["init_args"]
     kw = dict(init, rir_dir=rir_dir, num_items=CLI_ITEMS, preload_rir=True,
@@ -3955,7 +3990,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
             f"--data.init_args.num_items={CLI_ITEMS}", f"--log_root={logs}",
             "--model.val_host_metrics=[STOI, eSTOI]", "--model.val_host_metrics_every=1"]
     steps = CLI_EPOCHS * CLI_ITEMS[0] // 8
-    log(f"phase 52/60 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
+    log(f"phase 52/62 fit: python -m nbss_tpu_torch.cli fit --config=configs/SpatialNet.yaml "
         f"--config=configs/datasets/device_synth.yaml, full width, bf16-mixed, {CLI_EPOCHS} "
         f"epochs of {CLI_ITEMS[0] // 8} steps at B=8, host metrics STOI/eSTOI every epoch")
     _zero_counts()
@@ -4012,7 +4047,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
 
     # 53. validate, test, predict, resume
     ckpt = os.path.join(log_dir, "checkpoints", f"epoch{CLI_EPOCHS - 1}")
-    log(f"phase 53/60 validate, test (the config's metrics), predict and a resumed fit "
+    log(f"phase 53/62 validate, test (the config's metrics), predict and a resumed fit "
         f"from {os.path.relpath(ckpt, tmp)}")
     _zero_counts()
     val = _cli("validate", args, ["--ckpt_path", ckpt])
@@ -4051,7 +4086,7 @@ def training_runs(dev, fixed_rate: float, tmp: str) -> dict:
 
     # 54. the moving run
     mdir = os.path.join(tmp, "rir8k_moving")
-    log(f"phase 54/60 moving run: sim.generate with run_moving_convergence.sh's flags, "
+    log(f"phase 54/62 moving run: sim.generate with run_moving_convergence.sh's flags, "
         f"--rir_nums {' '.join(map(str, MOVING_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml "
         f"+ device_synth_moving.yaml, {MOVING_STEPS} steps at B=8")
     out["moving_sim_s_per_room"] = _rendered(mdir, MOVING_SIM, MOVING_RIR_NUMS,
@@ -4315,7 +4350,7 @@ def sms_wsj_plus_phase(dev, tmp: str, fixed_rate: float) -> dict:
     n_layers = FLAGSHIP["num_layers"]
     logs = os.path.join(tmp, "logs")
     rir_dir = os.path.join(tmp, "rir8k")
-    log(f"phase 55/60 SMS-WSJ-Plus: python -m nbss_tpu_torch.cli fit "
+    log(f"phase 55/62 SMS-WSJ-Plus: python -m nbss_tpu_torch.cli fit "
         f"--config=configs/SpatialNet.yaml --config=configs/datasets/sms_wsj_plus.yaml, full "
         f"width, bf16-mixed, {SMS_STEPS} steps at B=2 and the validation split; test on whole "
         "utterances at B=1")
@@ -4530,7 +4565,7 @@ def chime3_phase(dev, tmp: str) -> dict:
     n_layers = ONLINE["num_layers"]
     logs = os.path.join(tmp, "logs")
     mdir = os.path.join(tmp, "rir8k_chime3")
-    log(f"phase 56/60 CHiME3-moving: sim.generate {' '.join(CHIME3_SIM[2:])} --rir_nums "
+    log(f"phase 56/62 CHiME3-moving: sim.generate {' '.join(CHIME3_SIM[2:])} --rir_nums "
         f"{' '.join(map(str, CHIME3_RIR_NUMS))}; fit configs/onlineSpatialNet.yaml + "
         f"configs/datasets/chime3_moving.yaml for {CHIME3_STEPS} steps at B=4 and a "
         "validation batch (B=8 x 32 s); test one 32-s item")
@@ -4590,7 +4625,7 @@ def other_corpora_phase(dev, tmp: str) -> dict:
     out = {}
     n_layers = NBC2_CFG["n_layers"]
     logs = os.path.join(tmp, "logs")
-    log("phase 57/60 the other corpora: SMS-WSJ, spatialized WSJ0-2mix, WHAMR!, LibriCSS, "
+    log("phase 57/62 the other corpora: SMS-WSJ, spatialized WSJ0-2mix, WHAMR!, LibriCSS, "
         "4-speaker WSJ0 pairs, REVERB (train/val and ET): first train and test batch each; "
         "configs/NBC2.yaml + spatialized_wsj0_mix.yaml, one fit step")
     r16 = os.path.join(tmp, "rir16k_libricss")
@@ -4685,7 +4720,7 @@ def parallel_runs(dev, tmp: str) -> dict:
     # 58. data parallel
     n, backend = (min(cards, 4), "nccl") if cards >= 2 else (2, "gloo")
     where = f"{n} cards" if backend == "nccl" else "2 ranks sharing the one card"
-    log(f"phase 58/60 data parallel: SpatialNet-small at full width, bf16, global B={pp.B} over "
+    log(f"phase 58/62 data parallel: SpatialNet-small at full width, bf16, global B={pp.B} over "
         f"{n} ranks ({backend}, {where}); one fp32 step's all-reduced gradient, a {DP_STEPS}-step "
         "fit, then its rate; and a 1-rank NCCL group")
     res = pp.run(n, backend, DP_STEPS, grads=True, rate_steps=DP_RATE_STEPS)
@@ -4725,7 +4760,7 @@ def parallel_runs(dev, tmp: str) -> dict:
             "--trainer.precision=bf16-mixed", f"--data.init_args.rir_dir={rir_dir}",
             "--data.init_args.num_items=[24, 8, 4, 4]", f"--log_root={logs}",
             f"--trainer.devices={cards}"]
-    log(f"phase 59/60 cli fit --trainer.devices={cards} --trainer.write_flops=true "
+    log(f"phase 59/62 cli fit --trainer.devices={cards} --trainer.write_flops=true "
         f"({DP_CLI_STEPS} steps at B=8, one validation batch), then cli test from its checkpoint")
     _zero_counts()
     fit = _cli("fit", args, ["--trainer.max_epochs=1",
@@ -4777,7 +4812,7 @@ def mvdr_phase(dev, rir_dir: str) -> dict:
     dm = DeviceSyntheticDataModule(**dict(init, rir_dir=rir_dir, num_items=[8, 8, 8, 8],
                                           seeds=(5, 2, 3, 3)), device=str(dev))
     x, ys, _ = next(iter(dm.train_dataloader(0)))
-    log(f"phase 60/60 oracle MVDR (STFT {MVDR_STFT}) on {x.shape[0]} mixtures made on the card "
+    log(f"phase 60/62 oracle MVDR (STFT {MVDR_STFT}) on {x.shape[0]} mixtures made on the card "
         f"({x.shape[1]} ch x {x.shape[-1] / FS:g} s): speaker 0's direct path at channel 0")
     stft = STFT(n_fft=MVDR_STFT[0], n_hop=MVDR_STFT[1])
     before, after = [], []
@@ -4796,6 +4831,232 @@ def mvdr_phase(dev, rir_dir: str) -> dict:
     if not sum(gain) / len(gain) > 3.0:
         raise AssertionError(f"MVDR improved SI-SDR by {gain} dB")
     return {"si_sdr_gain_db": gain, "seconds": seconds}
+
+
+# phases 61-62: the JAX package's committed epoch-39 runs, converted into the port's layout by
+# scripts/convert_jax_checkpoint.py, and that package's outputs on two regenerated test items
+TRAINED_RUNS = {"spatialnet": "checkpoints_torch/SpatialNet/version_0",
+                "online": "checkpoints_torch/OnlineSpatialNet/version_0"}
+GOLDEN, TRAINED_EPOCH = "checkpoints_torch/epoch39_golden.npz", 39
+GOLDEN_FP32_DB = 60.0  # float32 against the JAX package's float32, each item and speaker
+GOLDEN_METRIC_DB = 0.05  # each item's SI-SDR and SI-SDRi against the JAX package's
+CLI_TEST_ITEMS = 4  # cli test items over phase 50's two static / phase 54's one moving test room
+CLI_TEST_SI_SDRI_DB = 5.0  # an untrained or wrongly loaded model gives about 0 dB
+# printed beside this run's numbers (other rooms, on a TPU): the committed test sets' mean
+# SI-SDRi over 256 items (logs/<Arch>/version_0/epoch39_test_set/results_mean.json), and
+# logs/OnlineSpatialNet/version_0/streaming_eval_epoch39.json's stream against offline
+COMMITTED_SI_SDRI_DB = {"spatialnet": 11.89, "online": 12.40}
+COMMITTED_STREAM_DB = 34.07
+
+
+def trained_models(dev, tmp: str) -> dict:
+    """Phases 61-62: the two committed models on the card, held against the
+    JAX package's outputs on the same mixtures and run through ``cli test``
+    over phase 50's and phase 54's rooms under ``tmp``."""
+    import numpy as np
+
+    with np.load(GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    out = {"golden": {"commit": str(golden["commit"]), "rooms": golden["rir_file"].tolist()}}
+    # both cli test processes start first and run beside the checks in this process (each
+    # spends most of its time starting Python, torch and its CUDA context)
+    tests = {model: start_cli_test(model, tmp) for model in TRAINED_RUNS}
+    try:
+        for number, model, label in ((61, "spatialnet", "trained SpatialNet-small"),
+                                     (62, "online", "trained OnlineSpatialNet")):
+            out[model] = trained_phase(number, model, dev, golden)
+            out[model].update(finish_cli_test(model, *tests[model]))
+            fresh_start()
+            check_budget(label)
+    finally:
+        for proc, *_ in tests.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def start_cli_test(model: str, tmp: str):
+    """``python -m nbss_tpu_torch.cli test`` from a temporary copy of the
+    converted run (test writes epoch39_test_set/ beside the checkpoints),
+    over phase 50's static or phase 54's moving test rooms under ``tmp``;
+    returns (process, copy, log file, start time)."""
+    import shutil
+
+    run = TRAINED_RUNS[model]
+    copy = os.path.join(tmp, "trained", os.path.basename(os.path.dirname(run)), "version_0")
+    shutil.copytree(run, copy)
+    rir_dir = os.path.join(tmp, "rir8k" if model == "spatialnet" else "rir8k_moving")
+    cmd = [sys.executable, "-m", "nbss_tpu_torch.cli", "test",
+           f"--config={copy}/config.yaml",
+           f"--ckpt_path={copy}/checkpoints/epoch{TRAINED_EPOCH}",
+           f"--data.init_args.rir_dir={rir_dir}",
+           f"--trainer.limit_test_batches={CLI_TEST_ITEMS}",
+           "--model.metrics=[SI_SDR, SDR]", "--model.write_examples=0"]
+    log(f"started python -m nbss_tpu_torch.cli test --config=<copy of {run}>/config.yaml "
+        f"--ckpt_path=<copy>/checkpoints/epoch{TRAINED_EPOCH} over "
+        f"{os.path.basename(rir_dir)}'s test rooms, {CLI_TEST_ITEMS} items")
+    out = os.path.join(tmp, f"cli_test_{model}.log")
+    with open(out, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, copy, out, time.perf_counter()
+
+
+def finish_cli_test(model: str, proc, copy: str, out: str, t1: float) -> dict:
+    """Wait for ``start_cli_test``'s process and hold its mean SI-SDRi."""
+    proc.wait(timeout=300)
+    res = {"cli_test_s": time.perf_counter() - t1}
+    if proc.returncode != 0:
+        with open(out) as f:
+            raise RuntimeError(f"cli test of {model} exited {proc.returncode}: {f.read()[-3000:]}")
+    with open(os.path.join(copy, f"epoch{TRAINED_EPOCH}_test_set", "results_mean.json")) as f:
+        mean = json.load(f)
+    res["cli_test"] = {k: mean[k] for k in ("SI_SDR", "SI_SDR_i", "SDR", "SDR_i")}
+    log(f"cli test: {res['cli_test']} over {CLI_TEST_ITEMS} items, {res['cli_test_s']:.1f} s "
+        f"after its start; mean SI-SDRi {mean['SI_SDR_i']:.2f} dB (bound >= "
+        f"{CLI_TEST_SI_SDRI_DB:g}), the committed test set's {COMMITTED_SI_SDRI_DB[model]} dB "
+        "(256 items, other rooms, on a TPU)")
+    if not mean["SI_SDR_i"] >= CLI_TEST_SI_SDRI_DB:
+        raise AssertionError(f"cli test of the trained {model}: mean SI-SDRi "
+                             f"{mean['SI_SDR_i']} dB < {CLI_TEST_SI_SDRI_DB} dB")
+    return res
+
+
+def _item_metrics(yr_hat, yr, x_ref):
+    """Per item: SI-SDR after PIT, the mean over speakers, and its gain over
+    the reference channel of the mixture (the golden fixture's definition)."""
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.ops.pit import permutate, pit
+
+    def mean_si_sdr(preds, target):
+        return si_sdr(preds, target).mean(-1)
+
+    _, perm = pit(preds=yr_hat, target=yr, metric_func=mean_si_sdr)
+    sdr = mean_si_sdr(permutate(yr_hat, perm), yr)
+    sdr_in = mean_si_sdr(x_ref[:, None].expand_as(yr), yr)
+    return sdr.double().cpu().numpy(), (sdr - sdr_in).double().cpu().numpy()
+
+
+def trained_phase(number: int, model: str, dev, golden: dict) -> dict:
+    """One committed model: restore, and hold each path in float32 and bf16
+    against the golden outputs with its kernel's launches counted."""
+    import numpy as np
+    import torch
+
+    from nbss_tpu_torch.cli.config import load_configs
+    from nbss_tpu_torch.cli.main import build_module
+    from nbss_tpu_torch.ops import attention_block as ab
+    from nbss_tpu_torch.ops import ssm
+    from nbss_tpu_torch.ops.metrics import si_sdr
+    from nbss_tpu_torch.train.ckpt import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    run = TRAINED_RUNS[model]
+    cfg = load_configs([os.path.join(run, "config.yaml")])
+    restored = CheckpointManager(os.path.join(run, "checkpoints")).restore(TRAINED_EPOCH)
+    arch_name = cfg["model"]["arch"]["class_path"].rsplit(".", 1)[-1]
+    n_layers = cfg["model"]["arch"]["init_args"]["num_layers"]
+    log(f"phase {number}/62 the trained {arch_name} ({run}, epoch {restored['epoch']}, "
+        f"{len(restored['params'])} tensors, optimizer state {'opt_state' in restored}) "
+        f"against the JAX package's outputs on {golden['x'].shape[0]} test mixtures "
+        f"({', '.join(golden['rir_file'])})")
+    if "opt_state" in restored or restored["epoch"] != TRAINED_EPOCH:
+        raise AssertionError(f"{run}: restored {sorted(restored)} at epoch {restored['epoch']}")
+    x = torch.from_numpy(golden["x"]).to(dev)
+    yr = torch.from_numpy(golden["yr"]).to(dev)
+    ref = cfg["model"].get("ref_channel", 0)
+    paths = ("forward", "streaming") if model == "online" else ("forward",)
+    # the launches each path must make, read just after it: row 1's (all, tensor-core; bf16
+    # takes the tensor-core kernel, float32 the CUDA-core one), row 6's (forward, backward:
+    # two Mamba blocks a layer; the stream runs ssm.step, the JAX package's XLA step, and
+    # launches no scan)
+    if model == "spatialnet":
+        def counts():
+            return ab.launches, ab.tc_launches
+
+        def expected(path, prec):
+            return n_layers, n_layers if prec == "bf16" else 0
+    else:
+        def counts():
+            return ssm.launches, ssm.bwd_launches
+
+        def expected(path, prec):
+            return 2 * n_layers if path == "forward" else 0, 0
+    res = {"launches": {}, "db_fp32": {}, "bf16_l2_ratio": {}, "si_sdr": {}, "si_sdri": {}}
+    ys = {}
+    for prec, precision in (("fp32", "32"), ("bf16", "bf16-mixed")):
+        module = build_module({**cfg, "trainer": {**cfg["trainer"], "precision": precision}}, dev)
+        module.arch.load_state_dict(restored["params"], strict=True)
+        module.arch.eval()
+        res["parameters"] = sum(p.numel() for p in module.arch.parameters())
+        for path in paths:
+            fn = module.forward if path == "forward" else module.forward_streaming
+            _zero_counts()
+            t1 = time.perf_counter()
+            y, _ = fn(x)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            got = counts()
+            label = f"{path} {prec}"
+            if got != expected(path, prec):
+                raise AssertionError(f"{arch_name} {label}: launches {got}, expected "
+                                     f"{expected(path, prec)}")
+            res["launches"][label] = got[0]
+            y = y.float()
+            if y.shape != yr.shape or not torch.isfinite(y).all():
+                raise AssertionError(f"{arch_name} {label}: shape {tuple(y.shape)}, finite "
+                                     f"{bool(torch.isfinite(y).all())}")
+            ys[path, prec] = y
+            key = f"{model}_{path}"
+            g32 = torch.from_numpy(golden[f"{key}_fp32"]).to(dev)
+            sdr, sdri = _item_metrics(y, yr, x[:, ref])
+            res["si_sdr"][label], res["si_sdri"][label] = sdr.tolist(), sdri.tolist()
+            if prec == "fp32":
+                db = si_sdr(y, g32)  # [item, speaker]
+                d_sdr = np.abs(sdr - golden[f"{key}_fp32_si_sdr"]).max()
+                d_sdri = np.abs(sdri - golden[f"{key}_fp32_si_sdri"]).max()
+                res["db_fp32"][path] = db.min().item()
+                log(f"{label}: {res['parameters']} parameters loaded (strict); {got[0]} kernel "
+                    f"launches; against the JAX float32 output "
+                    f"SI-SDR {[round(v, 1) for v in db.flatten().tolist()]} dB (bound >= "
+                    f"{GOLDEN_FP32_DB:g} each); items' SI-SDR {np.round(sdr, 3).tolist()} "
+                    f"(JAX {np.round(golden[f'{key}_fp32_si_sdr'], 3).tolist()}), SI-SDRi "
+                    f"{np.round(sdri, 3).tolist()} (JAX "
+                    f"{np.round(golden[f'{key}_fp32_si_sdri'], 3).tolist()}): largest gaps "
+                    f"{d_sdr:.4f} and {d_sdri:.4f} dB (bound {GOLDEN_METRIC_DB}); {seconds:.2f} s")
+                if not (db.min().item() >= GOLDEN_FP32_DB and d_sdr <= GOLDEN_METRIC_DB
+                        and d_sdri <= GOLDEN_METRIC_DB):
+                    raise AssertionError(f"{arch_name} {label} against the JAX package: SI-SDR "
+                                         f"{db.tolist()}, metric gaps {d_sdr}, {d_sdri} dB")
+            else:
+                gbf = torch.from_numpy(golden[f"{key}_bf16"]).to(dev)
+                err = torch.linalg.vector_norm(y - g32).item()
+                j_err = torch.linalg.vector_norm(gbf - g32).item()
+                res["bf16_l2_ratio"][path] = err / j_err
+                log(f"{label}: {got[0]} kernel launches; |port bf16 - JAX fp32| = {err:.4e}, "
+                    f"|JAX bf16 - JAX fp32| = {j_err:.4e} (L2; ratio {err / j_err:.3f}, bound "
+                    f"2); against the JAX bf16 output SI-SDR "
+                    f"{si_sdr(y, gbf).min().item():.1f} dB; items' SI-SDR "
+                    f"{np.round(sdr, 3).tolist()} (JAX bf16 "
+                    f"{np.round(golden[f'{key}_bf16_si_sdr'], 3).tolist()}), SI-SDRi "
+                    f"{np.round(sdri, 3).tolist()}; {seconds:.2f} s")
+                if not err <= 2.0 * j_err:
+                    raise AssertionError(f"{arch_name} {label}: L2 error {err} against the JAX "
+                                         f"float32 output > 2 x the JAX bf16 output's {j_err}")
+        del module
+    if model == "online":
+        res["stream_vs_offline_db"] = {
+            prec: si_sdr(ys["streaming", prec], ys["forward", prec]).mean().item()
+            for prec in ("fp32", "bf16")}
+        log(f"stream against offline: {res['stream_vs_offline_db']} dB (mean over items and "
+            f"speakers); streaming_eval_epoch39.json: {COMMITTED_STREAM_DB} dB, other rooms, "
+            "on a TPU")
+    del ys, x, yr
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 def stop_rank_servers() -> None:

@@ -142,15 +142,27 @@ def build_trainer(cfg: Dict, module: TrainModule, logger, log_dir: str, device) 
     )
 
 
+# the JAX package's committed epoch-39 runs and their converted copies in the port's layout
+CONVERTED_RUNS = {f"logs/{arch}/version_0/checkpoints/epoch39":
+                  f"checkpoints_torch/{arch}/version_0"
+                  for arch in ("SpatialNet", "OnlineSpatialNet")}
+
+
 def _checkpoint_dirs(ckpt_path: str):
     """(version dir, checkpoints dir, epoch or None) of a checkpoint the port
-    wrote; an orbax checkpoint of the JAX package raises."""
+    wrote; an orbax checkpoint of the JAX package raises, naming the
+    converted copy where the repository holds one."""
     ckpt_path = os.path.abspath(ckpt_path)
     if os.path.isdir(os.path.join(ckpt_path, "params")):
+        converted = [v for k, v in CONVERTED_RUNS.items()
+                     if ckpt_path.replace(os.sep, "/").endswith("/" + k)]
+        hint = (f"; its converted copy is {converted[0]}: --config={converted[0]}/config.yaml "
+                f"--ckpt_path={converted[0]}/checkpoints/epoch39" if converted else "")
         raise ValueError(
             f"{ckpt_path} is an orbax checkpoint of the JAX package, which the port cannot "
-            "read; convert its weights with nbss_tpu_torch/utils/convert.py (on a machine "
-            "with JAX and orbax) and save them as the port's checkpoint")
+            "read; convert its run with scripts/convert_jax_checkpoint.py (the functions of "
+            "nbss_tpu_torch/utils/convert.py, on a machine with JAX and orbax) into the "
+            f"port's checkpoint layout{hint}")
     base = os.path.basename(ckpt_path)
     epoch = None
     if base.startswith("epoch"):
